@@ -7,7 +7,10 @@ code is PyTorch; every TPU kernel on the ported path is a CUDA C++ kernel
 under `csrc/`, built with nvcc at its first launch (`kernels/build.py`).
 
 Ported so far: the forward-only render (the viewer / serving path),
-`render(...)` with `RenderConfig(use_pallas=True, forward_only=True)`.
+`render(...)` with `RenderConfig(use_pallas=True, forward_only=True)`, and
+one single-view training step, `train.trainer.train_step(...)` with
+`RenderConfig(use_pallas=True)` (differentiable render, fused L1 + SSIM
+loss, AdamScaled, the overflow no-op gate).
 Importing the package builds and loads nothing CUDA-specific.
 """
 

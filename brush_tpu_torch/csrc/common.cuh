@@ -10,35 +10,3 @@
 static inline int brush_last_error() {
   return static_cast<int>(cudaGetLastError());
 }
-
-// Inclusive scan of one uint32 per thread across the block (wrapping
-// arithmetic, so int32 sums wrap exactly as in PyTorch and XLA).
-// `warp_sums` is shared scratch of at least blockDim.x / 32 entries.
-// Requires blockDim.x to be a multiple of 32.
-__device__ __forceinline__ uint32_t block_inclusive_scan(uint32_t v,
-                                                         uint32_t* warp_sums) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    uint32_t n = __shfl_up_sync(full, v, off);
-    if (lane >= off) v += n;
-  }
-  __syncthreads();  // warp_sums may still be read by a previous call
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < nwarps ? warp_sums[lane] : 0u;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      uint32_t n = __shfl_up_sync(full, w, off);
-      if (lane >= off) w += n;
-    }
-    if (lane < nwarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  return v;
-}

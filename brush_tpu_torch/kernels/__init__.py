@@ -16,7 +16,17 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, NamedTuple
 
-KERNEL_NAMES = ("scan", "stack", "emit", "rasterize_fwd")
+# `scan` is the int32 sum of the binning; `scan_f32` and `scan_max` are the
+# other two variants of the same kernel (no caller on a render or training
+# path yet).
+KERNEL_NAMES = ("scan", "stack", "emit", "rasterize_fwd",
+                "rasterize_fwd_train", "rasterize_bwd", "scan_f32",
+                "scan_max")
+# The kernels a forward-only render launches, and those one training step
+# launches.
+SERVE_PATH = ("scan", "stack", "emit", "rasterize_fwd")
+TRAIN_PATH = ("scan", "stack", "emit", "rasterize_fwd_train",
+              "rasterize_bwd")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 _captured: list | None = None

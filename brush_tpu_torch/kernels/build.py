@@ -44,10 +44,14 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "brush_scan_block_items": [],
     "brush_scan_rows_i32": [_P, _P, _P, _I, _L, _P],
+    "brush_scan_rows_f32": [_P, _P, _P, _I, _L, _P],
+    "brush_scan_rows_max_i32": [_P, _P, _P, _I, _L, _P],
     "brush_stack_rows": [_P, _I, _L, _P, _I, _L, _P],
     "brush_stack_max_rows": [],
     "brush_emit_slots": [_P, _L, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P],
     "brush_rasterize_fwd_diet": [_P, _L, _P, _P, _P, _I, _P],
+    "brush_rasterize_fwd_train": [_P, _L, _P, _P, _P, _I, _I, _P],
+    "brush_rasterize_bwd": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

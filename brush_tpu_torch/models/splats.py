@@ -45,6 +45,12 @@ class Splats:
                     quats=self.quats, sh_coeffs=self.sh_coeffs,
                     raw_opacities=self.raw_opacities)
 
+    def with_params(self, p: dict) -> "Splats":
+        return dataclasses.replace(
+            self, means=p["means"], log_scales=p["log_scales"],
+            quats=p["quats"], sh_coeffs=p["sh_coeffs"],
+            raw_opacities=p["raw_opacities"])
+
     def alive_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.means.device) < self.n_alive
 

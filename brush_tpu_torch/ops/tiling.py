@@ -1,5 +1,5 @@
 """Tile binning: exact tile counts -> slot emission -> key sort -> SoA
-(port of `brush_tpu/ops/tiling.py`, forward-only variant).
+(port of `brush_tpu/ops/tiling.py`).
 
 Everything runs in global splat order; depth order comes from the sort
 key (positive-float bit patterns order as unsigned ints). Each splat's
@@ -14,10 +14,16 @@ On this path:
   * `emit_slots` (ops/emit_cuda.py) writes the sort operands;
   * a stable `torch.sort` on the int64 key + index_select of the payload
     rows is the sort, and `torch.searchsorted` finds the tile ranges;
-  * `stack_rows` (ops/scan_cuda.py) assembles the diet SoA.
+  * `stack_rows` (ops/scan_cuda.py) assembles the SoA.
 
-The training variant (`with_bwd_info=True`: gid payload, surviving-slot
-bookkeeping, 16-row SoA) belongs to the training slice of the port.
+Two variants, as in the JAX package. Forward only (`with_bwd_info=False`):
+the payload diets to 6 words a slot before the sort and the SoA has 8
+int32 rows. Training (`with_bwd_info=True`): the nine f32 payload rows and
+the splat id ride the sort as they are, the SoA has 16 f32 rows (0,1 xy
+absolute, 2..4 conic, 5 opacity, 6..8 rgb, 9 gid, rest zero), and the
+per-splat surviving-slot counts and starts are formed. Binning carries no
+gradient: it runs without autograd on detached inputs, and the parameter
+gradients come from the rasterizer's backward.
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ from brush_tpu_torch.ops.tiling_key import (
 from brush_tpu_torch.utils.tracing import stage
 
 # The forward-only diet SoA, as in the JAX package: the 6 pack_fwd_rows
-# words + 2 zero rows.
+# words + 2 zero rows. The training SoA: 9 payload rows + gid + 6 zero rows.
 DIET_SOA_ROWS = 8
+SOA_ROWS = 16
 # Chunk length of the JAX rasterizer; `num_chunks` keeps its meaning (the
-# training slice's gradient capacity), and LANE_PAD keeps the SoA shape.
+# JAX backward's gradient capacity, which the trainer's overflow gate still
+# compares), and LANE_PAD keeps the SoA shape.
 CK = 256
 LANE_PAD = CK + 128
 
@@ -53,13 +61,16 @@ class Intersections(NamedTuple):
     num_isects: torch.Tensor       # [] int32 REMAINDER slots needed
     num_bbox_tail: torch.Tensor    # [] int32 slots on bbox-tail semantics
     num_isects_aligned: torch.Tensor  # [] int32 chunk-space slots (NC*CK)
-    gid_from_isect: torch.Tensor   # [0] (training slice)
+    gid_from_isect: torch.Tensor   # [S] int32 splat id per sorted slot
+    #   ([0] forward only)
     tile_ranges: torch.Tensor      # [T,2] int32 raw (start, end)
-    soa: torch.Tensor              # [8, S + LANE_PAD] int32 diet SoA words
+    soa: torch.Tensor              # [16, S + LANE_PAD] f32 training SoA, or
+    #   [8, S + LANE_PAD] int32 diet SoA words forward only
     chunk_starts: torch.Tensor     # [T] int32 exclusive cumsum of chunks
     num_chunks: torch.Tensor       # [] int32 total chunks
-    surv_starts_g: torch.Tensor    # [0] (training slice)
-    surv_counts_g: torch.Tensor    # [0] (training slice)
+    surv_starts_g: torch.Tensor    # [N] int32 exclusive cumsum of the counts
+    surv_counts_g: torch.Tensor    # [N] int32 slots each splat emitted
+    #   (both [0] forward only)
 
 
 def will_contribute(tile_x, tile_y, mx, my, c00, c01, c11, power_threshold):
@@ -138,6 +149,7 @@ def _cumsum_flat(x):
     return cumsum_rows(x[None, :])[0]
 
 
+@torch.no_grad()
 def build_intersections(
     proj: ProjectedSplats,
     img_size: tuple[int, int],
@@ -146,11 +158,8 @@ def build_intersections(
     chunk_cap: int | None = None,
     with_bwd_info: bool = True,
 ) -> Intersections:
-    if with_bwd_info:
-        raise NotImplementedError(
-            "build_intersections(with_bwd_info=True) belongs to the training "
-            "slice of the port; this slice renders forward only")
-    del chunk_cap  # backward gradient capacity (training slice)
+    del chunk_cap  # the JAX backward's gradient capacity: the caller's
+    #   business (RenderConfig.resolved_chunk_cap), unused by the binning
     img_w, img_h = img_size
     tile_bw = -(-img_w // TILE_WIDTH)
     tile_bh = -(-img_h // TILE_WIDTH)
@@ -194,18 +203,28 @@ def build_intersections(
     with stage("emit"):
         key, rows10 = emit_slots(table_rows, rem_starts, k0, rem_cap,
                                  img_size)
-        s_cap, _ = emit_sizes(n, k0, rem_cap)
+        s_cap, eff_rem_cap = emit_sizes(n, k0, rem_cap)
 
-    # The payload diets to 6 words a slot before the sort (tiling_key).
-    with stage("pack"):
-        packed = pack_fwd_rows(key, [rows10[r] for r in range(9)],
-                               num_tiles, tile_bw)
-
-    with stage("sort"):
-        key_sorted, packed_sorted = sort_packed(key, packed)
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    if with_bwd_info:
+        # The ten f32 rows (9 payload + gid) ride the sort as they are.
+        with stage("sort"):
+            key_sorted, rows_sorted = sort_packed(
+                key, [rows10[r] for r in range(10)])
+            gid_from_isect = rows_sorted[9].to(torch.int32)
+        soa_rows = SOA_ROWS
+    else:
+        # The payload diets to 6 words a slot before the sort (tiling_key).
+        with stage("pack"):
+            packed = pack_fwd_rows(key, [rows10[r] for r in range(9)],
+                                   num_tiles, tile_bw)
+        with stage("sort"):
+            key_sorted, rows_sorted = sort_packed(key, packed)
+        gid_from_isect = empty
+        soa_rows = DIET_SOA_ROWS
 
     with stage("stack"):
-        soa = stack_rows(packed_sorted, DIET_SOA_ROWS, s_cap + LANE_PAD)
+        soa = stack_rows(rows_sorted, soa_rows, s_cap + LANE_PAD)
 
     with stage("ranges"):
         bounds = torch.searchsorted(
@@ -218,17 +237,27 @@ def build_intersections(
         num_chunks = ccum[-1]
         chunk_starts = ccum - nchunks
 
-    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    # Slots each splat really emitted: its exact count, less the remainder
+    # slots cut off where the remainder region overflowed (the emission's
+    # remainder width is rem_cap itself in this layout).
+    if with_bwd_info:
+        with stage("scan"):
+            avail_rem = torch.clamp_min(eff_rem_cap - rem_starts, 0)
+            emitted = torch.minimum(counts, k0 + avail_rem)
+            surv_starts_g = _cumsum_flat(emitted) - emitted
+    else:
+        emitted = surv_starts_g = empty
+
     return Intersections(
         num_visible=num_visible,
         num_isects=rem_needed,
         num_bbox_tail=num_bbox_tail,
         num_isects_aligned=num_chunks * CK,
-        gid_from_isect=empty,
+        gid_from_isect=gid_from_isect,
         tile_ranges=tile_ranges,
         soa=soa,
         chunk_starts=chunk_starts,
         num_chunks=num_chunks,
-        surv_starts_g=empty,
-        surv_counts_g=empty,
+        surv_starts_g=surv_starts_g,
+        surv_counts_g=emitted,
     )

@@ -4,7 +4,9 @@
 `torch.profiler.record_function` range, so stages show up named in
 profiler traces; inside a `record_stages()` block it also records a CUDA
 event pair on the current stream, so a caller can read each stage's time
-on the card after a synchronize. Stages are flat (never nested).
+on the card after a synchronize. The render's stages are flat; the
+trainer's `backward` stage contains the rasterizer's `rasterize_bwd` and
+`reduce` stages (a parent's time includes its children's).
 """
 
 from __future__ import annotations

@@ -18,13 +18,32 @@ Phases, each of which must pass (any failure exits non-zero):
              every kernel of the path must have launched.
 3. golden  — renders the gsplat golden fixture tests/data/basic_case
              through the same CUDA path and holds it to the fixture image.
-4. kernels — each kernel against its plain PyTorch version, on the card,
-             on the inputs the serving phase gave it (scan, stack and emit
-             bit-exact; the rasterizer within a few ulps), with its time, the
-             plain version's, a library call's where one computes the same
+4. train   — the training path: `init_train_state` on the same 1M scene,
+             a ground truth rendered from a second scene, and
+             `train_step(state, batch, TrainConfig(), RenderConfig(
+             use_pallas=True))`: one warm-up step, then timed steps with no
+             synchronize inside; asserts no overflow, finite loss,
+             parameters and moments, the step count, refine statistics
+             and that every parameter array moved; prints step ms, host
+             enqueue ms, the stage split and peak memory. Counters zeroed
+             before, read after: every kernel of the training path must
+             have launched.
+5. golden-train — gradients of a render of the golden fixture through the
+             CUDA path, held to tests/data/torch_train_golden.npz (the JAX
+             package's oracle gradients; the card's machine has no JAX).
+6. direct  — the scan kernel's f32-sum and int32-max variants, which no
+             render or training path calls yet, driven once at the width
+             of the training scene's slot space.
+7. kernels — each kernel against its plain PyTorch version, on the card,
+             on the inputs the serving frame, the training step and the
+             direct calls gave it (scan, stack and emit bit-exact; the
+             forward rasterizers within a few ulps; the backward within
+             1e-5 of each gradient row's largest entry; the f32 scan within
+             1e-6 of the running sum of |x|), with its time, the plain
+             version's, a library call's where one computes the same
              function, and its bound on the card.
-5. profile — one frame per view under torch.profiler: the device's busy
-             time per frame, its idle share and the top device ops.
+8. profile — frames and training steps under torch.profiler: the device's
+             busy time, its idle share and the top device ops.
 
 The last lines are the `kernels` JSON, the card's name and power limit
 from nvidia-smi, and the result JSON. No GPU, or no brush_tpu_torch next to
@@ -54,6 +73,7 @@ SEED = 42
 N_VIEWS = 3
 YAW = 0.3
 FRAMES = 12          # timed frames after the warm-up
+TRAIN_STEPS = 5      # timed training steps after the warm-up step
 ITERS = 20           # launches per kernel timing
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -65,6 +85,16 @@ F32_OPS_PER_S = 67e12
 # mul, compare for the next T; 1 mul for the weight; 3 mul + 3 add for
 # colour (max(rgb, 0) is taken once per slot, not per pair).
 RASTER_OPS_PER_PAIR = 27
+# The backward replays the forward for every (pixel, slot) pair of a tile's
+# useful range until the pixel is done: the 27 above less the 6 of colour,
+# 21. Where the pair was blended it does about 54 more: 3 mul + 2 add for
+# v_w; mul + sub for r_after; mul, add, sub, div, sub for v_alpha; 1
+# compare with the saturation cutoff; negate + mul for v_sigma; 3 + 3 for
+# the two conic-times-offset sums and 2 + 2 for v_xy; 3 + 2 + 3 mul for
+# v_conic; 1 mul for v_opac; 3 mul for v_rgb; 2 mul, 2 squares, add, sqrt,
+# mul for the refine weight; 11 adds into the slot's sums.
+BWD_REPLAY_OPS_PER_PAIR = 21
+BWD_BLEND_OPS_PER_PAIR = 54
 
 KERNEL_META = {
     "scan": ("brush_tpu_torch/csrc/scan.cu",
@@ -77,6 +107,19 @@ KERNEL_META = {
     "rasterize_fwd": ("brush_tpu_torch/csrc/rasterize.cu",
                       "brush_tpu/ops/rasterize_pallas.py:152",
                       "ops/rasterize_pallas.py:_fwd_kernel(fwd_only=True)"),
+    "rasterize_fwd_train": ("brush_tpu_torch/csrc/rasterize.cu",
+                            "brush_tpu/ops/rasterize_pallas.py:152",
+                            "ops/rasterize_pallas.py:_fwd_kernel"
+                            "(fwd_only=False)"),
+    "rasterize_bwd": ("brush_tpu_torch/csrc/rasterize_bwd.cu",
+                      "brush_tpu/ops/rasterize_pallas.py:431",
+                      "ops/rasterize_pallas.py:_bwd_kernel"),
+    "scan_f32": ("brush_tpu_torch/csrc/scan.cu",
+                 "brush_tpu/ops/scan_pallas.py:43",
+                 "ops/scan_pallas.py:_scan_kernel (f32 sum)"),
+    "scan_max": ("brush_tpu_torch/csrc/scan.cu",
+                 "brush_tpu/ops/scan_pallas.py:43",
+                 "ops/scan_pallas.py:_scan_kernel (int32 max)"),
 }
 
 
@@ -251,11 +294,12 @@ def phase_serve(torch):
         f"events on the stream; sum {sum(stages.values()):.4f}): "
         + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     log(f"[serve] launches over {n_frames} frames: {json.dumps(launches)}")
-    for name in kernels.KERNEL_NAMES:
+    for name in kernels.SERVE_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
     return dict(median_ms=statistics.median(ms), stages=stages,
                 host_ms=statistics.median(host_ms), launches=launches,
-                frames=n_frames, captured=captured, frame=frame)
+                frames=n_frames, captured=captured, frame=frame,
+                splats=splats, plans=plans)
 
 
 def phase_golden(torch):
@@ -281,16 +325,227 @@ def phase_golden(torch):
           "golden image mismatch")
 
 
+def phase_train(torch, serve):
+    """The training path at full width: a few `train_step`s on the served
+    scene against a ground truth rendered from a second scene."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.ops import loss as loss_mod
+    from brush_tpu_torch.ops.capacity import plan_caps
+    from brush_tpu_torch.render import RenderConfig, camera_inputs, render
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import (
+        SceneBatch, init_train_state, train_step)
+    from brush_tpu_torch.utils.synthetic import bench_splats
+    from brush_tpu_torch.utils.tracing import record_stages, stage_ms
+
+    img = IMG_SIZE
+    _, ci, serve_cfg = serve["plans"][0]
+    t0 = time.perf_counter()
+    # Ground truth: another random scene through the forward-only render,
+    # so the gradients are those of a real image and not of noise.
+    other = bench_splats(N_SPLATS, sh_degree=SH_DEGREE,
+                         seed=SEED + 1).fold_min_scale()
+    k0, cap = plan_caps(other.means, other.log_scales, other.quats,
+                        other.raw_opacities, ci, img)
+    gt_img, _ = render(
+        other.means, other.log_scales, other.quats, other.sh_coeffs,
+        other.raw_opacities, ci, torch.zeros(3, device="cuda"),
+        RenderConfig(img_size=img, sh_degree=SH_DEGREE, isect_cap=cap,
+                     expand_k0=k0, use_pallas=True, forward_only=True))
+    gt_packed = loss_mod.pack_gt(gt_img[..., :3])
+    del other, gt_img
+    batch = SceneBatch(gt_packed=gt_packed, cam=ci)
+    # SSIM of an image against itself reads 1 only if the blur is exact
+    # float32 (a TF32 or bf16 convolution reads far lower).
+    gt_rgb, _ = loss_mod.unpack_gt(gt_packed)
+    self_ssim = float(loss_mod.ssim(gt_rgb, gt_packed))
+    check(abs(self_ssim - 1.0) < 1e-5, f"ssim(x, x) = {self_ssim}")
+    # What autograd keeps for the loss: peak over one forward + backward.
+    pred = torch.rand((img[1], img[0], 3), device="cuda", requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss_mod.image_loss(pred, gt_packed, loss_mod.ImageLossConfig()).backward()
+    torch.cuda.synchronize()
+    loss_peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    del pred, gt_rgb
+
+    tcfg = TrainConfig()
+    rcfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE,
+                        isect_cap=serve_cfg.isect_cap,
+                        expand_k0=serve_cfg.expand_k0, use_pallas=True)
+    state0 = init_train_state(serve["splats"], SEED)
+    torch.cuda.synchronize()
+    log(f"[train] scene {N_SPLATS} splats sh{SH_DEGREE} at {img[0]}x{img[1]}"
+        f", expand_k0={rcfg.expand_k0} isect_cap={rcfg.isect_cap}, ground "
+        f"truth from seed {SEED + 1}, ssim(gt, gt)={self_ssim:.7f}, loss "
+        f"forward+backward peak {loss_peak_mb:.1f} MiB, median_scale="
+        f"{float(state0.median_scale):.4f}, set-up "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with kernels.capture() as cap_list:
+        state, stats, aux = train_step(state0, batch, tcfg, rcfg)
+    captured = list(cap_list)
+    torch.cuda.synchronize()
+    all_stats = [stats]
+    events, host_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        state, stats, aux = train_step(state, batch, tcfg, rcfg)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        events.append((start, end))
+        all_stats.append(stats)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_steps = 1 + TRAIN_STEPS
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [a.elapsed_time(b) for a, b in events]
+
+    losses = [float(st.loss) for st in all_stats]
+    check(not any(bool(st.overflowed) for st in all_stats),
+          f"a step overflowed: num_isects={int(aux.num_isects)} of "
+          f"{rcfg.isect_cap}, num_chunks={int(aux.num_chunks)} of "
+          f"{rcfg.resolved_chunk_cap(N_SPLATS)}")
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(int(state.step) == n_steps, f"step {int(state.step)}")
+    moved = {}
+    for name, new in state.splats.params().items():
+        check(bool(torch.isfinite(new).all()), f"{name} not finite")
+        for which in ("moment1", "moment2"):
+            check(bool(torch.isfinite(getattr(state.opt[name], which)).all()),
+                  f"{name}.{which} not finite")
+        moved[name] = int((new != getattr(state0.splats, name)).sum())
+        check(moved[name] > 0, f"no entry of {name} changed")
+    check(float(state.refine.visible_count.max()) > 0, "nothing visible")
+    check(float(state.refine.refine_weight.max()) > 0, "no refine weight")
+    log(f"[train] steps={TRAIN_STEPS} median_ms={statistics.median(ms):.4f} "
+        f"min_ms={min(ms):.4f} max_ms={max(ms):.4f} "
+        f"host_enqueue_median_ms={statistics.median(host_ms):.4f} "
+        f"peak_memory_MiB={peak_mb:.1f}")
+    log(f"[train] losses {[round(x, 6) for x in losses]} visible="
+        f"{int(aux.num_visible)} remainder={int(aux.num_isects)}/"
+        f"{rcfg.isect_cap} num_chunks={int(aux.num_chunks)} "
+        f"splats_blended_in_some_step="
+        f"{int((state.refine.visible_count > 0).sum())} entries moved "
+        + json.dumps(moved))
+
+    def step_fn(_):
+        return train_step(state, batch, tcfg, rcfg)
+
+    traced = 2
+    with record_stages() as recs:
+        for i in range(traced):
+            step_fn(i)
+        torch.cuda.synchronize()
+        stages = {k: v / traced for k, v in stage_ms(recs).items()}
+    log(f"[train] per-stage ms/step over {traced} traced steps (CUDA events; "
+        f"`backward` contains `rasterize_bwd` and `reduce`): "
+        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    log(f"[train] launches over {n_steps} steps: {json.dumps(launches)}")
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    return dict(median_ms=statistics.median(ms), stages=stages,
+                host_ms=statistics.median(host_ms), launches=launches,
+                steps=n_steps, captured=captured, step=step_fn,
+                peak_mb=peak_mb, loss_peak_mb=loss_peak_mb, losses=losses)
+
+
+def phase_golden_train(torch):
+    """Gradients of the golden fixture's render through the CUDA path
+    against the JAX package's oracle gradients, stored by
+    tests/make_torch_train_golden.py (same scene, camera, background and
+    loss)."""
+    from brush_tpu_torch.camera import Camera
+    from brush_tpu_torch.render import (
+        RenderConfig, camera_inputs, render_with_refine)
+    d = read_safetensors(os.path.join(REPO, "tests", "data",
+                                      "basic_case.safetensors"))
+    with np.load(os.path.join(REPO, "tests", "data",
+                              "torch_train_golden.npz")) as f:
+        want = {k: f[k] for k in f.files}
+    h, w = d["out_img"].shape[:2]
+    focal = (w / 2.0) / np.tan(np.pi / 4.0)
+    cam = Camera(position=np.array([0.123, 0.456, -8.0]),
+                 rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                 fov_x=np.pi / 2, fov_y=2 * np.arctan((h / 2.0) / focal))
+    cfg = RenderConfig(img_size=(w, h), sh_degree=3, isect_cap=1 << 14,
+                       use_pallas=True)
+    keys = ("means", "scales", "quats", "coeffs", "opacities")
+    params = [torch.from_numpy(d[k].copy()).cuda().requires_grad_(True)
+              for k in keys]
+    n = params[0].shape[0]
+    holders = [torch.zeros(n, device="cuda", requires_grad=True)
+               for _ in range(2)]
+    img, _ = render_with_refine(
+        *params, camera_inputs(cam, (w, h)),
+        torch.tensor([0.1, 0.25, 0.4], device="cuda"), cfg, *holders)
+    rows = torch.linspace(0.5, 1.5, h, device="cuda")[:, None, None]
+    chan = torch.tensor([1.0, 0.8, 0.6, 0.4], device="cuda")
+    loss = (img * rows * chan).sum()
+    grads = torch.autograd.grad(loss, params + holders)
+    got = dict(zip(keys + ("refine_weight", "visible"),
+                   (g.cpu().numpy() for g in grads)))
+    worst = 0.0
+    for k in keys + ("refine_weight",):
+        rel = float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+        worst = max(worst, rel)
+        check(rel <= 1e-4, f"golden gradient {k}: max|d| {rel:.3g} of the "
+              f"largest entry (bar 1e-4)")
+    flips = int((got["visible"] != want["visible"]).sum())
+    rel_loss = abs(float(loss.detach()) - float(want["loss"])) / abs(
+        float(want["loss"]))
+    log(f"[golden-train] basic_case {w}x{h}: loss rel diff {rel_loss:.3g}, "
+        f"worst gradient max|d| {worst:.3g} of its array's largest entry "
+        f"(bar 1e-4), visibility flips {flips} of {n} (bar 0)")
+    check(rel_loss <= 1e-5 and flips == 0, "golden training render mismatch")
+
+
+def phase_direct(torch, train):
+    """The scan kernel's two other variants at the width of the training
+    scene's slot space: an [11, S] f32 sum (the shape of a per-slot
+    gradient matrix) and a [S] int32 running max."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.ops import scan_cuda
+    slot_grads = next(launch for launch in train["captured"]
+                      if launch.name == "rasterize_bwd")
+    width = slot_grads.inputs[0].shape[1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randn((11, width), generator=gen, device="cuda")
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (width,), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    kernels.reset_launches()
+    with kernels.capture() as cap_list:
+        sums = scan_cuda.cumsum_rows(x)
+        tops = scan_cuda.cummax_1d(keys)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(bool(torch.isfinite(sums).all()), "f32 scan not finite")
+    check(int(tops[-1]) == int(keys.max()), "running max does not end at max")
+    log(f"[direct] scan_f32 [11, {width}] and scan_max [{width}] launched: "
+        f"{launches['scan_f32']}, {launches['scan_max']}")
+    check(launches["scan_f32"] > 0 and launches["scan_max"] > 0,
+          "a scan variant was not launched")
+    return dict(launches=launches, captured=list(cap_list))
+
+
 def kernel_work(launch, got):
     """(bytes the function must move, f32 operations it must do, shape) for
     one launch on these inputs: each input read once, each output written
-    once; the rasterizer's operations count the (pixel, slot) pairs this
-    run's data needs before each pixel is done."""
+    once; the rasterizers' operations count the (pixel, slot) pairs this
+    run's data needs (forward: before each pixel is done; backward: pairs
+    replayed and pairs blended over the tiles' useful ranges)."""
     import torch
 
     from brush_tpu_torch.ops import emit_cuda, rasterize_cuda
     name, inputs = launch.name, launch.inputs
-    if name == "scan":
+    if name.startswith("scan"):
         (x,) = inputs
         return 2 * x.numel() * 4, x.numel(), list(x.shape)
     if name == "stack":
@@ -303,87 +558,147 @@ def kernel_work(launch, got):
         return ((emit_cuda.TABLE_ROWS + 1) * n * 4
                 + s_cap * (8 + 4 * emit_cuda.PAYLOAD_ROWS), 0,
                 [n, k0, rem_cap, s_cap])
-    _, ranges, _, _ = inputs
-    _, pairs = rasterize_cuda.rasterize_forward_plain(*inputs,
-                                                      count_pairs=True)
+    ranges = inputs[1]
     spans = (ranges[:, 1] - ranges[:, 0]).to(torch.int64)
     n_tiles = ranges.shape[0]
-    return (int(spans.sum()) * rasterize_cuda.DIET_WORDS * 4
-            + n_tiles * (2 * 4 + rasterize_cuda.OUT_ROWS
-                         * rasterize_cuda.TILE_PIX * 4) + 12,
-            int(pairs) * RASTER_OPS_PER_PAIR,
-            [n_tiles, int(spans.sum()), int(spans.max())])
+    tile_bytes = rasterize_cuda.TILE_PIX * 4
+    if name == "rasterize_fwd":
+        _, pairs = rasterize_cuda.rasterize_forward_plain(*inputs,
+                                                          count_pairs=True)
+        return (int(spans.sum()) * rasterize_cuda.DIET_WORDS * 4
+                + n_tiles * (8 + rasterize_cuda.OUT_ROWS * tile_bytes) + 12,
+                int(pairs) * RASTER_OPS_PER_PAIR,
+                [n_tiles, int(spans.sum()), int(spans.max())])
+    if name == "rasterize_fwd_train":
+        _, pairs = rasterize_cuda.rasterize_forward_train_plain(
+            *inputs, count_pairs=True)
+        return (int(spans.sum()) * rasterize_cuda.TRAIN_ROWS * 4
+                + n_tiles * (8 + rasterize_cuda.TRAIN_OUT_ROWS * tile_bytes)
+                + 12,
+                int(pairs) * RASTER_OPS_PER_PAIR,
+                [n_tiles, int(spans.sum()), int(spans.max())])
+    # rasterize_bwd: reads the replayed slots, the saved and cotangent
+    # tiles; writes the whole [11, L] gradient matrix.
+    _, replayed, blended = rasterize_cuda.rasterize_backward_plain(
+        *inputs, count_pairs=True)
+    useful = inputs[2][:, 5, 0].to(torch.int64)
+    return (int(useful.sum()) * rasterize_cuda.TRAIN_ROWS * 4
+            + n_tiles * (8 + (rasterize_cuda.TRAIN_OUT_ROWS
+                              + rasterize_cuda.V_ROWS) * tile_bytes) + 12
+            + got.numel() * 4,
+            int(replayed) * BWD_REPLAY_OPS_PER_PAIR
+            + int(blended) * BWD_BLEND_OPS_PER_PAIR,
+            [n_tiles, int(useful.sum()), int(useful.max()), int(replayed),
+             int(blended)])
 
 
-def phase_kernels(torch, serve):
-    """Replay every launch of the first served frame: kernel against plain
-    version on the same inputs (each kernel module's own `compare` holds
-    them: scan, stack and emit bit for bit, the rasterizer within a few
-    ulps), then the kernel's, the plain version's and the library call's
-    times."""
+def phase_kernels(torch, serve, train, direct):
+    """Replay every launch of the first served frame, of the first training
+    step and of the direct calls: kernel against plain version on the same
+    inputs (each kernel module's own `compare` holds them), then the
+    kernel's, the plain version's and the library call's times. A kernel
+    on both paths (scan, stack, emit) is timed at the serving frame's
+    shapes and, as `train_ms`, at the training step's."""
     from brush_tpu_torch import kernels
 
     library = {"scan": lambda x: torch.cumsum(x, dim=1),
+               "scan_f32": lambda x: torch.cumsum(x, dim=1),
+               "scan_max": lambda x: torch.cummax(x, dim=0),
                "stack": lambda rows, *_: torch.stack(rows)}
-    # The plain rasterizer and emission are slow at full width: time them
+    # The plain rasterizers and emission are slow at full width: time them
     # over fewer calls.
-    plain_iters = {"emit": 2, "rasterize_fwd": 1}
-    by_name: dict = {}
-    for launch in serve["captured"]:
-        by_name.setdefault(launch.name, []).append(launch)
-    line = []
-    for name in kernels.KERNEL_NAMES:
+    plain_iters = {"emit": 2, "rasterize_fwd": 1, "rasterize_fwd_train": 1,
+                   "rasterize_bwd": 1}
+
+    def measure(name, launches):
         r = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if name in library
                  else None, err=0.0, bytes=0, ops=0, shape=[])
-        for launch in by_name[name]:
+        for launch in launches:
             kernel, plain = launch.replay(launch.inputs)
             got, want = kernel(), plain()
             torch.cuda.synchronize()
             r["err"] = max(r["err"], launch.compare(got, want))
+            del want
             nbytes, ops, shape = kernel_work(launch, got)
+            del got
             r["bytes"] += nbytes
             r["ops"] += ops
             r["shape"].append(shape)
             r["ms"] += time_ms(torch, kernel, ITERS)
-            r["plain_ms"] += time_ms(torch, plain, plain_iters.get(name, ITERS))
+            r["plain_ms"] += time_ms(torch, plain,
+                                     plain_iters.get(name, ITERS))
             if name in library:
                 r["library_ms"] += time_ms(
                     torch, lambda: library[name](*launch.inputs), ITERS)
+        return r
+
+    def by_name(captured):
+        out: dict = {}
+        for launch in captured:
+            out.setdefault(launch.name, []).append(launch)
+        return out
+
+    paths = {"serve": (serve, by_name(serve["captured"]), serve["frames"]),
+             "train": (train, by_name(train["captured"]), train["steps"]),
+             "direct": (direct, by_name(direct["captured"]), 1)}
+    line = []
+    for name in kernels.KERNEL_NAMES:
+        path = next(p for p, (_, caps, _) in paths.items() if name in caps)
+        run, caps, n_runs = paths[path]
+        r = measure(name, caps[name])
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / F32_OPS_PER_S * 1e3
         src, replaces, tpu = KERNEL_META[name]
-        line.append(dict(
+        entry = dict(
             name=name, route="cuda", source=src, replaces=replaces, tpu=tpu,
-            launches=serve["launches"][name],
-            launches_per_frame=serve["launches"][name] / serve["frames"],
-            max_abs_err=r["err"], max_abs_vs_plain=r["err"],
-            ms=r["ms"], plain_ms=r["plain_ms"],
+            path=path, launches=run["launches"][name],
+            launches_per_run=run["launches"][name] / n_runs,
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=r["library_ms"], shape=r["shape"]))
-        log(f"[kernels] {name}: agrees with plain (max_abs={r['err']:.6g}); "
-            f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-            f"library_ms={r['library_ms']} bound_ms={line[-1]['bound_ms']:.5f} "
-            f"({line[-1]['bound_by']}) shape={r['shape']}")
+            library_ms=r["library_ms"], shape=r["shape"])
+        if path == "serve" and name in kernels.TRAIN_PATH:
+            # Also on the training path: hold those launches to their plain
+            # versions too, and time them at their shapes.
+            rt = measure(name, paths["train"][1][name])
+            entry.update(
+                max_abs_err=max(r["err"], rt["err"]),
+                train_launches=train["launches"][name],
+                train_launches_per_run=train["launches"][name]
+                / train["steps"],
+                train_ms=rt["ms"], train_plain_ms=rt["plain_ms"],
+                train_bound_ms=max(rt["bytes"] / HBM_BYTES_PER_S,
+                                   rt["ops"] / F32_OPS_PER_S) * 1e3,
+                train_shape=rt["shape"])
+        line.append(entry)
+        log(f"[kernels] {name} ({path}): agrees with plain (max_abs="
+            f"{entry['max_abs_err']:.6g}); ms={r['ms']:.5f} plain_ms="
+            f"{r['plain_ms']:.5f} library_ms={r['library_ms']} bound_ms="
+            f"{entry['bound_ms']:.5f} ({entry['bound_by']}) launches="
+            f"{entry['launches']} shape={r['shape']}"
+            + (f"; on the training path: ms={entry['train_ms']:.5f} "
+               f"launches={entry['train_launches']} shape="
+               f"{entry['train_shape']}" if "train_ms" in entry else ""))
     return line
 
 
-def phase_profile(torch, serve, n_frames: int) -> dict:
-    """Device busy time and idle share of the serving frame, from a
-    torch.profiler trace of `n_frames` frames (the profiler's own overhead
-    lengthens the wall time the busy time is divided by)."""
+def phase_profile(torch, what: str, run, stage_names, n_frames: int) -> dict:
+    """Device busy time and idle share of `run(i)` (a serving frame or a
+    training step), from a torch.profiler trace of `n_frames` runs (the
+    profiler's own overhead lengthens the wall time the busy time is
+    divided by)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for f in range(n_frames):
-            serve["frame"](f)
+            run(f)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
     # Device ops only: kernels, copies and fills, without the stage ranges
     # (record_function names), which the trace also shows on the device.
-    stage_names = set(serve["stages"])
+    stage_names = set(stage_names)
     per_op: dict = {}
     for e in prof.events():
         if (e.device_type != torch.autograd.DeviceType.CUDA
@@ -394,9 +709,9 @@ def phase_profile(torch, serve, n_frames: int) -> dict:
         per_op[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
     busy_ms = sum(t for t, _ in per_op.values()) / n_frames
     n_ops = sum(c for _, c in per_op.values()) / n_frames
-    log(f"[profile] {n_frames} frames: wall {wall_ms:.4f} ms/frame, device "
-        f"busy {busy_ms:.4f} ms/frame, idle share "
-        f"{1.0 - busy_ms / wall_ms:.4f}, {n_ops:.1f} device ops/frame")
+    log(f"[profile] {what}, {n_frames} runs: wall {wall_ms:.4f} ms each, "
+        f"device busy {busy_ms:.4f} ms, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n_ops:.1f} device ops each")
     for name, (t, c) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"[profile]   {t / n_frames:9.4f} ms x{c / n_frames:6.1f}  "
             f"{name[:100]}")
@@ -437,12 +752,26 @@ def main() -> int:
     phase_build()
     serve = phase_serve(torch)
     phase_golden(torch)
-    kernel_line = phase_kernels(torch, serve)
-    profiled = phase_profile(torch, serve, N_VIEWS)
+    train = phase_train(torch, serve)
+    phase_golden_train(torch)
+    direct = phase_direct(torch, train)
+    kernel_line = phase_kernels(torch, serve, train, direct)
+    profiled = phase_profile(torch, "serving frame", serve["frame"],
+                             serve["stages"], N_VIEWS)
+    profiled_train = phase_profile(torch, "training step", train["step"],
+                                   train["stages"], 2)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"frame_median_ms": serve["median_ms"],
                       "host_enqueue_median_ms": serve["host_ms"],
                       "stages_ms": serve["stages"], **profiled}))
+    print(json.dumps({"train_step_median_ms": train["median_ms"],
+                      "train_host_enqueue_median_ms": train["host_ms"],
+                      "train_stages_ms": train["stages"],
+                      "train_peak_memory_MiB": train["peak_mb"],
+                      "loss_peak_memory_MiB": train["loss_peak_mb"],
+                      "train_losses": train["losses"],
+                      **{f"train_{k}": v
+                         for k, v in profiled_train.items()}}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

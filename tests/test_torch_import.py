@@ -34,5 +34,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "brush_tpu_torch.render" in res["modules"]
     assert "brush_tpu_torch.ops.rasterize_cuda" in res["modules"]
+    assert "brush_tpu_torch.train.trainer" in res["modules"]
+    assert "brush_tpu_torch.ops.loss" in res["modules"]
     assert res["bad"] == [], f"port pulled in {res['bad']}"
     assert res["kernels_loaded"] is False

@@ -4,7 +4,9 @@ path), on the same numpy inputs. The CUDA kernels themselves are held to
 these plain versions on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 
-  * scan    `cumsum_rows`   vs `cumsum_rows(..., interpret=True)`: exact.
+  * scan    `cumsum_rows`   vs `cumsum_rows(..., interpret=True)`: exact
+            for int32; the f32 sum within 1e-6 of the running sum of |x|
+            (both add in their own order); `cummax_1d` exact.
   * stack   `stack_rows`    vs the JAX `stack_rows`: exact bits on the
             valid lanes; the port zeroes the rest.
   * emit    `emit_slots`    vs `_emit_jnp` and `emit_slots(interpret=True)`
@@ -33,6 +35,7 @@ from brush_tpu.ops import tiling_key as jtk
 from brush_tpu.ops.emit_pallas import emit_slots as j_emit_slots
 from brush_tpu.ops.projection import project_splats as j_project_splats
 from brush_tpu.ops.rasterize_pallas import rasterize_forward_pallas
+from brush_tpu.ops.scan_pallas import cummax_1d as j_cummax_1d
 from brush_tpu.ops.scan_pallas import cumsum_rows as j_cumsum_rows
 from brush_tpu.ops.scan_pallas import stack_rows as j_stack_rows
 from brush_tpu.render import camera_inputs as j_camera_inputs
@@ -61,6 +64,40 @@ def test_cumsum_rows_plain_matches_jax_scan_kernel():
     got = scan_cuda.cumsum_rows(torch.from_numpy(x))
     assert got.dtype == torch.int32
     assert want[-1, -1] > 2 ** 24
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cumsum_rows_f32_matches_jax_scan_kernel():
+    """The [11, L] shape of the JAX package's gradient reduce. Each package
+    adds in its own order, so each prefix is held to 1e-6 of the running
+    sum of |x| (the rule the CUDA kernel is held to on the card)."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(0, 1, (11, 17000))
+         * 10.0 ** rng.integers(-3, 3, (11, 17000))).astype(np.float32)
+    want = np.asarray(j_cumsum_rows(jnp.asarray(x), interpret=True))
+    xt = torch.from_numpy(x)
+    got = scan_cuda.cumsum_rows(xt)
+    assert got.dtype == torch.float32
+    assert scan_cuda.compare_f32_scan(got, torch.from_numpy(want), xt) < 1.0
+    exact = np.cumsum(x.astype(np.float64), axis=1)
+    assert scan_cuda.compare_f32_scan(got, torch.from_numpy(exact).float(),
+                                      xt) < 1.0
+    # The rule catches one (large) element added twice or dropped.
+    j = int(xt[3].abs().argmax())
+    wrong = got.clone()
+    wrong[3, j:] += xt[3, j]
+    with pytest.raises(AssertionError, match="running sum"):
+        scan_cuda.compare_f32_scan(wrong, got, xt)
+
+
+def test_cummax_1d_matches_jax_scan_kernel():
+    rng = np.random.default_rng(5)
+    x = rng.integers(-2 ** 31, 2 ** 31, 17000, dtype=np.int64).astype(
+        np.int32)
+    x[:9000] //= 1000
+    want = np.asarray(j_cummax_1d(jnp.asarray(x), interpret=True))
+    got = scan_cuda.cummax_1d(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and len(np.unique(want)) > 10
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -254,6 +291,65 @@ def test_kernel_compares_catch_one_wrong_slot():
     payload = torch.zeros((10, 8))
     with pytest.raises(AssertionError, match="differ"):
         kernels.same_bits((key, payload), (key, payload.clone().fill_(-0.0)))
+
+
+def test_training_kernel_compares_catch_one_wrong_slot():
+    """The rules that hold the two training kernels to their plain
+    versions: a forward that drops one slot, or reports a `useful_len` one
+    short, must fail; a backward that drops one slot's gradient column, or
+    zeroes one gradient row, must fail, while rounding-level noise passes."""
+    params, cam, img, deg = _opaque_wall()
+    ci = j_camera_inputs(cam, img)
+
+    @jax.jit
+    def binning(*p):
+        proj = j_project_splats(*p, ci, img, sh_degree=deg)
+        return jtiling.build_intersections(proj, img, 1 << 13, expand_k0=4,
+                                           with_bwd_info=True)
+
+    isect = binning(*params)
+    soa = torch.from_numpy(np.asarray(isect.soa).copy())
+    ranges = torch.from_numpy(np.asarray(isect.tile_ranges).copy())
+    bg = torch.tensor([0.3, 0.2, 0.1])
+    full = rasterize_cuda.rasterize_forward_train_plain(soa, ranges, bg, img)
+    assert rasterize_cuda.compare(full.clone(), full) == 0.0
+    # Drop the first slot of the fullest tile: it is blended.
+    fullest = int((ranges[:, 1] - ranges[:, 0]).argmax())
+    dropped = ranges.clone()
+    dropped[fullest, 0] += 1
+    wrong = rasterize_cuda.rasterize_forward_train_plain(soa, dropped, bg, img)
+    with pytest.raises(AssertionError, match="ulps"):
+        rasterize_cuda.compare(wrong, full)
+    short = full.clone()
+    short[fullest, 5] -= 1.0
+    with pytest.raises(AssertionError, match="exact rows"):
+        rasterize_cuda.compare(short, full)
+
+    v_img = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (img[1], img[0], 4)).astype(np.float32))
+    v_tiles = rasterize_cuda.image_to_tiles(v_img, img)
+    grads = rasterize_cuda.rasterize_backward_plain(soa, ranges, full,
+                                                    v_tiles, bg, img)
+    assert grads.shape == (11, soa.shape[1])
+    # Slots past a tile's useful range, and outside every range, are zero.
+    start, useful = int(ranges[fullest, 0]), int(full[fullest, 5, 0])
+    assert 0 < useful < int(ranges[fullest, 1]) - start
+    assert not grads[:, start + useful:int(ranges[fullest, 1])].any()
+    assert not grads[:, int(ranges[:, 1].max()):].any()
+    assert grads[:, start:start + useful].abs().sum() > 0
+    noisy = grads * (1.0 + 1e-6 * torch.randn(grads.shape))
+    assert rasterize_cuda.compare_bwd(noisy, grads) > 0.0
+    # The column a kernel would lose by dropping one blended slot.
+    col = start + int(grads[10, start:start + useful].argmax())
+    lost = grads.clone()
+    lost[:, col] = 0.0
+    with pytest.raises(AssertionError, match="slot gradients"):
+        rasterize_cuda.compare_bwd(lost, grads)
+    for row in range(11):
+        zeroed = grads.clone()
+        zeroed[row] = 0.0
+        with pytest.raises(AssertionError, match=f"rows \\[{row}\\]"):
+            rasterize_cuda.compare_bwd(zeroed, grads)
 
 
 # --------------------------------------------------------------------------

@@ -157,3 +157,57 @@ def test_project_splats_every_field_matches_jax(name, kw):
         else:
             assert g.dtype == np.float32, f.name
             _close(g, w, f.name)
+
+
+@pytest.mark.parametrize("name,kw", MODEL_ARGS, ids=[m[0] for m in MODEL_ARGS])
+def test_project_splats_gradients_match_jax_vjp(name, kw):
+    """Reverse-mode gradients through the projection (the Jacobian's
+    forward-mode `vmap(jacfwd)` inside, the two-pass sanitising selects
+    around it) against `jax.vjp`, for the four arrays the rasterizer
+    consumes and random cotangents. Each parameter gradient is held to
+    1e-5 of its array's largest entry (the two autodiff systems order the
+    sums differently). A culled or poisoned splat gets exactly zero
+    gradient, never NaN, in both packages."""
+    jm, tm = _models(name, kw)
+    rng = np.random.default_rng(13)
+    params = _poisoned_params(rng)
+    img = (96, 80)
+    mip = name == "Pinhole"
+    jc = jcam.Camera(position=np.array([0.1, -0.2, -6.0]),
+                     rotation=np.array([0.99, 0.05, -0.08, 0.02]),
+                     fov_x=1.0, fov_y=0.85, model=jm)
+    ci = jcamera_inputs(jc, img)
+    n = params[0].shape[0]
+    outs = ("mean2d", "conic", "color", "opac")
+    cots = [rng.normal(0, 1, (n,) + s).astype(np.float32)
+            for s in ((2,), (3,), (3,), ())]
+
+    def jfn(*p):
+        proj = jprojection.project_splats(*p, ci, img, sh_degree=3, model=jm,
+                                          mip_splatting=mip)
+        return tuple(getattr(proj, o) for o in outs), proj.visible
+
+    def jgrads(*p):
+        (_, visible), vjp = jax.vjp(lambda *q: jfn(*q), *p, has_aux=False)
+        return vjp((tuple(jnp.asarray(c) for c in cots),
+                    np.zeros(visible.shape, jax.dtypes.float0))), visible
+
+    want, visible = jax.jit(jgrads)(*(jnp.asarray(p) for p in params))
+    tp = [torch.from_numpy(p.copy()).requires_grad_(True) for p in params]
+    proj = tprojection.project_splats(
+        *tp, convert.camera_inputs_from_arrays(ci, device="cpu"), img,
+        sh_degree=3, model=tm, mip_splatting=mip)
+    total = sum((getattr(proj, o) * torch.from_numpy(c)).sum()
+                for o, c in zip(outs, cots))
+    got = torch.autograd.grad(total, tp)
+    vis = np.asarray(visible)
+    np.testing.assert_array_equal(proj.visible.numpy(), vis)
+    assert 5 < vis.sum() < n
+    for g, w, what in zip(got, want, ("means", "log_scales", "quats",
+                                      "sh_coeffs", "raw_opacities")):
+        g, w = g.numpy(), np.asarray(w)
+        assert np.isfinite(g).all() and np.isfinite(w).all(), what
+        assert not g[~vis].any() and not w[~vis].any(), what
+        assert np.abs(w).max() > 0, what
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), (
+            what, float(np.abs(g - w).max()), float(np.abs(w).max()))
