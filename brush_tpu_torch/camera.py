@@ -174,6 +174,14 @@ class Camera:
         w, h = img_size
         return np.array([self.center_uv[0] * w, self.center_uv[1] * h])
 
+    def local_to_world(self) -> np.ndarray:
+        """[4,4] affine."""
+        m = np.eye(4)
+        q = self.rotation / np.linalg.norm(self.rotation)
+        m[:3, :3] = _quat_to_rotmat_np(q)
+        m[:3, 3] = self.position
+        return m
+
     def world_to_local(self) -> np.ndarray:
         """[4,4] world-to-camera affine (R^T, -R^T t)."""
         q = self.rotation / np.linalg.norm(self.rotation)

@@ -121,3 +121,9 @@ def train_state_from_arrays(src, seed: int = 0, device="cuda") -> TrainState:
         median_scale=f32(_get(src, "median_scale")),
         bounds_center=None if center is None else f32(center),
         bounds_extent=None if extent is None else f32(extent))
+
+
+def refine_stats_to_dict(stats) -> dict[str, int]:
+    """The seven counters of a RefineStats (either package's) as Python
+    ints, by field name."""
+    return {name: int(value) for name, value in stats._asdict().items()}

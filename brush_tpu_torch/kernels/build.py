@@ -52,6 +52,9 @@ SIGNATURES = {
     "brush_rasterize_fwd_diet": [_P, _L, _P, _P, _P, _I, _P],
     "brush_rasterize_fwd_train": [_P, _L, _P, _P, _P, _I, _I, _P],
     "brush_rasterize_bwd": [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "brush_expand_segments": [_P, _L, _I, _P, _P, _I, _L, _P, _P],
+    "brush_fill_mark": [_P, _L, _P, _P],
+    "brush_fill_gather": [_P, _P, _I, _L, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -54,6 +54,14 @@ class Splats:
     def alive_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.means.device) < self.n_alive
 
+    def opacities(self) -> torch.Tensor:
+        """Rendered opacity, the 3D filter's compensation included
+        (gaussian_splats.rs opacities())."""
+        return torch.sigmoid(self.fold_min_scale().raw_opacities)
+
+    def scales(self) -> torch.Tensor:
+        return torch.exp(self.fold_min_scale().log_scales)
+
     def fold_min_scale(self) -> "Splats":
         """Fold the frozen 3D filter floor: s <- sqrt(s^2 + f^2), with
         opacity compensation sqrt(det_old / det_new) in raw-opacity space."""
@@ -114,4 +122,28 @@ def from_raw(
         sh_coeffs=pad(sh_coeffs),
         raw_opacities=pad(raw_opacities, fill=DEAD_RAW_OPACITY),
         n_alive=torch.tensor(n, dtype=torch.int32, device=dev),
+    )
+
+
+def grow_capacity(s: Splats, new_cap: int) -> Splats:
+    """Geometric capacity growth at refine time, the only shape change of a
+    training run: the new slots are dead (identity rotation,
+    DEAD_RAW_OPACITY, zero elsewhere, a zero 3D filter floor)."""
+    if new_cap <= s.capacity:
+        return s
+    extra = new_cap - s.capacity
+
+    def pad(x, fill=0.0):
+        return torch.cat([x, x.new_full((extra,) + x.shape[1:], fill)], dim=0)
+
+    quat_fill = s.quats.new_zeros((extra, 4))
+    quat_fill[:, 0] = 1.0
+    return dataclasses.replace(
+        s,
+        means=pad(s.means),
+        log_scales=pad(s.log_scales),
+        quats=torch.cat([s.quats, quat_fill], dim=0),
+        sh_coeffs=pad(s.sh_coeffs),
+        raw_opacities=pad(s.raw_opacities, DEAD_RAW_OPACITY),
+        min_scale=None if s.min_scale is None else pad(s.min_scale),
     )

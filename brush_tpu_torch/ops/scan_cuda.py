@@ -1,5 +1,6 @@
-"""Row prefix sums and the row stack, each a CUDA kernel with a plain
-PyTorch version beside it (port of `brush_tpu/ops/scan_pallas.py`).
+"""Row prefix sums, the segmented fill and the row stack, each a CUDA kernel
+with a plain PyTorch version beside it (port of
+`brush_tpu/ops/scan_pallas.py`).
 
 * `cumsum_rows` (int32 or float32 sum along axis 1 of [R, L]) and
   `cummax_1d` (int32 running max). Kernel `csrc/scan.cu`, replacing
@@ -7,6 +8,13 @@ PyTorch version beside it (port of `brush_tpu/ops/scan_pallas.py`).
   bytes (4 read + 4 written per element). The TPU carried the running sum across sequential grid steps;
   Hopper blocks run in no order, so the kernel scans blocks, scans the
   block totals, and adds them back (three passes, ~12 bytes per element).
+* `fill_rows`: segmented forward fill along axis 1 of [R, L] (each lane
+  takes the words of the nearest valid lane at or before it). Kernels
+  `csrc/fill.cu` around the max scan, replacing `_fill_kernel`
+  (scan_pallas.py:111). Bound: bytes (x read once, the result written once).
+  The TPU dragged all R words through a select-combine scan; here the scan
+  carries one index per lane (`cummax_1d` of valid ? lane : -1) and a gather
+  kernel moves the words.
 * `stack_rows`: 1-D rows of 32-bit words -> [total_rows, padded] matrix.
   Kernel `csrc/stack.cu`, replacing `_stack_kernel` (scan_pallas.py:167).
   Bound: bytes (each row read once, the matrix written once). A plain
@@ -127,6 +135,69 @@ def cummax_1d(x: torch.Tensor) -> torch.Tensor:
 def _replay_cummax_1d(inputs):
     (x,) = inputs
     return lambda: cummax_1d(x), lambda: cummax_1d_plain(x)
+
+
+# --------------------------------------------------------------------------
+# fill_rows
+# --------------------------------------------------------------------------
+
+
+def _check_fill(x, valid):
+    if x.dim() != 2 or x.element_size() != 4:
+        raise ValueError(f"fill_rows: x must be [R, L] of a 32-bit dtype, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if (valid.shape != (x.shape[1],)
+            or valid.dtype not in (torch.int32, torch.bool)):
+        raise ValueError(f"fill_rows: valid must be int32 or bool "
+                         f"[{x.shape[1]}], got {valid.dtype} "
+                         f"{tuple(valid.shape)}")
+
+
+def fill_rows_plain(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the running max of (valid ? lane : -1) is the
+    lane to copy from; a gather and a mask on the int32 words."""
+    _check_fill(x, valid)
+    lanes = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    marked = torch.where(valid.to(torch.int32) > 0, lanes, -1)
+    if marked.numel() == 0:
+        return x.clone()
+    last = torch.cummax(marked, dim=0).values
+    words = x.view(torch.int32)
+    out = torch.where((last >= 0)[None, :], words[:, last.clamp_min(0)], 0)
+    return out.view(x.dtype)
+
+
+def fill_rows(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Carry fill along axis 1 of [R, L]: each lane takes the row values of
+    the nearest valid lane at or before it, zeros before the first valid
+    lane. `x` is any 32-bit dtype, moved as raw words and returned in that
+    dtype; `valid` is [L] int32 (> 0 is valid) or bool."""
+    _check_fill(x, valid)
+    if x.device.type == "cpu":
+        return fill_rows_plain(x, valid)
+    kernels.require_cuda("fill_rows", x, valid)
+    x = x.contiguous()
+    rows, length = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = build.library()
+    stream = build.stream_ptr(x.device)
+    flags = valid.to(torch.int32).contiguous()
+    marked = torch.empty(length, dtype=torch.int32, device=x.device)
+    build.check(lib.brush_fill_mark(flags.data_ptr(), length,
+                                    marked.data_ptr(), stream), "fill_rows")
+    last = cummax_1d(marked)
+    build.check(lib.brush_fill_gather(x.data_ptr(), last.data_ptr(), rows,
+                                      length, out.data_ptr(), stream),
+                "fill_rows")
+    kernels.note_launch("fill", _replay_fill_rows, kernels.same_bits, x,
+                        valid)
+    return out
+
+
+def _replay_fill_rows(inputs):
+    return lambda: fill_rows(*inputs), lambda: fill_rows_plain(*inputs)
 
 
 # --------------------------------------------------------------------------

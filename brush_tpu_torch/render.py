@@ -15,7 +15,8 @@ Two configurations run:
     densify refine weight and the visibility mask.
 
 `use_pallas=False` (the JAX package's jnp oracle rasterizer) raises
-NotImplementedError: its torch twin comes with eval and refine.
+NotImplementedError: its torch twin comes with the process loop, whose
+configuration selects it (eval, refine and LOD scoring run on the kernels).
 
 PyTorch runs eagerly and nothing in either path reads a value back to the
 host, so a frame or a training step is queued on the card without a
@@ -120,7 +121,7 @@ def _check_config(cfg: RenderConfig) -> None:
             "brush_tpu_torch renders through its CUDA kernels only: set "
             "RenderConfig(use_pallas=True). The plain rasterizer of "
             "use_pallas=False (per-tile gather, max_per_tile, smooth_cutoff) "
-            "comes with the eval and refine part of the port.")
+            "comes with the process-loop part of the port.")
 
 
 def render(

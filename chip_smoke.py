@@ -31,19 +31,49 @@ Phases, each of which must pass (any failure exits non-zero):
 5. golden-train — gradients of a render of the golden fixture through the
              CUDA path, held to tests/data/torch_train_golden.npz (the JAX
              package's oracle gradients; the card's machine has no JAX).
-6. direct  — the scan kernel's f32-sum and int32-max variants, which no
-             render or training path calls yet, driven once at the width
-             of the training scene's slot space.
-7. kernels — each kernel against its plain PyTorch version, on the card,
-             on the inputs the serving frame, the training step and the
-             direct calls gave it (scan, stack and emit bit-exact; the
-             forward rasterizers within a few ulps; the backward within
-             1e-5 of each gradient row's largest entry; the f32 scan within
-             1e-6 of the running sum of |x|), with its time, the plain
-             version's, a library call's where one computes the same
-             function, and its bound on the card.
-8. profile — frames and training steps under torch.profiler: the device's
-             busy time, its idle share and the top device ops.
+6. direct  — the scan kernel's f32-sum and int32-max variants, driven once
+             at the width of the training scene's slot space.
+7. stress  — the 30M-slot stress of the binning primitives
+             (benches/tpu_smoke.py `scale_stress_30m`): Poisson(30) counts
+             over 1M owners scaled to 30M slots; `cumsum_rows` at [1, 30M]
+             (int32 exact, f32 within its rule); `expand_segments` of a
+             2-row table with starts past 2^24, checked at sampled owners;
+             `stack_rows` of the result at 30M lanes; `fill_rows` of the
+             table scattered to its starts, which must equal the expansion;
+             then `expand_segments` and `fill_rows` once at the binning
+             shape (the served scene's 17-row table, remainder starts and
+             counts, `isect_cap` slots), held to the emission's remainder
+             rows. Every launch of the phase is replayed against its plain
+             version bit for bit. Counters zeroed before, read after.
+8. loop    — the training loop at full width: the 1M scene in a capacity of
+             2^21, three views with rendered ground truth,
+             `TrainConfig(refine_every=8)`, 24 turns of `process.loop_step`
+             (a `train_step`, the one-step-behind overflow check, capacity
+             growth, `refine_step` at steps 8, 16 and 24). Asserts each
+             refine's
+             bookkeeping, an inert dead tail, a zero refine record after a
+             refine, finite parameters, moments and losses, `step == 24`,
+             and that no step overflowed once the host had grown the
+             capacities. Prints step and refine times and peak memory.
+9. eval    — `eval_views` over the three views before and after the loop,
+             and of the ground truth's own scene (PSNR above 60 dB, SSIM
+             within 1e-3 of 1).
+10. init-lod — `create_random_splats(10_000)` and `to_init_splats` of
+             100,000 random points, each rendered once; `pup_scores` of the
+             trained scene over 2 views x 2 probes and `decimate_to_count`
+             to half: finite scores, the live count halved, the kept set
+             the top-scoring set.
+11. kernels — each kernel against its plain PyTorch version, on the card,
+             on the inputs the serving frame, the training step, the direct
+             calls and the stress run gave it (scan, stack, emit, expand
+             and fill bit-exact; the forward rasterizers within a few ulps;
+             the backward within 1e-5 of each gradient row's largest entry;
+             the f32 scan within 1e-6 of the running sum of |x|), with its
+             time, the plain version's, a library call's where one computes
+             the same function, and its bound on the card.
+12. profile — frames, training steps, loop steps and refines under
+             torch.profiler: the device's busy time, its idle share and the
+             top device ops.
 
 The last lines are the `kernels` JSON, the card's name and power limit
 from nvidia-smi, and the result JSON. No GPU, or no brush_tpu_torch next to
@@ -52,6 +82,7 @@ this script: exit 2 with no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -75,6 +106,13 @@ YAW = 0.3
 FRAMES = 12          # timed frames after the warm-up
 TRAIN_STEPS = 5      # timed training steps after the warm-up step
 ITERS = 20           # launches per kernel timing
+STRESS_SLOTS = 30_000_000   # slots of the stress run (over N_SPLATS owners)
+LOOP_CAPACITY = 1 << 21     # splat capacity of the loop phase
+LOOP_STEPS = 24
+REFINE_EVERY = 8
+INIT_RANDOM = 10_000        # the default init_count of a training run
+INIT_POINTS = 100_000       # point-cloud init (the KD-tree path)
+LOD_VIEWS, LOD_PROBES = 2, 2
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores.
@@ -120,6 +158,12 @@ KERNEL_META = {
     "scan_max": ("brush_tpu_torch/csrc/scan.cu",
                  "brush_tpu/ops/scan_pallas.py:43",
                  "ops/scan_pallas.py:_scan_kernel (int32 max)"),
+    "expand": ("brush_tpu_torch/csrc/expand.cu",
+               "brush_tpu/ops/expand_pallas.py:49",
+               "ops/expand_pallas.py:_expand_kernel"),
+    "fill": ("brush_tpu_torch/csrc/fill.cu",
+             "brush_tpu/ops/scan_pallas.py:111",
+             "ops/scan_pallas.py:_fill_kernel"),
 }
 
 
@@ -535,6 +579,420 @@ def phase_direct(torch, train):
     return dict(launches=launches, captured=list(cap_list))
 
 
+def phase_stress(torch, serve):
+    """The 30M-slot stress of the binning primitives, then one expansion
+    and one fill at the binning shape of the served scene."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.ops import emit_cuda, expand_cuda, scan_cuda
+
+    n, m = N_SPLATS, STRESS_SLOTS
+    rng = np.random.default_rng(5)
+    counts_np = rng.poisson(30.0, n).astype(np.int32)
+    counts_np = (counts_np * (m / counts_np.sum())).astype(np.int32)
+    vals_np = rng.standard_normal(n).astype(np.float32)
+    counts = torch.from_numpy(counts_np).cuda()
+    vals = torch.from_numpy(vals_np).cuda()
+
+    def scattered(table, starts, run_counts, width):
+        """The table's columns written at their owners' starts, and the
+        lanes so written marked valid: what `fill_rows` expands."""
+        owners = run_counts > 0
+        at = starts[owners].long()
+        x = torch.zeros((table.shape[0], width), dtype=table.dtype,
+                        device=table.device)
+        x[:, at] = table[:, owners]
+        valid = torch.zeros(width, dtype=torch.int32, device=table.device)
+        valid[at] = 1
+        return x, valid
+
+    kernels.reset_launches()
+    with kernels.capture() as cap_list:
+        # Prefix sums at 30M lanes. The exact check is the int32 scan's: the
+        # true prefix at lane 2^24 is 2^24 + 1, which float32 cannot hold.
+        ones_i = torch.ones((1, m), dtype=torch.int32, device="cuda")
+        cs_i = scan_cuda.cumsum_rows(ones_i)
+        check(bool(torch.equal(cs_i[0], torch.arange(
+            1, m + 1, dtype=torch.int32, device="cuda"))),
+            "int32 cumsum of 30M ones is not 1..30M")
+        ones_f = torch.ones((1, m), dtype=torch.float32, device="cuda")
+        cs_f = scan_cuda.cumsum_rows(ones_f)
+        probes = [0, 12345, 2 ** 24 - 1, m - 1]
+        got = [float(cs_f[0, i]) for i in probes]
+        log(f"[stress] cumsum [1, {m}]: int32 exact; f32 at lanes {probes}: "
+            f"{got}")
+        del ones_i, cs_i, cs_f, ones_f
+
+        cum = scan_cuda.cumsum_rows(counts[None, :])[0]
+        check(bool(torch.equal(cum.cpu(), torch.from_numpy(
+            np.cumsum(counts_np, dtype=np.int64).astype(np.int32)))),
+            "cumsum of the counts differs from numpy's")
+        total = int(cum[-1])
+        starts = cum - counts
+        check(total > 2 ** 24, f"total {total} does not pass 2^24")
+
+        # Expansion with starts past 2^24.
+        table = torch.stack([vals, counts.to(torch.float32)])
+        out = expand_cuda.expand_segments(table, starts, counts, total)
+        starts_np = starts.cpu().numpy()
+        for g in (0, n // 3, n - 1):
+            if counts_np[g] == 0:
+                continue
+            s0 = int(starts_np[g])
+            seg = out[0, s0:s0 + int(counts_np[g])]
+            check(bool((seg == float(vals_np[g])).all()),
+                  f"expansion of owner {g} at start {s0} is wrong")
+        check(int(starts_np[n - 1]) > 2 ** 24, "no start past 2^24")
+
+        # The row stack at 30M lanes.
+        soa = scan_cuda.stack_rows([out[0], out[1]], 4, m)
+        check(float(soa[0, 123456]) == float(out[0, 123456])
+              and tuple(soa.shape) == (4, -(-m // scan_cuda.BLK)
+                                       * scan_cuda.BLK),
+              "stack at 30M lanes is wrong")
+        del soa
+
+        # The fill of the scattered table is the expansion.
+        x, valid = scattered(table, starts, counts, total)
+        filled = scan_cuda.fill_rows(x, valid)
+        kernels.same_bits(filled, out)
+        del x, valid, filled, out
+
+        # The binning shape: the served scene's 17-row table, remainder
+        # starts and counts, isect_cap slots.
+        emit = next(launch for launch in serve["captured"]
+                    if launch.name == "emit")
+        tbl, n_b, k0, rem_cap, _ = emit.inputs
+        table_b = tbl[:emit_cuda.TABLE_ROWS, :n_b]
+        rem_starts = tbl[emit_cuda.TABLE_ROWS, :n_b].view(torch.int32)
+        rem_counts = torch.clamp_min(tbl[14, :n_b].to(torch.int32) - k0, 0)
+        rem_needed = int(rem_counts.sum())
+        check(0 < rem_needed <= rem_cap, f"remainder {rem_needed}/{rem_cap}")
+        exp_b = expand_cuda.expand_segments(table_b, rem_starts, rem_counts,
+                                            rem_cap)
+        x, valid = scattered(table_b, rem_starts, rem_counts, rem_cap)
+        fill_b = scan_cuda.fill_rows(x, valid)
+        kernels.same_bits(fill_b[:, :rem_needed], exp_b[:, :rem_needed])
+        check(not bool(exp_b[:, rem_needed:].any()),
+              "expansion wrote past the last run")
+        # The emission spreads the same ten payload rows over its remainder
+        # region (its plain version: no launch in this phase's counts).
+        _, rows10 = emit.replay(emit.inputs)[1]()
+        kernels.same_bits(
+            exp_b[:emit_cuda.PAYLOAD_ROWS, :rem_needed],
+            rows10[:, n_b * k0:n_b * k0 + rem_needed])
+        del x, valid, fill_b, exp_b, rows10
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    captured = list(cap_list)
+    for launch in captured:
+        launch.check()
+    torch.cuda.synchronize()
+    log(f"[stress] {n} owners, {total} slots (last start "
+        f"{int(starts_np[n - 1])} > 2^24): expand [2, {total}], stack "
+        f"[4, {m}] and fill agree; binning shape [17, {rem_cap}] "
+        f"(remainder {rem_needed}) agrees with the emission's rows; "
+        f"{len(captured)} launches replayed against their plain versions "
+        f"bit for bit (f32 scan within its rule); launches "
+        f"{json.dumps(launches)}")
+    for name in kernels.STRESS_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    return dict(launches=launches, captured=captured, total=total)
+
+
+def _ground_truths(torch, scene, cams):
+    """One forward-only render of `scene` per camera, packed as ground
+    truth words; returns [(camera, CameraInputs, gt_packed)]."""
+    from brush_tpu_torch.ops import loss as loss_mod
+    from brush_tpu_torch.ops.capacity import plan_caps
+    from brush_tpu_torch.render import RenderConfig, camera_inputs, render
+    s = scene.fold_min_scale()
+    out = []
+    for _, cam in cams:
+        ci = camera_inputs(cam, IMG_SIZE)
+        k0, cap = plan_caps(s.means, s.log_scales, s.quats, s.raw_opacities,
+                            ci, IMG_SIZE)
+        img, aux = render(
+            s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities, ci,
+            torch.zeros(3, device="cuda"),
+            RenderConfig(img_size=IMG_SIZE, sh_degree=SH_DEGREE,
+                         isect_cap=cap, expand_k0=k0, use_pallas=True,
+                         forward_only=True))
+        check(int(aux.num_isects) <= cap, "ground truth render overflowed")
+        out.append((cam, ci, loss_mod.pack_gt(img[..., :3])))
+    return out
+
+
+def phase_eval(torch, what, splats, truths, rcfg, bar=None):
+    """`eval_views` of `splats` over the views of `truths`. With `bar`
+    (min PSNR dB, max |1 - SSIM|) the scene is held to it."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.train.eval import eval_views
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = eval_views(splats, [(cam, gt) for cam, _, gt in truths], rcfg)
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"[eval] {what}: psnr={stats.psnr:.4f} dB ssim={stats.ssim:.6f} "
+        f"per view psnr {[round(x, 4) for x in stats.per_view_psnr]} ssim "
+        f"{[round(x, 6) for x in stats.per_view_ssim]} "
+        f"({secs * 1e3 / len(truths):.1f} ms a view with its host reads)")
+    check(len(stats.per_view_psnr) == len(truths), "a view is missing")
+    check(not any(np.isnan(stats.per_view_psnr + stats.per_view_ssim)),
+          "eval metric is NaN")
+    check(all(0.0 < x <= 1.0 + 1e-6 for x in stats.per_view_ssim),
+          f"ssim out of range: {stats.per_view_ssim}")
+    if bar is not None:
+        min_psnr, max_ssim_gap = bar
+        check(min(stats.per_view_psnr) > min_psnr
+              and abs(stats.ssim - 1.0) < max_ssim_gap,
+              f"{what}: psnr {stats.per_view_psnr} ssim {stats.ssim} outside "
+              f"the bar (> {min_psnr} dB, |1 - ssim| < {max_ssim_gap})")
+    for name in kernels.SERVE_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    return dict(psnr=stats.psnr, ssim=stats.ssim, launches=launches)
+
+
+def phase_loop(torch, serve):
+    """The training loop at full width: 24 turns of `loop_step` over three
+    views, a refine every 8 steps, evaluation before and after."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.models.splats import DEAD_RAW_OPACITY
+    from brush_tpu_torch.process import LoopState, loop_step
+    from brush_tpu_torch.render import RenderConfig
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.refine import refine_step
+    from brush_tpu_torch.train.trainer import SceneBatch, init_train_state
+    from brush_tpu_torch.utils.synthetic import bench_splats
+    from brush_tpu_torch.utils.tracing import record_stages, stage_ms
+
+    img = IMG_SIZE
+    t0 = time.perf_counter()
+    cams = views(N_VIEWS, YAW)
+    teacher = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED + 1)
+    truths = _ground_truths(torch, teacher, cams)
+    student = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED,
+                           capacity=LOOP_CAPACITY)
+    _, _, serve_cfg = serve["plans"][0]
+    rcfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE,
+                        isect_cap=serve_cfg.isect_cap,
+                        expand_k0=serve_cfg.expand_k0, use_pallas=True)
+    eval_cfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE,
+                            isect_cap=serve_cfg.isect_cap,
+                            expand_k0=serve_cfg.expand_k0, use_pallas=True,
+                            forward_only=True)
+    tcfg = TrainConfig(refine_every=REFINE_EVERY)
+    batches = [SceneBatch(gt_packed=gt, cam=ci) for _, ci, gt in truths]
+    centers = torch.tensor(np.stack([cam.position for cam, _, _ in truths]),
+                           dtype=torch.float32, device="cuda")
+    focals = torch.tensor([cam.focal(img)[0] for cam, _, _ in truths],
+                          dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[loop] scene {N_SPLATS} splats in a capacity of {LOOP_CAPACITY}, "
+        f"sh{SH_DEGREE}, {img[0]}x{img[1]}, {N_VIEWS} views, refine every "
+        f"{REFINE_EVERY}, expand_k0={rcfg.expand_k0} isect_cap="
+        f"{rcfg.isect_cap}; set-up {time.perf_counter() - t0:.3f} s")
+
+    # The ground truth's own scene evaluates to itself: the same render and
+    # the same 8-bit rounding on both sides. The bar (60 dB, 1e-3) leaves
+    # room for a pixel at a rounding edge; the first run read inf and 1.
+    ev_teacher = phase_eval(torch, "teacher against its own ground truth",
+                            teacher, truths, eval_cfg, bar=(60.0, 1e-3))
+    del teacher
+    ev_before = phase_eval(torch, "student before the loop", student, truths,
+                           eval_cfg)
+
+    loop = LoopState(state=init_train_state(student, SEED), rcfg=rcfg)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    events, all_stats, messages, alive_before = [], [], [], {}
+    with record_stages() as recs:
+        for i in range(LOOP_STEPS):
+            if (i + 1) % REFINE_EVERY == 0:
+                alive_before[i + 1] = loop.state.splats.n_alive
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loop, stats, msgs = loop_step(loop, batches[i % N_VIEWS], tcfg,
+                                          centers, focals)
+            end.record()
+            events.append((start, end))
+            all_stats.append(stats)
+            messages += msgs
+            if any(m.kind == "refine" for m in msgs):
+                rec = loop.state.refine
+                check(not bool(rec.refine_weight.any() | rec.visible_count.any()
+                               | rec.max_radius.any()),
+                      "refine record not zero after a refine")
+        torch.cuda.synchronize()
+        stages = stage_ms(recs)
+    launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [a.elapsed_time(b) for a, b in events]
+    state = loop.state
+
+    refines = [m for m in messages if m.kind == "refine"]
+    overflows = [m for m in messages if m.kind == "overflow"]
+    refine_steps = list(range(REFINE_EVERY, LOOP_STEPS + 1, REFINE_EVERY))
+    check([m.iter for m in refines] == refine_steps,
+          f"refines at {[m.iter for m in refines]}")
+    for m in refines:
+        d = m.data
+        before = int(alive_before[m.iter])
+        check(d["total"] == before - d["pruned"] + d["added"],
+              f"refine at {m.iter}: {d} from {before} live")
+        check(d["added"] == d["oversized"] + d["resampled"] + d["grad_grown"],
+              f"refine at {m.iter}: selection counts {d}")
+        log(f"[loop] refine at step {m.iter}: {before} live -> "
+            + json.dumps(d))
+    for m in overflows:
+        log(f"[loop] overflow seen after step {m.iter}: "
+            + json.dumps(m.data))
+    flags = [bool(st.overflowed) for st in all_stats]
+    settled = max([m.iter + 1 for m in overflows], default=0)
+    check(not any(flags[settled:]),
+          f"a step overflowed after the capacities were grown: steps "
+          f"{[i + 1 for i, f in enumerate(flags) if f]}, grown after "
+          f"{[m.iter for m in overflows]}")
+    losses = [float(st.loss) for st in all_stats]
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(int(state.step) == LOOP_STEPS and loop.it == LOOP_STEPS,
+          f"step {int(state.step)}")
+    n_alive = int(state.splats.n_alive)
+    check(n_alive == refines[-1].data["total"], "live count moved")
+    cap = state.splats.capacity
+    check(bool((state.splats.raw_opacities[n_alive:]
+                == DEAD_RAW_OPACITY).all()), "dead tail is not inert")
+    for name, new in state.splats.params().items():
+        check(bool(torch.isfinite(new[:n_alive]).all()),
+              f"{name} not finite")
+        for which in ("moment1", "moment2"):
+            mom = getattr(state.opt[name], which)
+            check(bool(torch.isfinite(mom).all()),
+                  f"{name}.{which} not finite")
+            check(not bool(mom[n_alive:].any()),
+                  f"{name}.{which} not zero in the dead tail")
+    plain = [t for i, t in enumerate(ms) if (i + 1) % REFINE_EVERY]
+    log(f"[loop] steps={LOOP_STEPS} step_median_ms="
+        f"{statistics.median(plain):.4f} (steps without a refine; min "
+        f"{min(plain):.4f} max {max(plain):.4f}) refine_steps_ms="
+        f"{[round(ms[i - 1], 4) for i in refine_steps]} refine_ms="
+        f"{stages.get('refine', 0.0) / len(refines):.4f} (device time of "
+        f"`refine_step`, mean of {len(refines)}) peak_memory_MiB="
+        f"{peak_mb:.1f} capacity={cap} live={n_alive} overflowed_steps="
+        f"{[i + 1 for i, f in enumerate(flags) if f]} isect_cap="
+        f"{loop.rcfg.isect_cap}")
+    log(f"[loop] losses {[round(x, 6) for x in losses]}")
+    log(f"[loop] launches over {LOOP_STEPS} steps: {json.dumps(launches)}")
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+
+    ev_after = phase_eval(torch, "student after the loop", state.splats,
+                          truths, dataclasses.replace(
+                              eval_cfg, isect_cap=loop.rcfg.isect_cap))
+    return dict(step_median_ms=statistics.median(plain),
+                refine_ms=stages.get("refine", 0.0) / len(refines),
+                refine_step_ms=[ms[i - 1] for i in refine_steps],
+                peak_mb=peak_mb,
+                launches=launches, eval_launches=ev_after["launches"],
+                steps=LOOP_STEPS, losses=losses,
+                refines=[m.data for m in refines],
+                overflows=[m.data for m in overflows],
+                psnr=dict(teacher=ev_teacher["psnr"],
+                          before=ev_before["psnr"], after=ev_after["psnr"]),
+                ssim=dict(teacher=ev_teacher["ssim"],
+                          before=ev_before["ssim"], after=ev_after["ssim"]),
+                state=state, rcfg=loop.rcfg, truths=truths,
+                step=lambda i: loop_step(loop, batches[i % N_VIEWS], tcfg,
+                                         centers, focals),
+                refine=lambda _: refine_step(state, tcfg, centers, focals))
+
+
+def phase_init_lod(torch, loop):
+    """Both splat initialisations rendered once; PUP scores of the trained
+    scene and its decimation to half."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.ops.capacity import plan_caps
+    from brush_tpu_torch.render import RenderConfig, render
+    from brush_tpu_torch.train.lod import decimate_to_count, pup_scores
+    from brush_tpu_torch.train.splat_init import (
+        create_random_splats, to_init_splats)
+
+    truths = loop["truths"]
+    cams = [cam for cam, _, _ in truths]
+    _, ci, _ = truths[0]
+    kernels.reset_launches()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    random_init = create_random_splats(INIT_RANDOM, cams, rng,
+                                       sh_degree=SH_DEGREE)
+    t_random = time.perf_counter() - t0
+    points = rng.normal(0.0, [3.0, 2.0, 5.0], (INIT_POINTS, 3)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    cloud_init = to_init_splats(points).with_sh_degree(SH_DEGREE)
+    t_cloud = time.perf_counter() - t0
+    for what, s, secs in (("create_random_splats", random_init, t_random),
+                          ("to_init_splats", cloud_init, t_cloud)):
+        k0, cap = plan_caps(s.means, s.log_scales, s.quats, s.raw_opacities,
+                            ci, IMG_SIZE)
+        img, aux = render(
+            s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities, ci,
+            torch.zeros(3, device="cuda"),
+            RenderConfig(img_size=IMG_SIZE, sh_degree=SH_DEGREE,
+                         isect_cap=cap, expand_k0=k0, use_pallas=True,
+                         forward_only=True))
+        visible = int(aux.num_visible)
+        check(int(aux.num_isects) <= cap and visible > 0
+              and bool(torch.isfinite(img).all()),
+              f"{what}: visible={visible} remainder={int(aux.num_isects)}"
+              f"/{cap}")
+        log(f"[init-lod] {what}: {int(s.n_alive)} splats in {secs:.3f} s on "
+            f"the host, visible={visible} coverage="
+            f"{float((img[..., 3] > 1.0 / 255.0).float().mean()):.4f}")
+
+    # LOD scoring of the trained scene, as the process bakes a level.
+    splats = loop["state"].splats
+    n_alive = int(splats.n_alive)
+    score_cams = [ci for _, ci, _ in truths[:LOD_VIEWS]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = pup_scores(splats, score_cams, loop["rcfg"], SEED,
+                        n_probes=LOD_PROBES)
+    torch.cuda.synchronize()
+    t_scores = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # H + 1e-12 I is positive definite, so every live splat scores finite;
+    # a splat no probe touched sits at the floor 6 ln(1e-12) = -165.8.
+    live = scores[:n_alive]
+    seen = live > 6.0 * np.log(1e-12) + 1.0
+    check(tuple(scores.shape) == (splats.capacity,), "score shape")
+    check(bool(torch.isfinite(live).all()) and int(seen.sum()) > 0,
+          "PUP score not finite on a live splat, or no splat seen")
+    keep = n_alive // 2
+    kept = decimate_to_count(splats, scores, keep)
+    check(int(kept.n_alive) == keep, f"kept {int(kept.n_alive)} of {keep}")
+    # The same decimation with the scores riding in the floor's place: the
+    # kept rows' scores are the `keep` largest live scores.
+    probe = decimate_to_count(dataclasses.replace(splats, min_scale=scores),
+                              scores, keep)
+    check(bool(torch.equal(probe.means, kept.means)), "decimation differs")
+    top = torch.topk(scores[:n_alive], keep).values
+    check(bool(torch.equal(probe.min_scale[:keep], top)),
+          "the kept set is not the top-scoring set")
+    launches = dict(kernels.LAUNCHES)
+    log(f"[init-lod] pup_scores over {LOD_VIEWS} views x {LOD_PROBES} "
+        f"probes on {n_alive} live splats: {t_scores:.3f} s, peak "
+        f"{peak_mb:.1f} MiB; {int(seen.sum())} splats score above the "
+        f"floor, min {float(live[seen].min()):.3f} max "
+        f"{float(live.max()):.3f}; kept {keep} "
+        f"(lowest kept score {float(top[-1]):.3f}); launches "
+        f"{json.dumps(launches)}")
+    for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    return dict(launches=launches, pup_seconds=t_scores, pup_peak_mb=peak_mb)
+
+
 def kernel_work(launch, got):
     """(bytes the function must move, f32 operations it must do, shape) for
     one launch on these inputs: each input read once, each output written
@@ -552,6 +1010,13 @@ def kernel_work(launch, got):
         rows, _, _ = inputs
         return (len(rows) * rows[0].numel() * 4 + got.numel() * 4, 0,
                 [len(rows), rows[0].numel(), *got.shape])
+    if name == "expand":
+        table, starts, _, cap = inputs
+        rows, n = table.shape
+        return rows * n * 4 + 8 * n + rows * cap * 4, 0, [rows, n, cap]
+    if name == "fill":
+        x, valid = inputs
+        return 2 * x.numel() * 4 + valid.numel() * 4, 0, list(x.shape)
     if name == "emit":
         _, n, k0, rem_cap, _ = inputs
         s_cap = got[0].numel()
@@ -592,44 +1057,65 @@ def kernel_work(launch, got):
              int(blended)])
 
 
-def phase_kernels(torch, serve, train, direct):
+def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
     """Replay every launch of the first served frame, of the first training
-    step and of the direct calls: kernel against plain version on the same
-    inputs (each kernel module's own `compare` holds them), then the
-    kernel's, the plain version's and the library call's times. A kernel
-    on both paths (scan, stack, emit) is timed at the serving frame's
-    shapes and, as `train_ms`, at the training step's."""
+    step, of the direct calls and of the stress run: kernel against plain
+    version on the same inputs (each kernel module's own `compare` holds
+    them), then the kernel's, the plain version's and the library call's
+    times. A kernel is listed under the first of those paths that launched
+    it; where a later one did too (scan, stack and emit in the training
+    step; the scans and the stack in the stress run) it is held and timed
+    at those shapes as well, as `<path>_ms`. `launches_by_path` holds the
+    counters of every path driven, each read after that path's own run."""
     from brush_tpu_torch import kernels
 
-    library = {"scan": lambda x: torch.cumsum(x, dim=1),
-               "scan_f32": lambda x: torch.cumsum(x, dim=1),
-               "scan_max": lambda x: torch.cummax(x, dim=0),
-               "stack": lambda rows, *_: torch.stack(rows)}
-    # The plain rasterizers and emission are slow at full width: time them
-    # over fewer calls.
+    def repeat_columns(inputs):
+        table, _, counts, cap = inputs
+        total = int(counts.sum())
+        check(total <= cap, "repeat_interleave computes the expansion only "
+              "where no run is cut")
+        return lambda: torch.repeat_interleave(table, counts, dim=1,
+                                               output_size=total)
+
+    # One PyTorch call that computes the same function, where there is one.
+    library = {
+        "scan": lambda inp: lambda: torch.cumsum(inp[0], dim=1),
+        "scan_f32": lambda inp: lambda: torch.cumsum(inp[0], dim=1),
+        "scan_max": lambda inp: lambda: torch.cummax(inp[0], dim=0),
+        "stack": lambda inp: lambda: torch.stack(inp[0]),
+        "expand": repeat_columns,
+    }
+    # The plain rasterizers and emission are slow at full width, the plain
+    # expansion and fill at 30M slots: time them over fewer calls.
     plain_iters = {"emit": 2, "rasterize_fwd": 1, "rasterize_fwd_train": 1,
-                   "rasterize_bwd": 1}
+                   "rasterize_bwd": 1, "expand": 2, "fill": 2}
 
     def measure(name, launches):
         r = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if name in library
-                 else None, err=0.0, bytes=0, ops=0, shape=[])
+                 else None, err=0.0, bytes=0, ops=0, shape=[], parts=[])
         for launch in launches:
             kernel, plain = launch.replay(launch.inputs)
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            r["err"] = max(r["err"], launch.compare(got, want))
+            err = launch.compare(got, want)
             del want
             nbytes, ops, shape = kernel_work(launch, got)
             del got
+            part = dict(
+                shape=shape, ms=time_ms(torch, kernel, ITERS),
+                plain_ms=time_ms(torch, plain, plain_iters.get(name, ITERS)),
+                library_ms=(time_ms(torch, library[name](launch.inputs),
+                                    ITERS) if name in library else None),
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_OPS_PER_S) * 1e3)
+            r["err"] = max(r["err"], err)
             r["bytes"] += nbytes
             r["ops"] += ops
             r["shape"].append(shape)
-            r["ms"] += time_ms(torch, kernel, ITERS)
-            r["plain_ms"] += time_ms(torch, plain,
-                                     plain_iters.get(name, ITERS))
-            if name in library:
-                r["library_ms"] += time_ms(
-                    torch, lambda: library[name](*launch.inputs), ITERS)
+            r["parts"].append(part)
+            for key in ("ms", "plain_ms", "library_ms"):
+                if part[key] is not None:
+                    r[key] += part[key]
         return r
 
     def by_name(captured):
@@ -640,7 +1126,12 @@ def phase_kernels(torch, serve, train, direct):
 
     paths = {"serve": (serve, by_name(serve["captured"]), serve["frames"]),
              "train": (train, by_name(train["captured"]), train["steps"]),
-             "direct": (direct, by_name(direct["captured"]), 1)}
+             "direct": (direct, by_name(direct["captured"]), 1),
+             "stress": (stress, by_name(stress["captured"]), 1)}
+    counters = {"serve": serve["launches"], "train": train["launches"],
+                "direct": direct["launches"], "stress": stress["launches"],
+                "loop": loop["launches"], "eval": loop["eval_launches"],
+                "init-lod": init_lod["launches"]}
     line = []
     for name in kernels.KERNEL_NAMES:
         path = next(p for p, (_, caps, _) in paths.items() if name in caps)
@@ -653,32 +1144,46 @@ def phase_kernels(torch, serve, train, direct):
             name=name, route="cuda", source=src, replaces=replaces, tpu=tpu,
             path=path, launches=run["launches"][name],
             launches_per_run=run["launches"][name] / n_runs,
+            launches_by_path={p: c[name] for p, c in counters.items()},
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=r["library_ms"], shape=r["shape"])
-        if path == "serve" and name in kernels.TRAIN_PATH:
-            # Also on the training path: hold those launches to their plain
-            # versions too, and time them at their shapes.
-            rt = measure(name, paths["train"][1][name])
-            entry.update(
-                max_abs_err=max(r["err"], rt["err"]),
-                train_launches=train["launches"][name],
-                train_launches_per_run=train["launches"][name]
-                / train["steps"],
-                train_ms=rt["ms"], train_plain_ms=rt["plain_ms"],
-                train_bound_ms=max(rt["bytes"] / HBM_BYTES_PER_S,
-                                   rt["ops"] / F32_OPS_PER_S) * 1e3,
-                train_shape=rt["shape"])
+        if len(r["parts"]) > 1:
+            entry["per_launch"] = r["parts"]
+        also = ""
+        for other in ("train", "stress"):
+            o_run, o_caps, o_runs = paths[other]
+            if other == path or name not in o_caps:
+                continue
+            # Also on this path: hold those launches to their plain versions
+            # too, and time them at their shapes.
+            ro = measure(name, o_caps[name])
+            entry["max_abs_err"] = max(entry["max_abs_err"], ro["err"])
+            entry.update({
+                f"{other}_launches": o_run["launches"][name],
+                f"{other}_launches_per_run": o_run["launches"][name] / o_runs,
+                f"{other}_ms": ro["ms"], f"{other}_plain_ms": ro["plain_ms"],
+                f"{other}_library_ms": ro["library_ms"],
+                f"{other}_bound_ms": max(ro["bytes"] / HBM_BYTES_PER_S,
+                                         ro["ops"] / F32_OPS_PER_S) * 1e3,
+                f"{other}_shape": ro["shape"]})
+            also += (f"; on the {other} path: ms={ro['ms']:.5f} plain_ms="
+                     f"{ro['plain_ms']:.5f} library_ms={ro['library_ms']} "
+                     f"bound_ms={entry[f'{other}_bound_ms']:.5f} launches="
+                     f"{o_run['launches'][name]} shape={ro['shape']}")
         line.append(entry)
         log(f"[kernels] {name} ({path}): agrees with plain (max_abs="
             f"{entry['max_abs_err']:.6g}); ms={r['ms']:.5f} plain_ms="
             f"{r['plain_ms']:.5f} library_ms={r['library_ms']} bound_ms="
             f"{entry['bound_ms']:.5f} ({entry['bound_by']}) launches="
-            f"{entry['launches']} shape={r['shape']}"
-            + (f"; on the training path: ms={entry['train_ms']:.5f} "
-               f"launches={entry['train_launches']} shape="
-               f"{entry['train_shape']}" if "train_ms" in entry else ""))
+            f"{entry['launches']} by path "
+            f"{json.dumps(entry['launches_by_path'])} shape={r['shape']}"
+            + also)
+        for part in r["parts"] if len(r["parts"]) > 1 else []:
+            log(f"[kernels]   {name} {part['shape']}: ms={part['ms']:.5f} "
+                f"plain_ms={part['plain_ms']:.5f} library_ms="
+                f"{part['library_ms']} bound_ms={part['bound_ms']:.5f}")
     return line
 
 
@@ -755,11 +1260,19 @@ def main() -> int:
     train = phase_train(torch, serve)
     phase_golden_train(torch)
     direct = phase_direct(torch, train)
-    kernel_line = phase_kernels(torch, serve, train, direct)
+    stress = phase_stress(torch, serve)
+    loop = phase_loop(torch, serve)
+    init_lod = phase_init_lod(torch, loop)
+    kernel_line = phase_kernels(torch, serve, train, direct, stress, loop,
+                                init_lod)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],
                                    train["stages"], 2)
+    profiled_loop = phase_profile(torch, "loop step (no refine)",
+                                  loop["step"], train["stages"], 2)
+    profiled_refine = phase_profile(torch, "refine_step", loop["refine"],
+                                    ["refine"], 2)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"frame_median_ms": serve["median_ms"],
                       "host_enqueue_median_ms": serve["host_ms"],
@@ -772,6 +1285,22 @@ def main() -> int:
                       "train_losses": train["losses"],
                       **{f"train_{k}": v
                          for k, v in profiled_train.items()}}))
+    print(json.dumps({"loop_step_median_ms": loop["step_median_ms"],
+                      "refine_ms": loop["refine_ms"],
+                      "refine_step_ms": loop["refine_step_ms"],
+                      "loop_peak_memory_MiB": loop["peak_mb"],
+                      "loop_losses": loop["losses"],
+                      "refines": loop["refines"],
+                      "overflows": loop["overflows"],
+                      "eval_psnr_before": loop["psnr"]["before"],
+                      "eval_psnr_after": loop["psnr"]["after"],
+                      "eval_ssim_before": loop["ssim"]["before"],
+                      "eval_ssim_after": loop["ssim"]["after"],
+                      "pup_scores_seconds": init_lod["pup_seconds"],
+                      "pup_peak_memory_MiB": init_lod["pup_peak_mb"],
+                      **{f"loop_{k}": v for k, v in profiled_loop.items()},
+                      **{f"refine_{k}": v
+                         for k, v in profiled_refine.items()}}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ JAX.) Every test is marked `cuda` and skips where torch.cuda.is_available()
 is false. `python3 chip_smoke.py` makes the same comparisons at full width;
 the cases here are small and pick the edges: scan lengths around the
 kernel's 4096-element chunk and past 2^31 (wrapping sums), its f32 sum and
-int32 max variants, stacks that pad and truncate, and three scenes, each
+int32 max variants, stacks that pad and truncate, expansions and fills on
+empty, single-owner, cut and ragged shapes, and three scenes, each
 rendered forward only and through one training render with its backward,
 whose launches are captured
 (`kernels.capture`) and each replayed kernel against plain under its own
@@ -30,7 +31,7 @@ import torch
 from brush_tpu_torch import kernels
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.models.splats import from_raw
-from brush_tpu_torch.ops import scan_cuda
+from brush_tpu_torch.ops import expand_cuda, scan_cuda
 from brush_tpu_torch.ops.capacity import plan_caps
 from brush_tpu_torch.render import (
     RenderConfig,
@@ -106,8 +107,142 @@ def test_stack_kernel_matches_plain(n_rows, total_rows, length, min_len,
     _same(scan_cuda.stack_rows, rows, total_rows, min_len)
 
 
+EXPAND_CASES = {
+    # counts, cap (None: the total + 37), rows
+    "basic": ([3, 0, 5, 1, 0, 2], 16, 5),
+    "all_empty": ([0, 0, 0], 8, 3),
+    "one_owner_spans_everything": ([0, 100_000, 0], 100_000, 17),
+    "cut_at_cap": ([10, 10, 10], 15, 2),
+    "starts_past_cap": ([5, 3000, 7, 9], 1000, 2),
+    "ragged_random": (None, None, 17),
+    "one_slot": ([1], 1, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXPAND_CASES))
+def test_expand_kernel_matches_plain(case, cuda):
+    counts, cap, rows = EXPAND_CASES[case]
+    rng = np.random.default_rng(len(case))
+    if counts is None:
+        counts = rng.integers(0, 9, 40_001)
+    counts = np.asarray(counts, np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    cap = int(counts.sum()) + 37 if cap is None else cap
+    words = rng.integers(-2 ** 31, 2 ** 31, (rows, len(counts)),
+                         dtype=np.int64).astype(np.int32)   # NaNs included
+    table = torch.from_numpy(words).to(cuda).view(torch.float32)
+    args = (table, torch.from_numpy(starts).to(cuda),
+            torch.from_numpy(counts).to(cuda), cap)
+    _same(expand_cuda.expand_segments, *args)
+    out = expand_cuda.expand_segments(*args)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (rows, cap)
+    # Against the loop of tests/test_expand_pallas.py, on the host.
+    want = np.zeros((rows, cap), np.int32)
+    for g in range(len(counts)):
+        s, c = int(starts[g]), int(counts[g])
+        if c > 0 and s < cap:
+            want[:, s:min(s + c, cap)] = words[:, g:g + 1]
+    np.testing.assert_array_equal(out.view(torch.int32).cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_expand_kernel_takes_a_strided_table_and_no_owners(cuda):
+    wide = torch.arange(18 * 50, dtype=torch.int32, device=cuda).reshape(18, 50)
+    counts = torch.full((40,), 3, dtype=torch.int32, device=cuda)
+    starts = torch.arange(40, dtype=torch.int32, device=cuda) * 3
+    _same(expand_cuda.expand_segments, wide[:17, :40], starts, counts, 130)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    with kernels.capture() as launches:
+        out = expand_cuda.expand_segments(
+            torch.zeros((3, 0), device=cuda), none, none, 300)
+    assert len(launches) == 1 and not out.any()
+    launches[0].check()
+    before = kernels.LAUNCHES["expand"]
+    assert expand_cuda.expand_segments(wide[:, :40], starts, counts,
+                                       0).shape == (18, 0)
+    assert kernels.LAUNCHES["expand"] == before       # nothing to launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,length,n_valid", [
+    (1, 1, 1), (5, 255, 0), (5, 256, 3), (17, 257, 257), (3, 8892, 37),
+    (2, 1_000_003, 5000), (1, 5_000_000, 1)])
+def test_fill_kernel_matches_plain(rows, length, n_valid, cuda):
+    """Lengths around the 256-thread block and the scan's 4096 chunk, no
+    valid lane, every lane valid, one valid lane late in a long row."""
+    rng = np.random.default_rng(length)
+    words = rng.integers(-2 ** 31, 2 ** 31, (rows, length),
+                         dtype=np.int64).astype(np.int32)
+    valid = np.zeros(length, np.int32)
+    valid[rng.choice(length, n_valid, replace=False)] = 1
+    if length == 5_000_000:
+        valid[:] = 0
+        valid[4_000_001] = 7                # any positive value is valid
+        valid[17] = -3                      # a negative one is not
+    x = torch.from_numpy(words).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    with kernels.capture() as launches:
+        out = scan_cuda.fill_rows(x.view(torch.float32), v)
+    assert [launch.name for launch in launches] == ["scan_max", "fill"]
+    for launch in launches:
+        launch.check()
+    assert out.dtype == torch.float32
+    as_bool = scan_cuda.fill_rows(x, v > 0)
+    assert as_bool.dtype == torch.int32
+    assert torch.equal(as_bool, out.view(torch.int32))
+    first = int(np.nonzero(valid > 0)[0][0]) if (valid > 0).any() else length
+    assert not as_bool[:, :first].any()
+    if first < length:
+        assert torch.equal(as_bool[:, first], x[:, first])
+        last = int(np.nonzero(valid > 0)[0][-1])
+        assert torch.equal(as_bool[:, -1], x[:, last])
+
+
+@pytest.mark.cuda
+def test_fill_of_scatter_equals_expand_on_the_card(cuda):
+    rng = np.random.default_rng(21)
+    counts = rng.integers(0, 40, 50_000).astype(np.int32)
+    starts = torch.from_numpy((np.cumsum(counts) - counts).astype(np.int32)
+                              ).to(cuda)
+    total = int(counts.sum())
+    counts = torch.from_numpy(counts).to(cuda)
+    table = torch.randn((4, 50_000), device=cuda)
+    expanded = expand_cuda.expand_segments(table, starts, counts, total)
+    owners = counts > 0
+    x = torch.zeros((4, total), device=cuda)
+    x[:, starts[owners].long()] = table[:, owners]
+    valid = torch.zeros(total, dtype=torch.int32, device=cuda)
+    valid[starts[owners].long()] = 1
+    assert kernels.same_bits(scan_cuda.fill_rows(x, valid), expanded) == 0.0
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    i32 = dict(dtype=torch.int32, device=cuda)
+    table = torch.zeros((2, 8), device=cuda)
+    with pytest.raises(ValueError, match="32-bit"):
+        expand_cuda.expand_segments(table.double(), torch.zeros(8, **i32),
+                                    torch.zeros(8, **i32), 4)
+    with pytest.raises(ValueError, match="32-bit"):
+        expand_cuda.expand_segments(table.half(), torch.zeros(8, **i32),
+                                    torch.zeros(8, **i32), 4)
+    with pytest.raises(ValueError, match="int32"):
+        expand_cuda.expand_segments(table, torch.zeros(8, device=cuda),
+                                    torch.zeros(8, **i32), 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        expand_cuda.expand_segments(table, torch.zeros(8, dtype=torch.int32),
+                                    torch.zeros(8, **i32), 4)
+    with pytest.raises(ValueError, match="stride 1"):
+        expand_cuda.expand_segments(torch.zeros((8, 2), device=cuda).T,
+                                    torch.zeros(8, **i32),
+                                    torch.zeros(8, **i32), 4)
+    with pytest.raises(ValueError, match="32-bit"):
+        scan_cuda.fill_rows(table.double(), torch.zeros(8, **i32))
+    with pytest.raises(ValueError, match="valid"):
+        scan_cuda.fill_rows(table, torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scan_cuda.fill_rows(table, torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError, match="int32 or float32"):
         scan_cuda.cumsum_rows(torch.zeros((1, 8), device=cuda,
                                           dtype=torch.float64))

@@ -36,5 +36,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert "brush_tpu_torch.ops.rasterize_cuda" in res["modules"]
     assert "brush_tpu_torch.train.trainer" in res["modules"]
     assert "brush_tpu_torch.ops.loss" in res["modules"]
+    for name in ("ops.expand_cuda", "utils.quat", "train.refine",
+                 "train.splat_init", "train.eval", "train.lod", "process"):
+        assert f"brush_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == [], f"port pulled in {res['bad']}"
     assert res["kernels_loaded"] is False

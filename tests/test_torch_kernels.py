@@ -9,6 +9,12 @@ chip_smoke.py.
             (both add in their own order); `cummax_1d` exact.
   * stack   `stack_rows`    vs the JAX `stack_rows`: exact bits on the
             valid lanes; the port zeroes the rest.
+  * expand  `expand_segments` vs `expand_segments(..., interpret=True)` on
+            every case of tests/test_expand_pallas.py: exact bits.
+  * fill    `fill_rows`     vs `fill_rows(..., interpret=True)` on the cases
+            of tests/test_scan_pallas.py: exact bits, int32 patterns carried
+            through f32; and the fill of a table scattered to its starts
+            equals the expansion of that table.
   * emit    `emit_slots`    vs `_emit_jnp` and `emit_slots(interpret=True)`
             on the inputs of tests/test_emit_pallas.py: the same multiset
             of non-sentinel (key, payload bits, gid) slots.
@@ -33,15 +39,20 @@ from brush_tpu.camera import Camera as JCamera
 from brush_tpu.ops import tiling as jtiling
 from brush_tpu.ops import tiling_key as jtk
 from brush_tpu.ops.emit_pallas import emit_slots as j_emit_slots
+from brush_tpu.ops.expand_pallas import BLKS as J_BLKS
+from brush_tpu.ops.expand_pallas import expand_segments as j_expand_segments
 from brush_tpu.ops.projection import project_splats as j_project_splats
 from brush_tpu.ops.rasterize_pallas import rasterize_forward_pallas
 from brush_tpu.ops.scan_pallas import cummax_1d as j_cummax_1d
+from brush_tpu.ops.scan_pallas import BLK as J_BLK
 from brush_tpu.ops.scan_pallas import cumsum_rows as j_cumsum_rows
+from brush_tpu.ops.scan_pallas import fill_rows as j_fill_rows
 from brush_tpu.ops.scan_pallas import stack_rows as j_stack_rows
 from brush_tpu.render import camera_inputs as j_camera_inputs
 from tests.test_emit_pallas import _emission_inputs, _real_slot_rows
 
-from brush_tpu_torch.ops import emit_cuda, rasterize_cuda, scan_cuda
+from brush_tpu_torch.ops import (
+    emit_cuda, expand_cuda, rasterize_cuda, scan_cuda)
 from brush_tpu_torch.ops import tiling_key as ttk
 
 DATA = __import__("pathlib").Path(__file__).parent / "data"
@@ -123,6 +134,152 @@ def test_stack_rows_plain_matches_jax_stack():
                                   want.view(np.int32)[:n, :length])
     np.testing.assert_array_equal(got_w[:n, :length], words)
     assert not got_w[n:].any() and not got_w[:, length:].any()
+
+
+# --------------------------------------------------------------------------
+# expand / fill
+# --------------------------------------------------------------------------
+
+
+def _expand_case(name):
+    """(table, starts, counts, cap): the cases of tests/test_expand_pallas.py."""
+    rng = np.random.default_rng(3)
+    if name == "value_exactness":
+        return (np.array([[1.0000001, 3.141592653], [1e-30, 65504.123]],
+                         np.float32),
+                np.array([0, 2], np.int32), np.array([2, 3], np.int32), 5)
+    many = rng.integers(0, 9, 400)
+    counts, cap = {
+        "basic_runs": ([3, 0, 5, 1, 0, 2], 16),
+        "truncation": ([10, 10, 10], 15),
+        "large_single_owner": ([3, 2 * J_BLKS + 100, 4], 2 * J_BLKS + 512),
+        "empty": ([0, 0, 0], 8),
+        "many_owners_random": (many, int(many.sum()) + 37),
+    }[name]
+    counts = np.asarray(counts, np.int32)
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    table = rng.standard_normal((5, len(counts))).astype(np.float32)
+    return table, starts, counts, cap
+
+
+@pytest.mark.parametrize("case", ["basic_runs", "truncation",
+                                  "large_single_owner", "empty",
+                                  "many_owners_random", "value_exactness"])
+def test_expand_segments_plain_matches_jax_expand_kernel(case):
+    table, starts, counts, cap = _expand_case(case)
+    want = np.asarray(j_expand_segments(
+        jnp.asarray(table), jnp.asarray(starts), jnp.asarray(counts), cap,
+        interpret=True))
+    got = expand_cuda.expand_segments(
+        torch.from_numpy(table), torch.from_numpy(starts),
+        torch.from_numpy(counts), cap)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert got.numpy().tobytes() == want.tobytes()       # bit for bit
+    if case != "empty":
+        assert np.abs(want).sum() > 0
+
+
+def test_expand_segments_edges():
+    """What the JAX kernel's tests do not reach: no owners at all, int32
+    bit patterns (NaN payloads) as the table, a strided table, and inputs
+    the wrapper refuses."""
+    none = expand_cuda.expand_segments(
+        torch.zeros((3, 0)), torch.zeros(0, dtype=torch.int32),
+        torch.zeros(0, dtype=torch.int32), 7)
+    assert tuple(none.shape) == (3, 7) and not none.any()
+    bits = np.array([[0x7FC00001, -1, 0x7F800000, 5]], np.int32)
+    counts = torch.tensor([2, 0, 1, 3], dtype=torch.int32)
+    starts = torch.tensor([0, 2, 2, 3], dtype=torch.int32)
+    got = expand_cuda.expand_segments(
+        torch.from_numpy(bits).view(torch.float32), starts, counts, 8)
+    np.testing.assert_array_equal(
+        got.view(torch.int32).numpy()[0],
+        [0x7FC00001, 0x7FC00001, 0x7F800000, 5, 5, 5, 0, 0])
+    wide = torch.arange(24, dtype=torch.int32).reshape(4, 6)
+    sub = expand_cuda.expand_segments(wide[1:3, :4], starts, counts, 6)
+    np.testing.assert_array_equal(
+        sub.numpy(), [[6, 6, 8, 9, 9, 9], [12, 12, 14, 15, 15, 15]])
+    with pytest.raises(ValueError, match="int32"):
+        expand_cuda.expand_segments(wide.float(), starts.long(), counts, 6)
+    with pytest.raises(ValueError, match="32-bit"):
+        expand_cuda.expand_segments(wide[:, :4].double(), starts, counts, 6)
+    with pytest.raises(ValueError, match="cap"):
+        expand_cuda.expand_segments(wide[:, :4], starts, counts, 2 ** 31)
+
+
+def _fill_case(name):
+    rng = np.random.default_rng(11)
+    if name == "bit_patterns":
+        length = J_BLK
+        starts = np.array([0, 5, 129, 4000], np.int32)
+        vals = np.array([[0x7FC00001, 0x7F800000, -1, 123456789]], np.int32)
+    else:
+        length = J_BLK + 700
+        starts = np.sort(rng.choice(length, 37, replace=False)).astype(
+            np.int32)
+        if name == "late_first_lane":
+            starts = starts[starts > 300]
+        vals = rng.standard_normal((5, len(starts))).astype(np.float32).view(
+            np.int32)
+    x = np.zeros((vals.shape[0], length), np.int32)
+    valid = np.zeros(length, np.int32)
+    x[:, starts] = vals
+    valid[starts] = 1
+    return x, valid
+
+
+@pytest.mark.parametrize("case", ["random_segments", "late_first_lane",
+                                  "bit_patterns"])
+def test_fill_rows_plain_matches_jax_fill_kernel(case):
+    x, valid = _fill_case(case)
+    xf = jax.lax.bitcast_convert_type(jnp.asarray(x), jnp.float32)
+    want = np.asarray(jax.lax.bitcast_convert_type(
+        j_fill_rows(xf, jnp.asarray(valid), interpret=True), jnp.int32))
+    got = scan_cuda.fill_rows(torch.from_numpy(x).view(torch.float32),
+                              torch.from_numpy(valid))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(), want)
+    # The dtype goes through unchanged, and a bool mask means the same.
+    as_int = scan_cuda.fill_rows(torch.from_numpy(x),
+                                 torch.from_numpy(valid > 0))
+    assert as_int.dtype == torch.int32
+    np.testing.assert_array_equal(as_int.numpy(), want)
+    assert len(np.unique(want[0])) >= 4
+    if case == "late_first_lane":
+        assert not want[:, :300].any()
+
+
+def test_fill_of_scatter_equals_expand():
+    """Scatter each owner's column to its start, mark owners that have
+    slots valid, fill: the expansion of the same table (below the total;
+    the fill goes on past it, the expansion writes zeros there)."""
+    rng = np.random.default_rng(12)
+    counts = rng.integers(0, 6, 300).astype(np.int32)
+    counts[0] = 0                                  # lanes before any owner
+    starts = (np.cumsum(counts) - counts).astype(np.int32)
+    total = int(counts.sum())
+    table = torch.from_numpy(rng.standard_normal((3, 300)).astype(np.float32))
+    counts_t, starts_t = torch.from_numpy(counts), torch.from_numpy(starts)
+    expanded = expand_cuda.expand_segments(table, starts_t, counts_t,
+                                           total + 9)
+    owners = counts_t > 0
+    x = torch.zeros((3, total + 9))
+    x[:, starts_t[owners].long()] = table[:, owners]
+    valid = torch.zeros(total + 9, dtype=torch.int32)
+    valid[starts_t[owners].long()] = 1
+    filled = scan_cuda.fill_rows(x, valid)
+    assert torch.equal(filled[:, :total].view(torch.int32),
+                       expanded[:, :total].view(torch.int32))
+    assert not expanded[:, total:].any()
+    assert torch.equal(filled[:, total:],
+                       filled[:, total - 1:total].expand(3, 9))
+    with pytest.raises(ValueError, match="32-bit"):
+        scan_cuda.fill_rows(x.double(), valid)
+    with pytest.raises(ValueError, match="valid"):
+        scan_cuda.fill_rows(x, valid[:-1])
+    empty = scan_cuda.fill_rows(torch.zeros((2, 0)),
+                                torch.zeros(0, dtype=torch.int32))
+    assert tuple(empty.shape) == (2, 0)
 
 
 # --------------------------------------------------------------------------
@@ -291,6 +448,31 @@ def test_kernel_compares_catch_one_wrong_slot():
     payload = torch.zeros((10, 8))
     with pytest.raises(AssertionError, match="differ"):
         kernels.same_bits((key, payload), (key, payload.clone().fill_(-0.0)))
+    # The expansion and the fill: one slot given to the neighbouring owner,
+    # or one word off by a bit (+0.0 against -0.0), must fail.
+    table, starts, counts, cap = _expand_case("many_owners_random")
+    expanded = expand_cuda.expand_segments(
+        torch.from_numpy(table), torch.from_numpy(starts),
+        torch.from_numpy(counts), cap)
+    assert kernels.same_bits(expanded.clone(), expanded) == 0.0
+    edge = int(starts[np.nonzero(counts)[0][5]])
+    shifted = expanded.clone()
+    shifted[:, edge] = expanded[:, edge - 1]
+    with pytest.raises(AssertionError, match="differ"):
+        kernels.same_bits(shifted, expanded)
+    x, valid = _fill_case("random_segments")
+    filled = scan_cuda.fill_rows(torch.from_numpy(x).view(torch.float32),
+                                 torch.from_numpy(valid))
+    assert kernels.same_bits(filled.clone(), filled) == 0.0
+    first = int(np.nonzero(valid)[0][0])
+    leaked = filled.clone()
+    leaked[:, first - 1] = filled[:, first]      # filled backwards by a lane
+    with pytest.raises(AssertionError, match="differ"):
+        kernels.same_bits(leaked, filled)
+    signed = filled.clone()
+    signed[2, :first] = -0.0                     # zeros before the first lane
+    with pytest.raises(AssertionError, match="differ"):
+        kernels.same_bits(signed, filled)
 
 
 def test_training_kernel_compares_catch_one_wrong_slot():
