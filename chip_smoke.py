@@ -54,7 +54,9 @@ Phases, each of which must pass (any failure exits non-zero):
              bookkeeping, an inert dead tail, a zero refine record after a
              refine, finite parameters, moments and losses, `step == 24`,
              and that no step overflowed once the host had grown the
-             capacities. Prints step and refine times and peak memory.
+             capacities. Prints step and refine times and peak memory. The
+             launches of step 1 and of step 9 (the first after a refine)
+             are kept for the kernel phase.
 9. eval    — `eval_views` over the three views before and after the loop,
              and of the ground truth's own scene (PSNR above 60 dB, SSIM
              within 1e-3 of 1).
@@ -62,18 +64,22 @@ Phases, each of which must pass (any failure exits non-zero):
              100,000 random points, each rendered once; `pup_scores` of the
              trained scene over 2 views x 2 probes and `decimate_to_count`
              to half: finite scores, the live count halved, the kept set
-             the top-scoring set.
+             the top-scoring set. One scoring view's launches are kept for
+             the kernel phase, as are those of one view of the evaluation
+             after the loop.
 11. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
-             calls and the stress run gave it (scan, stack, emit, expand
+             calls, the stress run, two loop steps, an evaluation view and
+             a LOD scoring view gave it (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
              time, the plain version's, a library call's where one computes
              the same function, and its bound on the card.
-12. profile — frames, training steps, loop steps and refines under
-             torch.profiler: the device's busy time, its idle share and the
-             top device ops.
+12. profile — frames, training steps, loop steps and refines (of the
+             state one step before the loop's last refine, so the refine
+             selects and splits) under torch.profiler: the device's busy
+             time, its idle share and the top device ops.
 
 The last lines are the `kernels` JSON, the card's name and power limit
 from nvidia-smi, and the result JSON. No GPU, or no brush_tpu_torch next to
@@ -82,6 +88,7 @@ this script: exit 2 with no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -210,6 +217,25 @@ def read_safetensors(path: str) -> dict:
         b, e = meta["data_offsets"]
         out[name] = np.frombuffer(data[b:e], dtype="<f4").reshape(meta["shape"])
     return out
+
+
+def first_run(captured, n_runs: int):
+    """The launches of the first of `n_runs` equal runs captured in a row
+    (one view of an evaluation, one view of the LOD scoring)."""
+    return list(captured[:len(captured) // n_runs])
+
+
+def held_mib(torch, captured) -> float:
+    """MiB of device memory the captured launches' inputs keep alive."""
+    seen, todo = {}, [launch.inputs for launch in captured]
+    while todo:
+        x = todo.pop()
+        if torch.is_tensor(x):
+            store = x.untyped_storage()
+            seen[store.data_ptr()] = store.nbytes()
+        elif isinstance(x, (tuple, list)):
+            todo.extend(x)
+    return sum(seen.values()) / 2 ** 20
 
 
 def views(n_views: int, yaw: float):
@@ -722,16 +748,20 @@ def _ground_truths(torch, scene, cams):
     return out
 
 
-def phase_eval(torch, what, splats, truths, rcfg, bar=None):
+def phase_eval(torch, what, splats, truths, rcfg, bar=None, keep=False):
     """`eval_views` of `splats` over the views of `truths`. With `bar`
-    (min PSNR dB, max |1 - SSIM|) the scene is held to it."""
+    (min PSNR dB, max |1 - SSIM|) the scene is held to it. With `keep` the
+    first view's launches are returned for the kernel phase."""
     from brush_tpu_torch import kernels
     from brush_tpu_torch.train.eval import eval_views
     kernels.reset_launches()
     t0 = time.perf_counter()
-    stats = eval_views(splats, [(cam, gt) for cam, _, gt in truths], rcfg)
+    with kernels.capture() as cap_list:
+        stats = eval_views(splats, [(cam, gt) for cam, _, gt in truths], rcfg)
     secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    captured = first_run(cap_list, len(truths)) if keep else []
+    del cap_list
     log(f"[eval] {what}: psnr={stats.psnr:.4f} dB ssim={stats.ssim:.6f} "
         f"per view psnr {[round(x, 4) for x in stats.per_view_psnr]} ssim "
         f"{[round(x, 6) for x in stats.per_view_ssim]} "
@@ -749,7 +779,8 @@ def phase_eval(torch, what, splats, truths, rcfg, bar=None):
               f"the bar (> {min_psnr} dB, |1 - ssim| < {max_ssim_gap})")
     for name in kernels.SERVE_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
-    return dict(psnr=stats.psnr, ssim=stats.ssim, launches=launches)
+    return dict(psnr=stats.psnr, ssim=stats.ssim, launches=launches,
+                captured=captured)
 
 
 def phase_loop(torch, serve):
@@ -805,15 +836,27 @@ def phase_loop(torch, serve):
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     events, all_stats, messages, alive_before = [], [], [], {}
+    # The kernel phase replays the launches of the first step (a capacity
+    # whose second half is dead) and of the first step after a refine (a
+    # scene the refine has permuted and grown).
+    captured_steps = (1, REFINE_EVERY + 1)
+    captured = []
     with record_stages() as recs:
         for i in range(LOOP_STEPS):
             if (i + 1) % REFINE_EVERY == 0:
                 alive_before[i + 1] = loop.state.splats.n_alive
+            if i + 1 == LOOP_STEPS:
+                # One train_step short of the state the last refine sees:
+                # its record holds the steps since the refine before.
+                before_last_refine = loop.state
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            loop, stats, msgs = loop_step(loop, batches[i % N_VIEWS], tcfg,
-                                          centers, focals)
+            with (kernels.capture() if i + 1 in captured_steps
+                  else contextlib.nullcontext([])) as cap_list:
+                loop, stats, msgs = loop_step(loop, batches[i % N_VIEWS],
+                                              tcfg, centers, focals)
+            captured += cap_list
             end.record()
             events.append((start, end))
             all_stats.append(stats)
@@ -827,6 +870,7 @@ def phase_loop(torch, serve):
         stages = stage_ms(recs)
     launches = dict(kernels.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    held_mb = held_mib(torch, captured)
     ms = [a.elapsed_time(b) for a, b in events]
     state = loop.state
 
@@ -878,7 +922,9 @@ def phase_loop(torch, serve):
         f"{[round(ms[i - 1], 4) for i in refine_steps]} refine_ms="
         f"{stages.get('refine', 0.0) / len(refines):.4f} (device time of "
         f"`refine_step`, mean of {len(refines)}) peak_memory_MiB="
-        f"{peak_mb:.1f} capacity={cap} live={n_alive} overflowed_steps="
+        f"{peak_mb:.1f} (of it {held_mb:.1f} MiB are kernel inputs of steps "
+        f"{list(captured_steps)}, kept for the kernel phase) "
+        f"capacity={cap} live={n_alive} overflowed_steps="
         f"{[i + 1 for i, f in enumerate(flags) if f]} isect_cap="
         f"{loop.rcfg.isect_cap}")
     log(f"[loop] losses {[round(x, 6) for x in losses]}")
@@ -888,12 +934,27 @@ def phase_loop(torch, serve):
 
     ev_after = phase_eval(torch, "student after the loop", state.splats,
                           truths, dataclasses.replace(
-                              eval_cfg, isect_cap=loop.rcfg.isect_cap))
+                              eval_cfg, isect_cap=loop.rcfg.isect_cap),
+                          keep=True)
+    # The refine the profile phase runs: it must select something.
+    _, rstats = refine_step(before_last_refine, tcfg, centers, focals)
+    profiled_refine = dict(
+        live=int(before_last_refine.splats.n_alive),
+        added=int(rstats.num_added), pruned=int(rstats.num_pruned),
+        grad_grown=int(rstats.num_grad_grown), total=int(rstats.total_splats))
+    check(profiled_refine["added"] > 0, "the profiled refine selects nothing")
+    log(f"[loop] the refine the profile phase runs (the state one step "
+        f"before the last refine, its record of steps "
+        f"{LOOP_STEPS - REFINE_EVERY + 1}-{LOOP_STEPS - 1}): "
+        + json.dumps(profiled_refine))
     return dict(step_median_ms=statistics.median(plain),
                 refine_ms=stages.get("refine", 0.0) / len(refines),
                 refine_step_ms=[ms[i - 1] for i in refine_steps],
-                peak_mb=peak_mb,
-                launches=launches, eval_launches=ev_after["launches"],
+                peak_mb=peak_mb, held_mb=held_mb,
+                launches=launches, captured=captured,
+                eval_launches=ev_after["launches"],
+                eval_captured=ev_after["captured"],
+                profiled_refine=profiled_refine,
                 steps=LOOP_STEPS, losses=losses,
                 refines=[m.data for m in refines],
                 overflows=[m.data for m in overflows],
@@ -904,7 +965,8 @@ def phase_loop(torch, serve):
                 state=state, rcfg=loop.rcfg, truths=truths,
                 step=lambda i: loop_step(loop, batches[i % N_VIEWS], tcfg,
                                          centers, focals),
-                refine=lambda _: refine_step(state, tcfg, centers, focals))
+                refine=lambda _: refine_step(before_last_refine, tcfg,
+                                             centers, focals))
 
 
 def phase_init_lod(torch, loop):
@@ -957,11 +1019,17 @@ def phase_init_lod(torch, loop):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    scores = pup_scores(splats, score_cams, loop["rcfg"], SEED,
-                        n_probes=LOD_PROBES)
+    with kernels.capture() as cap_list:
+        scores = pup_scores(splats, score_cams, loop["rcfg"], SEED,
+                            n_probes=LOD_PROBES)
     torch.cuda.synchronize()
     t_scores = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # The first view's launches (a render and one backward a probe) go to
+    # the kernel phase.
+    captured = first_run(cap_list, LOD_VIEWS)
+    held_mb = held_mib(torch, cap_list)
+    del cap_list
     # H + 1e-12 I is positive definite, so every live splat scores finite;
     # a splat no probe touched sits at the floor 6 ln(1e-12) = -165.8.
     live = scores[:n_alive]
@@ -972,25 +1040,28 @@ def phase_init_lod(torch, loop):
     keep = n_alive // 2
     kept = decimate_to_count(splats, scores, keep)
     check(int(kept.n_alive) == keep, f"kept {int(kept.n_alive)} of {keep}")
-    # The same decimation with the scores riding in the floor's place: the
-    # kept rows' scores are the `keep` largest live scores.
-    probe = decimate_to_count(dataclasses.replace(splats, min_scale=scores),
-                              scores, keep)
-    check(bool(torch.equal(probe.means, kept.means)), "decimation differs")
-    top = torch.topk(scores[:n_alive], keep).values
-    check(bool(torch.equal(probe.min_scale[:keep], top)),
+    # The kept rows are the live rows in falling order of score (ties in
+    # row order), and their scores are the `keep` largest live scores.
+    order = torch.argsort(-live, stable=True)[:keep]
+    check(bool(torch.equal(kept.means[:keep], splats.means[order])),
+          "the kept rows are not the best-scoring rows in order")
+    top = torch.topk(live, keep).values
+    check(bool(torch.equal(live[order], top)),
           "the kept set is not the top-scoring set")
     launches = dict(kernels.LAUNCHES)
     log(f"[init-lod] pup_scores over {LOD_VIEWS} views x {LOD_PROBES} "
         f"probes on {n_alive} live splats: {t_scores:.3f} s, peak "
         f"{peak_mb:.1f} MiB; {int(seen.sum())} splats score above the "
-        f"floor, min {float(live[seen].min()):.3f} max "
+        f"floor (the peak includes {held_mb:.1f} MiB of "
+        f"kernel inputs kept for the kernel phase), min "
+        f"{float(live[seen].min()):.3f} max "
         f"{float(live.max()):.3f}; kept {keep} "
         f"(lowest kept score {float(top[-1]):.3f}); launches "
         f"{json.dumps(launches)}")
     for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
         check(launches[name] > 0, f"kernel {name} was not launched")
-    return dict(launches=launches, pup_seconds=t_scores, pup_peak_mb=peak_mb)
+    return dict(launches=launches, captured=captured, pup_seconds=t_scores,
+                pup_peak_mb=peak_mb)
 
 
 def kernel_work(launch, got):
@@ -1059,14 +1130,19 @@ def kernel_work(launch, got):
 
 def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
     """Replay every launch of the first served frame, of the first training
-    step, of the direct calls and of the stress run: kernel against plain
+    step, of the direct calls, of the stress run, of two loop steps (the
+    first, and the first after a refine), of one view of the evaluation
+    after the loop and of one view of the LOD scoring: kernel against plain
     version on the same inputs (each kernel module's own `compare` holds
     them), then the kernel's, the plain version's and the library call's
     times. A kernel is listed under the first of those paths that launched
     it; where a later one did too (scan, stack and emit in the training
-    step; the scans and the stack in the stress run) it is held and timed
-    at those shapes as well, as `<path>_ms`. `launches_by_path` holds the
-    counters of every path driven, each read after that path's own run."""
+    step; the scans and the stack in the stress run; every render and
+    training kernel in the loop, the evaluation and the LOD scoring, over a
+    capacity whose second half is dead) it is held and timed at those
+    shapes as well, as `<path>_ms`, the sum over that path's replayed
+    launches. `launches_by_path` holds the counters of every path driven,
+    each read after that path's own run."""
     from brush_tpu_torch import kernels
 
     def repeat_columns(inputs):
@@ -1124,26 +1200,31 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             out.setdefault(launch.name, []).append(launch)
         return out
 
-    paths = {"serve": (serve, by_name(serve["captured"]), serve["frames"]),
-             "train": (train, by_name(train["captured"]), train["steps"]),
-             "direct": (direct, by_name(direct["captured"]), 1),
-             "stress": (stress, by_name(stress["captured"]), 1)}
-    counters = {"serve": serve["launches"], "train": train["launches"],
-                "direct": direct["launches"], "stress": stress["launches"],
-                "loop": loop["launches"], "eval": loop["eval_launches"],
-                "init-lod": init_lod["launches"]}
+    # path -> (its counters, its captured launches by kernel, runs counted)
+    paths = {
+        "serve": (serve["launches"], by_name(serve["captured"]),
+                  serve["frames"]),
+        "train": (train["launches"], by_name(train["captured"]),
+                  train["steps"]),
+        "direct": (direct["launches"], by_name(direct["captured"]), 1),
+        "stress": (stress["launches"], by_name(stress["captured"]), 1),
+        "loop": (loop["launches"], by_name(loop["captured"]), loop["steps"]),
+        "eval": (loop["eval_launches"], by_name(loop["eval_captured"]),
+                 N_VIEWS),
+        "init-lod": (init_lod["launches"], by_name(init_lod["captured"]), 1)}
+    counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
     for name in kernels.KERNEL_NAMES:
         path = next(p for p, (_, caps, _) in paths.items() if name in caps)
-        run, caps, n_runs = paths[path]
+        counts, caps, n_runs = paths[path]
         r = measure(name, caps[name])
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / F32_OPS_PER_S * 1e3
         src, replaces, tpu = KERNEL_META[name]
         entry = dict(
             name=name, route="cuda", source=src, replaces=replaces, tpu=tpu,
-            path=path, launches=run["launches"][name],
-            launches_per_run=run["launches"][name] / n_runs,
+            path=path, launches=counts[name],
+            launches_per_run=counts[name] / n_runs,
             launches_by_path={p: c[name] for p, c in counters.items()},
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
@@ -1152,8 +1233,7 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
         if len(r["parts"]) > 1:
             entry["per_launch"] = r["parts"]
         also = ""
-        for other in ("train", "stress"):
-            o_run, o_caps, o_runs = paths[other]
+        for other, (o_counts, o_caps, o_runs) in paths.items():
             if other == path or name not in o_caps:
                 continue
             # Also on this path: hold those launches to their plain versions
@@ -1161,8 +1241,9 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             ro = measure(name, o_caps[name])
             entry["max_abs_err"] = max(entry["max_abs_err"], ro["err"])
             entry.update({
-                f"{other}_launches": o_run["launches"][name],
-                f"{other}_launches_per_run": o_run["launches"][name] / o_runs,
+                f"{other}_launches": o_counts[name],
+                f"{other}_launches_per_run": o_counts[name] / o_runs,
+                f"{other}_replayed": len(o_caps[name]),
                 f"{other}_ms": ro["ms"], f"{other}_plain_ms": ro["plain_ms"],
                 f"{other}_library_ms": ro["library_ms"],
                 f"{other}_bound_ms": max(ro["bytes"] / HBM_BYTES_PER_S,
@@ -1171,7 +1252,12 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             also += (f"; on the {other} path: ms={ro['ms']:.5f} plain_ms="
                      f"{ro['plain_ms']:.5f} library_ms={ro['library_ms']} "
                      f"bound_ms={entry[f'{other}_bound_ms']:.5f} launches="
-                     f"{o_run['launches'][name]} shape={ro['shape']}")
+                     f"{o_counts[name]} replayed={len(o_caps[name])} "
+                     f"shape={ro['shape']}")
+            if len(ro["parts"]) > 1:
+                entry[f"{other}_per_launch"] = ro["parts"]
+                also += " per launch ms=" + json.dumps(
+                    [round(part["ms"], 5) for part in ro["parts"]])
         line.append(entry)
         log(f"[kernels] {name} ({path}): agrees with plain (max_abs="
             f"{entry['max_abs_err']:.6g}); ms={r['ms']:.5f} plain_ms="
@@ -1289,6 +1375,8 @@ def main() -> int:
                       "refine_ms": loop["refine_ms"],
                       "refine_step_ms": loop["refine_step_ms"],
                       "loop_peak_memory_MiB": loop["peak_mb"],
+                      "loop_peak_held_for_kernels_MiB": loop["held_mb"],
+                      "profiled_refine": loop["profiled_refine"],
                       "loop_losses": loop["losses"],
                       "refines": loop["refines"],
                       "overflows": loop["overflows"],
