@@ -42,10 +42,10 @@ _L = ctypes.c_int64
 # C entry points: name -> argument types. Every function returns the
 # cudaError_t of its launches as an int (0 = success).
 SIGNATURES = {
-    "brush_scan_block_items": [],
-    "brush_scan_rows_i32": [_P, _P, _P, _I, _L, _P],
-    "brush_scan_rows_f32": [_P, _P, _P, _I, _L, _P],
-    "brush_scan_rows_max_i32": [_P, _P, _P, _I, _L, _P],
+    "brush_scan_tile_items": [],
+    "brush_scan_rows_i32": [_P, _P, _P, _L, _I, _L, _P],
+    "brush_scan_rows_f32": [_P, _P, _P, _L, _I, _L, _P],
+    "brush_scan_rows_max_i32": [_P, _P, _P, _L, _I, _L, _P],
     "brush_stack_rows": [_P, _I, _L, _P, _I, _L, _P],
     "brush_stack_max_rows": [],
     "brush_emit_slots": [_P, _L, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P],

@@ -7,13 +7,17 @@ Slots no run covers are zero, runs crossing `cap` are cut, runs starting
 past `cap` write nothing.
 
 Kernel `csrc/expand.cu`, replacing `_expand_kernel` (expand_pallas.py:49).
-One thread per output slot: a binary search over the monotone `starts`
-finds the slot's owner and a loop over the rows copies its column as raw
-32-bit words, so the output is bit-exact and indices are exact up to 2^31
-(the TPU's one-hot matrix product, bf16 value limbs and 12-bit start limbs
-existed because a TPU gather costs tens of nanoseconds an index). Bound on
-the H100: bytes (the table and the two index rows read once, the output
-written once).
+Load-balanced search: one block per tile of 1024 consecutive slots finds
+the owners of its first and last slot with a 32-way warp search of
+`starts`, stages that owner range's starts and run ends in shared memory
+(in windows of 1024 owners where long runs of zero-count owners make the
+range longer), and each thread finds the owners of its 4-slot groups there
+and walks forward. It copies the owners' columns as raw 32-bit words, 16
+bytes a store where a row is aligned, so the output is bit-exact and
+indices are exact up to 2^31 (the TPU's one-hot matrix product, bf16 value
+limbs and 12-bit start limbs existed because a TPU gather costs tens of
+nanoseconds an index). Bound on the H100: bytes (the table and the two
+index rows read once, the output written once).
 
 The JAX package's binning no longer calls its kernel (the emission kernel
 took over the remainder expansion); as there, the function is reached

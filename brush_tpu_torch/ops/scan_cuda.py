@@ -5,9 +5,13 @@ with a plain PyTorch version beside it (port of
 * `cumsum_rows` (int32 or float32 sum along axis 1 of [R, L]) and
   `cummax_1d` (int32 running max). Kernel `csrc/scan.cu`, replacing
   `_scan_kernel` (sum and max ops, scan_pallas.py:43). Bound on the H100:
-  bytes (4 read + 4 written per element). The TPU carried the running sum across sequential grid steps;
-  Hopper blocks run in no order, so the kernel scans blocks, scans the
-  block totals, and adds them back (three passes, ~12 bytes per element).
+  bytes (4 read + 4 written per element). The TPU carried the running sum
+  across sequential grid steps; Hopper blocks run in no order, so the
+  kernel is a single-pass chained scan with decoupled look-back: blocks
+  take tiles from an atomic counter, publish each tile's aggregate and
+  inclusive prefix in a 64-bit status word, and find their own prefix from
+  their predecessors' words. One memset of the scratch (status words and
+  counter) and one launch a call, 8 bytes moved per element.
 * `fill_rows`: segmented forward fill along axis 1 of [R, L] (each lane
   takes the words of the nearest valid lane at or before it). Kernels
   `csrc/fill.cu` around the max scan, replacing `_fill_kernel`
@@ -45,7 +49,9 @@ BLK = 8192
 # --------------------------------------------------------------------------
 
 # Kernel-vs-plain rule of the f32 sum: the kernel adds in another order
-# than torch.cumsum, so each prefix may differ by rounding, bounded by a
+# than torch.cumsum, and adds the tile prefixes in the order its look-back
+# met them, which depends on timing; so each prefix may differ by rounding,
+# from torch.cumsum and from the kernel's own previous run, bounded by a
 # small multiple of the running sum of |x| (the int32 scans are exact).
 F32_SCAN_RTOL = 1e-6
 
@@ -60,17 +66,30 @@ def cummax_1d_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, dim=0).values
 
 
+@functools.cache
+def scan_tile_items() -> int:
+    """Lanes one block of the scan kernel covers (asked of the library
+    once)."""
+    return build.library().brush_scan_tile_items()
+
+
+def scan_scratch_words(rows: int, length: int, tile: int) -> int:
+    """8-byte words of scratch the scan kernel needs for [rows, length]:
+    one status word per tile and the tile counter. A row's tiles start at
+    the 16-byte boundary at or before its first lane, up to 3 lanes early,
+    so a row has ceil((length + 3) / tile) tiles."""
+    return rows * -(-(length + 3) // tile) + 1
+
+
 def _launch_scan(x: torch.Tensor, entry: str, what: str) -> torch.Tensor:
     x = x.contiguous()
     rows, length = x.shape
     out = torch.empty_like(x)
-    lib = build.library()
-    chunk = lib.brush_scan_block_items()
-    scratch = torch.empty(rows * max(-(-length // chunk), 1), dtype=x.dtype,
-                          device=x.device)
-    err = getattr(lib, entry)(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, length,
-        build.stream_ptr(x.device))
+    words = scan_scratch_words(rows, length, scan_tile_items())
+    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
+    err = getattr(build.library(), entry)(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words, rows,
+        length, build.stream_ptr(x.device))
     build.check(err, what)
     return out
 
@@ -78,7 +97,8 @@ def _launch_scan(x: torch.Tensor, entry: str, what: str) -> torch.Tensor:
 def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum along axis 1 of an int32 or float32 [R, L] matrix.
     int32 sums wrap modulo 2^32, as they do in XLA; float32 sums are taken
-    in the kernel's own order (see F32_SCAN_RTOL)."""
+    in the kernel's own order, which depends on timing, so two runs on the
+    same input may differ by rounding (see F32_SCAN_RTOL)."""
     if x.device.type == "cpu":
         return cumsum_rows_plain(x)
     kernels.require_cuda("cumsum_rows", x)
@@ -86,6 +106,8 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"cumsum_rows kernel takes int32 or float32 [R, L], got "
             f"{x.dtype} {tuple(x.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
     if x.dtype == torch.int32:
         out = _launch_scan(x, "brush_scan_rows_i32", "cumsum_rows")
         kernels.note_launch("scan", _replay_cumsum_rows, kernels.same_bits, x)
@@ -127,6 +149,8 @@ def cummax_1d(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.int32 or x.dim() != 1:
         raise ValueError(f"cummax_1d kernel takes int32 [L], got {x.dtype} "
                          f"{tuple(x.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
     out = _launch_scan(x[None, :], "brush_scan_rows_max_i32", "cummax_1d")[0]
     kernels.note_launch("scan_max", _replay_cummax_1d, kernels.same_bits, x)
     return out

@@ -74,8 +74,12 @@ Phases, each of which must pass (any failure exits non-zero):
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
-             time, the plain version's, a library call's where one computes
-             the same function, and its bound on the card.
+             time (CUDA events over back-to-back calls, `ms`, which a small
+             kernel's host call rate can set), its device time (the device
+             ops of the same calls under torch.profiler, `device_ms`; a scan
+             call must run one kernel and at most one memset), the plain
+             version's time, a library call's where one computes the same
+             function, and its bound on the card.
 12. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
@@ -200,6 +204,53 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(torch, fn, iters: int, traces: int = 3) -> dict:
+    """Device time of one call of `fn`: every device op (kernels, memsets,
+    copies) that `iters` back-to-back calls launched, under torch.profiler,
+    summed and divided by `iters` (after one warm-up call); and the ops a
+    call launched, by kind. Unlike `time_ms` it leaves out the time the
+    card waits for the host between launches. A trace on the H100 now and
+    then drops ops or reads short durations, so each op's mean time counts
+    the nearest whole number of times a call (every call launches the same
+    ops), at least once, and of `traces` traces the median one is kept;
+    `ops_by_trace` lists every trace's (kernels, memsets, copies) a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        # Device ops only: not the host's events, nor record_function
+        # ranges mirrored on the device.
+        host = {e.name for e in events
+                if e.device_type != torch.autograd.DeviceType.CUDA}
+        per_op: dict = {}
+        for e in events:
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)
+                    or e.name in host):
+                continue
+            t, c = per_op.get(e.name, (0.0, 0))
+            per_op[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+        reading = dict(ms=0.0, kernels=0.0, memsets=0.0, copies=0.0)
+        for name, (t, c) in per_op.items():
+            per_call = float(max(1, round(c / iters)))
+            reading["ms"] += t / c * per_call / 1e3
+            reading["memsets" if name.startswith("Memset") else
+                    "copies" if name.startswith("Memcpy") else
+                    "kernels"] += per_call
+        readings.append(reading)
+    median = dict(sorted(readings, key=lambda r: r["ms"])[len(readings) // 2])
+    median["ops_by_trace"] = [(r["kernels"], r["memsets"], r["copies"])
+                              for r in readings]
+    return median
 
 
 def read_safetensors(path: str) -> dict:
@@ -1153,12 +1204,16 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
         return lambda: torch.repeat_interleave(table, counts, dim=1,
                                                output_size=total)
 
-    # One PyTorch call that computes the same function, where there is one.
+    # One PyTorch call that computes the same function, where there is one
+    # (the cumsum in the input's dtype: int32 in, int32 out). No single call
+    # computes the stack, whose [total_rows, padded] output is zero-padded:
+    # `torch.stack` writes only the rows' own n x L words.
     library = {
-        "scan": lambda inp: lambda: torch.cumsum(inp[0], dim=1),
-        "scan_f32": lambda inp: lambda: torch.cumsum(inp[0], dim=1),
+        "scan": lambda inp: lambda: torch.cumsum(inp[0], dim=1,
+                                                 dtype=inp[0].dtype),
+        "scan_f32": lambda inp: lambda: torch.cumsum(inp[0], dim=1,
+                                                     dtype=inp[0].dtype),
         "scan_max": lambda inp: lambda: torch.cummax(inp[0], dim=0),
-        "stack": lambda inp: lambda: torch.stack(inp[0]),
         "expand": repeat_columns,
     }
     # The plain rasterizers and emission are slow at full width, the plain
@@ -1167,8 +1222,10 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                    "rasterize_bwd": 1, "expand": 2, "fill": 2}
 
     def measure(name, launches):
-        r = dict(ms=0.0, plain_ms=0.0, library_ms=0.0 if name in library
-                 else None, err=0.0, bytes=0, ops=0, shape=[], parts=[])
+        r = dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+                 library_ms=0.0 if name in library else None,
+                 library_device_ms=0.0 if name in library else None,
+                 err=0.0, bytes=0, ops=0, shape=[], parts=[])
         for launch in launches:
             kernel, plain = launch.replay(launch.inputs)
             got, want = kernel(), plain()
@@ -1177,19 +1234,34 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             del want
             nbytes, ops, shape = kernel_work(launch, got)
             del got
+            dev = device_time(torch, kernel, ITERS)
+            lib = (library[name](launch.inputs) if name in library
+                   else None)
             part = dict(
                 shape=shape, ms=time_ms(torch, kernel, ITERS),
+                device_ms=dev["ms"],
+                device_ops={k: dev[k] for k in ("kernels", "memsets",
+                                                "copies")},
                 plain_ms=time_ms(torch, plain, plain_iters.get(name, ITERS)),
-                library_ms=(time_ms(torch, library[name](launch.inputs),
-                                    ITERS) if name in library else None),
+                library_ms=(time_ms(torch, lib, ITERS) if lib else None),
+                library_device_ms=(device_time(torch, lib, ITERS)["ms"]
+                                   if lib else None),
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3)
+            if name.startswith("scan"):
+                # One scan launch a call, and at most the memset of its
+                # scratch, in some trace (a trace may drop ops, never add).
+                check(any(k == 1 and m <= 1 and c == 0
+                          for k, m, c in dev["ops_by_trace"]),
+                      f"{name} {shape}: (kernels, memsets, copies) a call "
+                      f"by trace {dev['ops_by_trace']}")
             r["err"] = max(r["err"], err)
             r["bytes"] += nbytes
             r["ops"] += ops
             r["shape"].append(shape)
             r["parts"].append(part)
-            for key in ("ms", "plain_ms", "library_ms"):
+            for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                        "library_device_ms"):
                 if part[key] is not None:
                     r[key] += part[key]
         return r
@@ -1226,10 +1298,12 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             path=path, launches=counts[name],
             launches_per_run=counts[name] / n_runs,
             launches_by_path={p: c[name] for p, c in counters.items()},
-            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=max(t_bytes, t_ops),
+            max_abs_err=r["err"], ms=r["ms"], device_ms=r["device_ms"],
+            plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=r["library_ms"], shape=r["shape"])
+            library_ms=r["library_ms"],
+            library_device_ms=r["library_device_ms"], shape=r["shape"],
+            device_ops=[part["device_ops"] for part in r["parts"]])
         if len(r["parts"]) > 1:
             entry["per_launch"] = r["parts"]
         also = ""
@@ -1244,13 +1318,17 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                 f"{other}_launches": o_counts[name],
                 f"{other}_launches_per_run": o_counts[name] / o_runs,
                 f"{other}_replayed": len(o_caps[name]),
-                f"{other}_ms": ro["ms"], f"{other}_plain_ms": ro["plain_ms"],
+                f"{other}_ms": ro["ms"], f"{other}_device_ms": ro["device_ms"],
+                f"{other}_plain_ms": ro["plain_ms"],
                 f"{other}_library_ms": ro["library_ms"],
+                f"{other}_library_device_ms": ro["library_device_ms"],
                 f"{other}_bound_ms": max(ro["bytes"] / HBM_BYTES_PER_S,
                                          ro["ops"] / F32_OPS_PER_S) * 1e3,
                 f"{other}_shape": ro["shape"]})
-            also += (f"; on the {other} path: ms={ro['ms']:.5f} plain_ms="
-                     f"{ro['plain_ms']:.5f} library_ms={ro['library_ms']} "
+            also += (f"; on the {other} path: ms={ro['ms']:.5f} device_ms="
+                     f"{ro['device_ms']:.5f} plain_ms={ro['plain_ms']:.5f} "
+                     f"library_ms={ro['library_ms']} library_device_ms="
+                     f"{ro['library_device_ms']} "
                      f"bound_ms={entry[f'{other}_bound_ms']:.5f} launches="
                      f"{o_counts[name]} replayed={len(o_caps[name])} "
                      f"shape={ro['shape']}")
@@ -1258,18 +1336,25 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                 entry[f"{other}_per_launch"] = ro["parts"]
                 also += " per launch ms=" + json.dumps(
                     [round(part["ms"], 5) for part in ro["parts"]])
+                also += " device_ms=" + json.dumps(
+                    [round(part["device_ms"], 5) for part in ro["parts"]])
         line.append(entry)
         log(f"[kernels] {name} ({path}): agrees with plain (max_abs="
-            f"{entry['max_abs_err']:.6g}); ms={r['ms']:.5f} plain_ms="
-            f"{r['plain_ms']:.5f} library_ms={r['library_ms']} bound_ms="
+            f"{entry['max_abs_err']:.6g}); ms={r['ms']:.5f} device_ms="
+            f"{r['device_ms']:.5f} (device ops a call "
+            f"{json.dumps(entry['device_ops'][0])}) plain_ms="
+            f"{r['plain_ms']:.5f} library_ms={r['library_ms']} "
+            f"library_device_ms={r['library_device_ms']} bound_ms="
             f"{entry['bound_ms']:.5f} ({entry['bound_by']}) launches="
             f"{entry['launches']} by path "
             f"{json.dumps(entry['launches_by_path'])} shape={r['shape']}"
             + also)
         for part in r["parts"] if len(r["parts"]) > 1 else []:
             log(f"[kernels]   {name} {part['shape']}: ms={part['ms']:.5f} "
-                f"plain_ms={part['plain_ms']:.5f} library_ms="
-                f"{part['library_ms']} bound_ms={part['bound_ms']:.5f}")
+                f"device_ms={part['device_ms']:.5f} plain_ms="
+                f"{part['plain_ms']:.5f} library_ms={part['library_ms']} "
+                f"library_device_ms={part['library_device_ms']} bound_ms="
+                f"{part['bound_ms']:.5f}")
     return line
 
 

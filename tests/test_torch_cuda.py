@@ -8,14 +8,17 @@ installed:
 (`--noconftest` because tests/conftest.py pins JAX to the CPU and so needs
 JAX.) Every test is marked `cuda` and skips where torch.cuda.is_available()
 is false. `python3 chip_smoke.py` makes the same comparisons at full width;
-the cases here are small and pick the edges: scan lengths around the
-kernel's 4096-element chunk and past 2^31 (wrapping sums), its f32 sum and
-int32 max variants, stacks that pad and truncate, expansions and fills on
-empty, single-owner, cut and ragged shapes, and three scenes, each
-rendered forward only and through one training render with its backward,
-whose launches are captured
-(`kernels.capture`) and each replayed kernel against plain under its own
-module's compare (`kernels.Launch.check`):
+the cases here are small and pick the edges: scan lengths around 4096
+lanes and the kernel's 10,240-lane tile, rows not a multiple of 4 lanes
+long, a row whose look-back crosses hundreds of tiles, identity inputs and
+sums past 2^31 (wrapping), its f32 sum (run twice: its order depends on
+timing) and int32 max variants, stacks that pad and truncate, expansions
+and fills on empty, single-owner, cut, gapped and ragged shapes, 5,000
+zero-count owners inside one tile (past its shared-memory window), widths
+not a multiple of 4, strided tables, and three scenes, each rendered
+forward only and through one training render with its backward, whose
+launches are captured (`kernels.capture`) and each replayed kernel against
+plain under its own module's compare (`kernels.Launch.check`):
 
   * bench:        the benchmark generator, capacities from `plan_caps`;
   * opaque_wall:  stacked near-opaque splats, k0 = 1, tiles of several
@@ -63,7 +66,9 @@ def _same(fn, *args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length", [(1, 1), (1, 4096), (2, 4097),
-                                         (3, 300_001), (1, 5_000_000)])
+                                         (5, 4099), (2, 10_241),
+                                         (3, 300_001), (1, 5_000_000),
+                                         (3, 9_000_001)])
 def test_scan_kernel_matches_plain(rows, length, cuda):
     rng = np.random.default_rng(length)
     x = rng.integers(-1000, 100_000, (rows, length)).astype(np.int32)
@@ -79,8 +84,52 @@ def test_f32_scan_kernel_matches_plain(rows, length, cuda):
     rng = np.random.default_rng(length)
     x = (rng.normal(0, 1, (rows, length))
          * 10.0 ** rng.integers(-3, 3, (rows, length))).astype(np.float32)
-    err = _same(scan_cuda.cumsum_rows, torch.from_numpy(x).to(cuda))
-    assert np.isfinite(err)
+    # Twice: the tile prefixes add in the order the look-back met them.
+    for _ in range(2):
+        err = _same(scan_cuda.cumsum_rows, torch.from_numpy(x).to(cuda))
+        assert np.isfinite(err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int32_zeros", "f32_zeros", "max_int_min",
+                                  "int32_wraps", "input_off_the_grid"])
+def test_scan_kernel_edge_values(case, cuda):
+    """Inputs that are all the identity of their scan, int32 sums that wrap
+    past 2^31 many times, in rows whose lengths are not a multiple of 4
+    lanes (so the rows after the first start off the 16-byte grid); and
+    inputs that are views starting 1 and 3 lanes past a 16-byte boundary,
+    where the output is on it (the kernel's scalar path)."""
+    rows, length = 3, 100_003
+    if case == "input_off_the_grid":
+        rng = np.random.default_rng(10)
+        base = torch.from_numpy(rng.integers(-9, 99, 300_007).astype(
+            np.int32)).to(cuda)
+        _same(scan_cuda.cumsum_rows, base[1:][None, :])
+        _same(scan_cuda.cummax_1d, base[3:])
+        return
+    if case == "int32_zeros":
+        x = np.zeros((rows, length), np.int32)
+    elif case == "f32_zeros":
+        x = np.zeros((rows, length), np.float32)
+    elif case == "max_int_min":
+        x = np.full(length, np.iinfo(np.int32).min, np.int32)
+    else:
+        rng = np.random.default_rng(9)
+        x = (2 ** 30 + rng.integers(0, 2 ** 29, (rows, length))).astype(
+            np.int32)
+    t = torch.from_numpy(x).to(cuda)
+    if case == "max_int_min":
+        _same(scan_cuda.cummax_1d, t)
+        out = scan_cuda.cummax_1d(t)
+    else:
+        _same(scan_cuda.cumsum_rows, t)
+        out = scan_cuda.cumsum_rows(t)
+    if case == "int32_wraps":
+        want = np.cumsum(x.astype(np.int64), axis=1).astype(np.uint32)
+        assert want.max() < np.cumsum(x.astype(np.int64), axis=1).max()
+        np.testing.assert_array_equal(out.cpu().numpy(), want.view(np.int32))
+    else:
+        np.testing.assert_array_equal(out.cpu().numpy(), x)
 
 
 @pytest.mark.cuda
@@ -108,27 +157,38 @@ def test_stack_kernel_matches_plain(n_rows, total_rows, length, min_len,
 
 
 EXPAND_CASES = {
-    # counts, cap (None: the total + 37), rows
-    "basic": ([3, 0, 5, 1, 0, 2], 16, 5),
-    "all_empty": ([0, 0, 0], 8, 3),
-    "one_owner_spans_everything": ([0, 100_000, 0], 100_000, 17),
-    "cut_at_cap": ([10, 10, 10], 15, 2),
-    "starts_past_cap": ([5, 3000, 7, 9], 1000, 2),
-    "ragged_random": (None, None, 17),
-    "one_slot": ([1], 1, 1),
+    # counts, cap (None: the last run's end + 37), rows, largest gap before
+    # a run (runs start at the exclusive cumsum of counts + gaps)
+    "basic": ([3, 0, 5, 1, 0, 2], 16, 5, 0),
+    "all_empty": ([0, 0, 0], 8, 3, 0),
+    "one_owner_spans_everything": ([0, 100_000, 0], 100_000, 17, 0),
+    "cut_at_cap": ([10, 10, 10], 15, 2, 0),
+    "starts_past_cap": ([5, 3000, 7, 9], 1000, 2, 0),
+    "ragged_random": (None, None, 17, 0),
+    "one_slot": ([1], 1, 1, 0),
+    "gaps_between_runs": (None, None, 3, 6),
+    # 5,000 zero-count owners sharing one start inside the first tile, and
+    # 8,000 owners over 800 slots (nine of ten own nothing): owner ranges
+    # past the kernel's 1,024-owner shared-memory window.
+    "zero_count_crowd": ([5] * 300 + [0] * 5000 + [7] * 300, None, 3, 0),
+    "zero_counts_interleaved": (([1] + [0] * 9) * 800, None, 2, 0),
+    # Widths not a multiple of 4: rows after the first start off the
+    # 16-byte grid.
+    "cap_not_multiple_of_4": (None, 160_003, 5, 1),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(EXPAND_CASES))
 def test_expand_kernel_matches_plain(case, cuda):
-    counts, cap, rows = EXPAND_CASES[case]
+    counts, cap, rows, max_gap = EXPAND_CASES[case]
     rng = np.random.default_rng(len(case))
     if counts is None:
         counts = rng.integers(0, 9, 40_001)
     counts = np.asarray(counts, np.int32)
-    starts = (np.cumsum(counts) - counts).astype(np.int32)
-    cap = int(counts.sum()) + 37 if cap is None else cap
+    gaps = rng.integers(0, max_gap + 1, len(counts))
+    starts = (np.cumsum(counts + gaps) - counts).astype(np.int32)
+    cap = int((starts + counts).max()) + 37 if cap is None else cap
     words = rng.integers(-2 ** 31, 2 ** 31, (rows, len(counts)),
                          dtype=np.int64).astype(np.int32)   # NaNs included
     table = torch.from_numpy(words).to(cuda).view(torch.float32)
@@ -152,6 +212,17 @@ def test_expand_kernel_takes_a_strided_table_and_no_owners(cuda):
     counts = torch.full((40,), 3, dtype=torch.int32, device=cuda)
     starts = torch.arange(40, dtype=torch.int32, device=cuda) * 3
     _same(expand_cuda.expand_segments, wide[:17, :40], starts, counts, 130)
+    # A strided table over many tiles, with gaps and a width not a multiple
+    # of 4.
+    rng = np.random.default_rng(8)
+    big = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (18, 20_000),
+                                        dtype=np.int64).astype(np.int32))
+    n_counts = rng.integers(0, 9, 15_000).astype(np.int32)
+    n_starts = np.cumsum(n_counts + rng.integers(0, 3, 15_000)) - n_counts
+    _same(expand_cuda.expand_segments, big.to(cuda)[1:, 7:15_007],
+          torch.from_numpy(n_starts.astype(np.int32)).to(cuda),
+          torch.from_numpy(n_counts).to(cuda),
+          int(n_starts[-1] + n_counts[-1]) + 1)
     none = torch.zeros(0, dtype=torch.int32, device=cuda)
     with kernels.capture() as launches:
         out = expand_cuda.expand_segments(

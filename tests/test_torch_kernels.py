@@ -112,6 +112,46 @@ def test_cummax_1d_matches_jax_scan_kernel():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_scan_scratch_covers_every_tile_the_kernel_takes():
+    """The scan kernel starts each row's tiles at the 16-byte boundary at or
+    before the row's first lane (0 to 3 lanes early, by the row's offset in
+    a 16-byte-aligned matrix) and keeps one 8-byte status word a tile, rows
+    after rows, behind its tile counter: the wrapper's scratch must hold
+    them for every row of any length."""
+    tile = 10_240
+    for rows in (1, 3, 11):
+        for length in (1, 3, 4, 10_237, 10_238, 10_240, 10_241, 20_477,
+                       9_000_001):
+            words = scan_cuda.scan_scratch_words(rows, length, tile)
+            assert (words - 1) % rows == 0
+            per_row = (words - 1) // rows
+            heads = [(r * length) % 4 for r in range(rows)]
+            assert max(-(-(length + h) // tile) for h in heads) <= per_row
+            # No more than one tile a row to spare.
+            assert per_row <= -(-length // tile) + 1
+    assert scan_cuda.scan_scratch_words(1, 10_237, tile) == 2
+    assert scan_cuda.scan_scratch_words(2, 10_238, tile) == 5
+
+
+def test_scan_asks_the_library_for_its_tile_once(monkeypatch):
+    from brush_tpu_torch.kernels import build
+
+    calls = []
+
+    class Library:
+        def brush_scan_tile_items(self):
+            calls.append(1)
+            return 4096
+
+    scan_cuda.scan_tile_items.cache_clear()
+    monkeypatch.setattr(build, "library", Library)
+    try:
+        assert [scan_cuda.scan_tile_items() for _ in range(3)] == [4096] * 3
+        assert len(calls) == 1
+    finally:
+        scan_cuda.scan_tile_items.cache_clear()
+
+
 def _stack_input(rng, n_rows=6, length=9000):
     words = rng.integers(-2 ** 31, 2 ** 31, (n_rows, length), dtype=np.int64)
     words = words.astype(np.int32)
@@ -205,6 +245,32 @@ def test_expand_segments_edges():
         expand_cuda.expand_segments(wide[:, :4].double(), starts, counts, 6)
     with pytest.raises(ValueError, match="cap"):
         expand_cuda.expand_segments(wide[:, :4], starts, counts, 2 ** 31)
+
+
+def test_expand_segments_plain_takes_gaps_and_zero_count_crowds():
+    """What the CUDA kernel's windows must reproduce: gaps between runs,
+    500 zero-count owners on one start, owners that mostly own nothing, a
+    last run cut at a width that is not a multiple of 4."""
+    rng = np.random.default_rng(13)
+    counts = np.array([5] * 30 + [0] * 500 + [7] * 30 + ([1] + [0] * 9) * 50,
+                      np.int32)
+    starts = (np.cumsum(counts + rng.integers(0, 4, len(counts)))
+              - counts).astype(np.int32)
+    cap = int(starts[545]) + 3                 # inside a run of 7
+    cap += cap % 4 == 0
+    assert cap % 4 != 0 and cap < starts[545] + counts[545]
+    words = rng.integers(-2 ** 31, 2 ** 31, (3, len(counts)),
+                         dtype=np.int64).astype(np.int32)
+    got = expand_cuda.expand_segments(
+        torch.from_numpy(words).view(torch.float32), torch.from_numpy(starts),
+        torch.from_numpy(counts), cap)
+    want = np.zeros((3, cap), np.int32)
+    for g in range(len(counts)):
+        s, c = int(starts[g]), int(counts[g])
+        if c > 0 and s < cap:
+            want[:, s:min(s + c, cap)] = words[:, g:g + 1]
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(), want)
+    assert (want[:, -1] == words[:, 545]).all()       # the cut run's tail
 
 
 def _fill_case(name):
