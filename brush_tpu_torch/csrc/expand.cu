@@ -39,30 +39,20 @@
 
 namespace {
 
-// Tile shape, window and occupancy hint, as timed by kernel_variants.py
-// (repository root), which builds other values as -D flags: 128 threads of
-// two 4-slot groups, a 1,024-owner window and 32 registers (16 blocks an
-// SM) read 0.14 ms at [2, 29.0M] where 256 threads of four groups (64
-// registers, 4 blocks an SM) read 0.18: the block's two warp searches are
-// latency, and only more blocks an SM hide it.
-#ifndef BRUSH_EXPAND_THREADS
-#define BRUSH_EXPAND_THREADS 128
-#endif
-#ifndef BRUSH_EXPAND_GROUPS
-#define BRUSH_EXPAND_GROUPS 2
-#endif
-#ifndef BRUSH_EXPAND_WINDOW
-#define BRUSH_EXPAND_WINDOW 1024
-#endif
-#ifndef BRUSH_EXPAND_MIN_BLOCKS
-#define BRUSH_EXPAND_MIN_BLOCKS 16
-#endif
-
-constexpr int kThreads = BRUSH_EXPAND_THREADS;
-constexpr int kGroups = BRUSH_EXPAND_GROUPS;        // 4-slot groups a thread
+// Tile shape, window and occupancy, as tuned on the H100 (PERF.md,
+// section 6): 128 threads of two 4-slot groups, a 1,024-owner window and
+// 32 registers (16 blocks an SM) read 0.14 ms at [2, 29.0M] where 256
+// threads of four groups (64 registers, 4 blocks an SM) read 0.18: the
+// block's two warp searches are latency, and only more blocks an SM hide
+// it.
+constexpr int kThreads = 128;
+constexpr int kMinBlocks = 16;                      // blocks an SM
+constexpr int kGroups = 2;                          // 4-slot groups a thread
+constexpr int kWindow = 1024;                       // owners in shared memory
+static_assert(kThreads >= 64 && kThreads % 32 == 0,
+              "two warps search the tile's first and last owner");
 constexpr int kGroupStride = kThreads * 4;          // slots between them
 constexpr int kTileSlots = kGroupStride * kGroups;  // slots a block
-constexpr int kWindow = BRUSH_EXPAND_WINDOW;        // owners in shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 // Number of owners g < n with starts[g] <= s, by one whole warp: each round
@@ -93,7 +83,7 @@ __device__ __forceinline__ int window_upper_bound(const int32_t* w_start,
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads, BRUSH_EXPAND_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 expand_segments_kernel(const uint32_t* __restrict__ table,
                        int64_t table_stride, int rows,
                        const int32_t* __restrict__ starts,

@@ -41,23 +41,14 @@
 
 namespace {
 
-// Tile shape and occupancy hint, as timed by kernel_variants.py
-// (repository root), which builds other values as -D flags: 256 threads of
+// Tile shape, as tuned on the H100 (PERF.md, section 6): 256 threads of
 // 10 vectors (119 registers, 2 blocks an SM) read 4-7 % faster than 8
 // vectors and 19-23 % faster than 4 at 30M lanes and [11, 6.1M].
-#ifndef BRUSH_SCAN_THREADS
-#define BRUSH_SCAN_THREADS 256
-#endif
-#ifndef BRUSH_SCAN_VECS
-#define BRUSH_SCAN_VECS 10
-#endif
-#ifndef BRUSH_SCAN_MIN_BLOCKS
-#define BRUSH_SCAN_MIN_BLOCKS 1
-#endif
-
-constexpr int kThreads = BRUSH_SCAN_THREADS;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kVecs = BRUSH_SCAN_VECS;         // 4-lane vectors a thread
+constexpr int kVecs = 10;                      // 4-lane vectors a thread
+static_assert(kThreads % 32 == 0 && kWarps <= 32,
+              "one warp scans the warps' totals");
 constexpr int kWarpLanes = 32 * 4 * kVecs;     // lanes a warp scans
 constexpr int kTile = kThreads * 4 * kVecs;    // lanes a block scans
 constexpr unsigned kFull = 0xffffffffu;
@@ -202,7 +193,7 @@ __device__ __forceinline__ void store4(typename Op::T* p, bool vec,
 // kVec: x and out share their alignment modulo 16 bytes, so a row's lanes
 // can be read and written as 16-byte vectors from the same boundary.
 template <typename Op, bool kVec>
-__global__ void __launch_bounds__(kThreads, BRUSH_SCAN_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads)
 scan_rows_kernel(const typename Op::T* __restrict__ x,
                  typename Op::T* __restrict__ out,
                  unsigned long long* __restrict__ scratch, int64_t len,

@@ -79,7 +79,8 @@ Phases, each of which must pass (any failure exits non-zero):
              ops of the same calls under torch.profiler, `device_ms`; a scan
              call must run one kernel and at most one memset), the plain
              version's time, a library call's where one computes the same
-             function, and its bound on the card.
+             function, and its bound on the card; and the int32 scan
+             wrapper's host time a call, piece by piece (`wrapper_us`).
 12. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
@@ -251,6 +252,67 @@ def device_time(torch, fn, iters: int, traces: int = 3) -> dict:
     median["ops_by_trace"] = [(r["kernels"], r["memsets"], r["copies"])
                               for r in readings]
     return median
+
+
+def scan_wrapper_us(torch, x, calls: int = 200, repeats: int = 5) -> dict:
+    """Host time, in microseconds a call, of the int32 scan's wrapper
+    (`cumsum_rows`) on `x` and of its pieces: the checks and `contiguous`,
+    the output's and the scratch's allocations, the stream handle and the
+    C call (memset and launch, on buffers made once); `rest` (the dtype
+    check, the scratch size, the library lookup, the launch count) is the
+    call less those. Beside them, two alternatives (output and scratch as
+    views of one allocation; the stream object in place of the raw handle)
+    and `torch.cumsum` with int32 output. Each is run `calls` times back to
+    back, few enough that the launch queue never fills, so the host's time
+    is read; the median of `repeats` runs."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.kernels import build
+    from brush_tpu_torch.ops import scan_cuda
+
+    rows, length = x.shape
+    n = rows * length
+    words = scan_cuda.scan_scratch_words(rows, length,
+                                         scan_cuda.scan_tile_items())
+    out = torch.empty_like(x)
+    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
+    lib = build.library()
+    stream = build.stream_ptr(x.device)
+
+    def one_allocation():
+        buf = torch.empty(-(-n // 4) * 4 + 2 * words, dtype=x.dtype,
+                          device=x.device)
+        return buf[:n].view(rows, length), buf.data_ptr()
+
+    pieces = {
+        "call": lambda: scan_cuda.cumsum_rows(x),
+        "checks": lambda: (kernels.require_cuda("cumsum_rows", x),
+                           x.contiguous()),
+        "empty_out": lambda: torch.empty_like(x),
+        "empty_scratch": lambda: torch.empty(words, dtype=torch.int64,
+                                             device=x.device),
+        "stream": lambda: build.stream_ptr(x.device),
+        "c_call": lambda: lib.brush_scan_rows_i32(
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words, rows,
+            length, stream),
+        "one_allocation": one_allocation,
+        "stream_object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "torch_cumsum": lambda: torch.cumsum(x, dim=1, dtype=x.dtype),
+    }
+    us = {}
+    for name, fn in pieces.items():
+        runs = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+        us[name] = sorted(runs)[repeats // 2]
+    torch.cuda.synchronize()
+    us["rest"] = us["call"] - sum(us[k] for k in (
+        "checks", "empty_out", "empty_scratch", "stream", "c_call"))
+    return us
 
 
 def read_safetensors(path: str) -> dict:
@@ -1355,6 +1417,14 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                 f"{part['plain_ms']:.5f} library_ms={part['library_ms']} "
                 f"library_device_ms={part['library_device_ms']} bound_ms="
                 f"{part['bound_ms']:.5f}")
+    # Which of the scan wrapper's pieces sets its host time a call, at the
+    # served frame's binning shape.
+    scan_entry = next(e for e in line if e["name"] == "scan")
+    scan_entry["wrapper_us"] = scan_wrapper_us(
+        torch, paths["serve"][1]["scan"][0].inputs[0])
+    log("[kernels] scan wrapper at the served frame's shape, host us a "
+        "call: " + json.dumps({k: round(v, 3)
+                               for k, v in scan_entry["wrapper_us"].items()}))
     return line
 
 

@@ -1,7 +1,6 @@
 """The PyTorch port must stand alone: importing every module of
-`brush_tpu_torch` (and `chip_smoke.py`, `kernel_variants.py`) loads no JAX,
-no Flax and nothing of the JAX package `brush_tpu`, and builds or loads no
-CUDA kernel."""
+`brush_tpu_torch` (and `chip_smoke.py`) loads no JAX, no Flax and nothing of
+the JAX package `brush_tpu`, and builds or loads no CUDA kernel."""
 
 import json
 import pathlib
@@ -18,7 +17,7 @@ mods = ["brush_tpu_torch"] + [
                                           "brush_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-import chip_smoke, kernel_variants
+import chip_smoke
 from brush_tpu_torch.kernels import build
 bad = sorted(m for m in sys.modules
              if m.startswith(("jax", "flax")) or m == "brush_tpu"
