@@ -77,10 +77,14 @@ Phases, each of which must pass (any failure exits non-zero):
              time (CUDA events over back-to-back calls, `ms`, which a small
              kernel's host call rate can set), its device time (the device
              ops of the same calls under torch.profiler, `device_ms`; a scan
-             call must run one kernel and at most one memset), the plain
-             version's time, a library call's where one computes the same
-             function, and its bound on the card; and the int32 scan
-             wrapper's host time a call, piece by piece (`wrapper_us`).
+             call must run one kernel and a backward call its two, and
+             at most one memset), the plain version's time, a library
+             call's where one computes the same function, and its bound on
+             the card; the int32 scan wrapper's host time a call, piece by
+             piece (`wrapper_us`); and, for each backward launch, the
+             per-slot reduce the backward used to need after it (an
+             [11, S] zero-fill and `index_add_` of the plain per-slot
+             gradients), timed at the same shapes beside the fused kernel.
 12. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
@@ -146,6 +150,11 @@ RASTER_OPS_PER_PAIR = 27
 BWD_REPLAY_OPS_PER_PAIR = 21
 BWD_BLEND_OPS_PER_PAIR = 54
 
+# Device ops a call of these kernels' wrappers may run: their own launches
+# (the scan: one; the backward: its gradient kernel and the launch that
+# rounds its f64 sums to f32) and at most one memset.
+OWN_LAUNCHES = {"scan": 1, "scan_f32": 1, "scan_max": 1, "rasterize_bwd": 2}
+
 KERNEL_META = {
     "scan": ("brush_tpu_torch/csrc/scan.cu",
              "brush_tpu/ops/scan_pallas.py:43", "ops/scan_pallas.py:_scan_kernel"),
@@ -163,7 +172,8 @@ KERNEL_META = {
                             "(fwd_only=False)"),
     "rasterize_bwd": ("brush_tpu_torch/csrc/rasterize_bwd.cu",
                       "brush_tpu/ops/rasterize_pallas.py:431",
-                      "ops/rasterize_pallas.py:_bwd_kernel"),
+                      "ops/rasterize_pallas.py:_bwd_kernel with "
+                      "_reduce_grads_sorted (:814)"),
     "scan_f32": ("brush_tpu_torch/csrc/scan.cu",
                  "brush_tpu/ops/scan_pallas.py:43",
                  "ops/scan_pallas.py:_scan_kernel (f32 sum)"),
@@ -691,13 +701,14 @@ def phase_golden_train(torch):
 
 def phase_direct(torch, train):
     """The scan kernel's two other variants at the width of the training
-    scene's slot space: an [11, S] f32 sum (the shape of a per-slot
-    gradient matrix) and a [S] int32 running max."""
+    scene's slot space: an [11, S] f32 sum (the shape the per-slot
+    gradient matrix had, and the JAX reduce's scan) and a [S] int32 running
+    max."""
     from brush_tpu_torch import kernels
     from brush_tpu_torch.ops import scan_cuda
-    slot_grads = next(launch for launch in train["captured"]
-                      if launch.name == "rasterize_bwd")
-    width = slot_grads.inputs[0].shape[1]
+    bwd = next(launch for launch in train["captured"]
+               if launch.name == "rasterize_bwd")
+    width = bwd.inputs[0].shape[1]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     x = torch.randn((11, width), generator=gen, device="cuda")
@@ -1226,19 +1237,37 @@ def kernel_work(launch, got):
                 + 12,
                 int(pairs) * RASTER_OPS_PER_PAIR,
                 [n_tiles, int(spans.sum()), int(spans.max())])
-    # rasterize_bwd: reads the replayed slots, the saved and cotangent
-    # tiles; writes the whole [11, L] gradient matrix.
+    # rasterize_bwd: reads the replayed slots' nine attributes and splat
+    # ids, the saved and cotangent tiles and the schedule (tile order, part
+    # lengths); writes the [11, n] per-splat sums.
     _, replayed, blended = rasterize_cuda.rasterize_backward_plain(
-        *inputs, count_pairs=True)
+        *inputs[:6], count_pairs=True)
     useful = inputs[2][:, 5, 0].to(torch.int64)
-    return (int(useful.sum()) * rasterize_cuda.TRAIN_ROWS * 4
+    return (int(useful.sum()) * (rasterize_cuda.TRAIN_ROWS + 1) * 4
             + n_tiles * (8 + (rasterize_cuda.TRAIN_OUT_ROWS
                               + rasterize_cuda.V_ROWS) * tile_bytes) + 12
+            + n_tiles * (1 + rasterize_cuda.TILE_PARTS) * 4
             + got.numel() * 4,
             int(replayed) * BWD_REPLAY_OPS_PER_PAIR
             + int(blended) * BWD_BLEND_OPS_PER_PAIR,
             [n_tiles, int(useful.sum()), int(useful.max()), int(replayed),
              int(blended)])
+
+
+def slot_reduce_ms(torch, inputs) -> float:
+    """Device time of what the backward ran besides its kernel before it
+    summed per splat itself: the memset of the [11, S] per-slot
+    buffer, and `reduce_slot_grads` (a zeroed [11, n] and the `index_add_`
+    over the slots' splat ids) of the per-slot gradients (here the plain
+    version's), on a backward launch's inputs."""
+    from brush_tpu_torch.ops import rasterize_cuda
+    gid, n = inputs[6], inputs[7]
+    slot_grads = rasterize_cuda.rasterize_backward_plain(*inputs[:6])
+
+    def reduce():
+        torch.zeros_like(slot_grads)      # the per-slot buffer's memset
+        return rasterize_cuda.reduce_slot_grads(slot_grads, gid, n)
+    return device_time(torch, reduce, ITERS)["ms"]
 
 
 def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
@@ -1310,13 +1339,20 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                                    if lib else None),
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3)
-            if name.startswith("scan"):
-                # One scan launch a call, and at most the memset of its
-                # scratch, in some trace (a trace may drop ops, never add).
-                check(any(k == 1 and m <= 1 and c == 0
+            if name in OWN_LAUNCHES:
+                # The kernel's own launches a call and at most the memset of
+                # its scratch, nothing else, in some trace (a trace may drop
+                # ops, never add).
+                check(any(k == OWN_LAUNCHES[name] and m <= 1 and c == 0
                           for k, m, c in dev["ops_by_trace"]),
                       f"{name} {shape}: (kernels, memsets, copies) a call "
                       f"by trace {dev['ops_by_trace']}")
+            if name == "rasterize_bwd":
+                part["slot_reduce_device_ms"] = slot_reduce_ms(
+                    torch, launch.inputs)
+                r["slot_reduce_device_ms"] = (
+                    r.get("slot_reduce_device_ms", 0.0)
+                    + part["slot_reduce_device_ms"])
             r["err"] = max(r["err"], err)
             r["bytes"] += nbytes
             r["ops"] += ops
@@ -1368,6 +1404,8 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             device_ops=[part["device_ops"] for part in r["parts"]])
         if len(r["parts"]) > 1:
             entry["per_launch"] = r["parts"]
+        if "slot_reduce_device_ms" in r:
+            entry["slot_reduce_device_ms"] = r["slot_reduce_device_ms"]
         also = ""
         for other, (o_counts, o_caps, o_runs) in paths.items():
             if other == path or name not in o_caps:
@@ -1387,6 +1425,9 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                 f"{other}_bound_ms": max(ro["bytes"] / HBM_BYTES_PER_S,
                                          ro["ops"] / F32_OPS_PER_S) * 1e3,
                 f"{other}_shape": ro["shape"]})
+            if "slot_reduce_device_ms" in ro:
+                entry[f"{other}_slot_reduce_device_ms"] = ro[
+                    "slot_reduce_device_ms"]
             also += (f"; on the {other} path: ms={ro['ms']:.5f} device_ms="
                      f"{ro['device_ms']:.5f} plain_ms={ro['plain_ms']:.5f} "
                      f"library_ms={ro['library_ms']} library_device_ms="
@@ -1417,6 +1458,21 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                 f"{part['plain_ms']:.5f} library_ms={part['library_ms']} "
                 f"library_device_ms={part['library_device_ms']} bound_ms="
                 f"{part['bound_ms']:.5f}")
+    # The backward against what the per-slot design ran besides its kernel,
+    # path by path (ms a path's replayed launches together).
+    bwd = next(e for e in line if e["name"] == "rasterize_bwd")
+    yard = {bwd["path"]: (bwd["device_ms"], bwd["slot_reduce_device_ms"])}
+    for other in paths:
+        if f"{other}_device_ms" in bwd:
+            yard[other] = (bwd[f"{other}_device_ms"],
+                           bwd[f"{other}_slot_reduce_device_ms"])
+    log("[kernels] rasterize_bwd yardstick, device ms by path: the fused "
+        "kernel with its memset and rounding launch, and the per-slot "
+        "design's [11, S] memset "
+        "+ `index_add_` reduce at the same shapes (its kernel aside; "
+        "rasterize_turns.py times a parent checkout whole): "
+        + json.dumps({p: {"fused": round(a, 5), "slot_reduce": round(b, 5)}
+                      for p, (a, b) in yard.items()}))
     # Which of the scan wrapper's pieces sets its host time a call, at the
     # served frame's binning shape.
     scan_entry = next(e for e in line if e["name"] == "scan")

@@ -25,6 +25,14 @@ plain under its own module's compare (`kernels.Launch.check`):
                   hundred slots where whole blocks finish early;
   * giant_splats: splats whose bbox passes 32 tiles (the untested bbox
                   tail of the emission).
+
+The rasterizers' work split (one warp an 8x4-pixel part of a tile, parts
+from an atomic counter, longest tiles first) and the backward's per-splat
+atomics are also held to their plain versions on SoAs built here slot by
+slot: one tile of 2,500 unsaturated slots among short tiles, one splat in
+every tile of a 1080p grid (every warp adds into the same gradient row),
+empty tiles and tiles nothing blends in, NaN and infinite conics, a single
+splat, and a capacity whose second half is dead.
 """
 
 import numpy as np
@@ -34,8 +42,9 @@ import torch
 from brush_tpu_torch import kernels
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.models.splats import from_raw
-from brush_tpu_torch.ops import expand_cuda, scan_cuda
+from brush_tpu_torch.ops import expand_cuda, rasterize_cuda, scan_cuda
 from brush_tpu_torch.ops.capacity import plan_caps
+from brush_tpu_torch.ops.tiling_key import _pack2f16
 from brush_tpu_torch.render import (
     RenderConfig,
     camera_inputs,
@@ -457,3 +466,140 @@ def test_train_render_kernels_match_plain(scene, cuda):
             f"{scale:.3g}")
     flips = int((grads[6].cpu() != ref[6]).sum())
     assert flips <= max(2, grads[6].numel() // 1000), flips
+
+
+def _slot_soas(spans, img, n, rng, gid=None):
+    """Training and diet SoAs whose tile t holds spans[t] slots: splats of
+    1.5-3 px near their tile, opacity 0.05-0.2 (a pixel sees tens of them
+    before it saturates), colours with negative entries, splat ids drawn
+    from [0, n) unless given. Returns (soa [16, L] f32, diet [8, L] int32,
+    ranges [T, 2] int32, gid [S] int32), on the CPU."""
+    tbw = -(-img[0] // 32)
+    spans = np.asarray(spans, np.int64)
+    starts = np.cumsum(spans) - spans
+    s_len = int(spans.sum())
+    width = s_len + 128
+    tile = np.repeat(np.arange(len(spans)), spans)
+    ox = (tile % tbw) * 32.0
+    oy = (tile // tbw) * 32.0
+    x = ox + rng.uniform(-4, 36, s_len)
+    y = oy + rng.uniform(-4, 36, s_len)
+    inv = 1.0 / rng.uniform(1.5, 3.0, s_len) ** 2
+    rows = np.zeros((16, width), np.float32)
+    rows[0, :s_len], rows[1, :s_len] = x, y
+    rows[2, :s_len] = inv
+    rows[3, :s_len] = rng.uniform(-0.2, 0.2, s_len) * inv
+    rows[4, :s_len] = inv * rng.uniform(0.7, 1.4, s_len)
+    rows[5, :s_len] = rng.uniform(0.05, 0.2, s_len)
+    rows[6:9, :s_len] = rng.normal(0.4, 0.5, (3, s_len))
+    if gid is None:
+        gid = rng.integers(0, n, s_len)
+    gid = np.asarray(gid, np.int32)
+    rows[9, :s_len] = gid
+    ranges = np.stack([starts, starts + spans], 1).astype(np.int32)
+    soa, diet = _with_diet(torch.from_numpy(rows), ranges, tbw)
+    return soa, diet, torch.from_numpy(ranges), torch.from_numpy(gid)
+
+
+def _with_diet(soa, ranges, tbw):
+    """(training SoA, its diet SoA: tile-relative centres, f16 pairs)."""
+    width = soa.shape[1]
+    origin = torch.zeros((2, width))
+    for t, (a, b) in enumerate(ranges):
+        origin[0, a:b] = (t % tbw) * 32.0
+        origin[1, a:b] = (t // tbw) * 32.0
+    diet = torch.zeros((8, width), dtype=torch.int32)
+    diet[0] = (soa[0] - origin[0]).view(torch.int32)
+    diet[1] = (soa[1] - origin[1]).view(torch.int32)
+    diet[2] = _pack2f16(soa[2], soa[3])
+    diet[3] = _pack2f16(soa[4], soa[5])
+    diet[4] = _pack2f16(soa[6], soa[7])
+    diet[5] = _pack2f16(soa[8], torch.zeros(width))
+    return soa, diet
+
+
+def _slot_case(case):
+    """(soa, diet, ranges, gid, n, img) of one card case."""
+    rng = np.random.default_rng(len(case))
+    if case == "long_tile_among_short":
+        img, n = (128, 96), 3000
+        spans = rng.integers(5, 60, 12)
+        spans[7] = 2500
+        return (*_slot_soas(spans, img, n, rng), n, img)
+    if case == "one_splat_in_every_tile":
+        img, n = (1920, 1080), 5000
+        spans = rng.integers(1, 12, 60 * 34)
+        soa, _, ranges, gid = _slot_soas(spans, img, n, rng)
+        first = ranges[:, 0].long()
+        gid[first] = 0                     # the same splat first in each tile
+        soa[0:9, first] = torch.tensor([960.0, 540.0, 1e-6, 0.0, 1e-6, 0.3,
+                                        0.2, 0.5, 0.8])[:, None]
+        soa[9, first] = 0.0
+        return (*_with_diet(soa, ranges.numpy(), 60), ranges, gid, n, img)
+    if case == "empty_and_unblended_tiles":
+        img, n = (160, 96), 400
+        spans = rng.integers(0, 80, 15)
+        spans[[0, 4, 9]] = 0
+        soa, _, ranges, gid = _slot_soas(spans, img, n, rng)
+        for t in (2, 6):                   # every slot under the alpha gate
+            a, b = ranges[t].tolist()
+            soa[5, a:b] = 1e-3
+        return (*_with_diet(soa, ranges.numpy(), 5), ranges, gid, n, img)
+    if case == "nan_and_inf_conics":
+        img, n = (96, 64), 50
+        soa, _, ranges, gid = _slot_soas([90] * 6, img, n, rng)
+        soa[2:5, torch.nonzero(gid == 5)[:, 0]] = float("nan")
+        soa[2:5, torch.nonzero(gid == 6)[:, 0]] = float("inf")
+        return (*_with_diet(soa, ranges.numpy(), 3), ranges, gid, n, img)
+    if case == "single_splat":
+        img, n = (64, 64), 1
+        spans = [40, 0, 7, 300]
+        return (*_slot_soas(spans, img, n, rng,
+                            gid=np.zeros(sum(spans))), n, img)
+    assert case == "dead_second_half"
+    img, n = (256, 160), 2 ** 12              # ids only below n / 2
+    spans = rng.integers(0, 200, 40)
+    return (*_slot_soas(spans, img, n // 2, rng), n, img)
+
+
+SLOT_CASES = ["long_tile_among_short", "one_splat_in_every_tile",
+              "empty_and_unblended_tiles", "nan_and_inf_conics",
+              "single_splat", "dead_second_half"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SLOT_CASES)
+def test_rasterizer_kernels_match_plain_on_built_slots(case, cuda):
+    soa, diet, ranges, gid, n, img = _slot_case(case)
+    soa, diet, ranges, gid = (x.to(cuda) for x in (soa, diet, ranges, gid))
+    bg = torch.tensor([0.3, 0.2, 0.1], device=cuda)
+    _same(rasterize_cuda.rasterize_forward, diet, ranges, bg, img)
+    with kernels.capture() as launches:
+        tiles, schedule = rasterize_cuda.rasterize_forward_train_scheduled(
+            soa, ranges, bg, img)
+    launches[0].check()
+    spans = (ranges[:, 1] - ranges[:, 0]).cpu()
+    useful = tiles[:, 5, 0].cpu()
+    v = np.random.default_rng(1).normal(0, 1, (img[1], img[0], 4))
+    v_tiles = rasterize_cuda.image_to_tiles(
+        torch.from_numpy(v.astype(np.float32)).to(cuda), img)
+    args = (soa, ranges, tiles, v_tiles, bg, img, gid, n, schedule)
+    # Twice: the per-splat sums add in atomic order.
+    for _ in range(2):
+        err = _same(rasterize_cuda.rasterize_backward_splats, *args)
+        assert np.isfinite(err)
+    got = rasterize_cuda.rasterize_backward_splats(*args).cpu()
+    assert got.shape == (rasterize_cuda.GRAD_ROWS, n)
+    assert bool(torch.isfinite(got).all())
+    if case == "long_tile_among_short":
+        assert int(useful[7]) >= 2000 and int(useful.max()) == int(useful[7])
+    elif case == "one_splat_in_every_tile":
+        assert float(got[10, 0]) > 100 * float(got[10, 1:].max())
+    elif case == "empty_and_unblended_tiles":
+        assert not useful[[0, 4, 9, 2, 6]].any() and spans[[2, 6]].all()
+    elif case == "nan_and_inf_conics":
+        assert not got[:, 5:7].any() and int(got[10].count_nonzero()) > 40
+    elif case == "single_splat":
+        assert got[10, 0] > 0
+    else:
+        assert not got[:, n // 2:].any() and got[10, :n // 2].any()

@@ -591,7 +591,7 @@ def test_training_kernel_compares_catch_one_wrong_slot():
     col = start + int(grads[10, start:start + useful].argmax())
     lost = grads.clone()
     lost[:, col] = 0.0
-    with pytest.raises(AssertionError, match="slot gradients"):
+    with pytest.raises(AssertionError, match="gradients past"):
         rasterize_cuda.compare_bwd(lost, grads)
     for row in range(11):
         zeroed = grads.clone()
