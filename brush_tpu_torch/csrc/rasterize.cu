@@ -26,8 +26,8 @@
 // pixels, one a lane of one warp. A persistent grid (as many blocks as fit
 // on the card) takes parts from an atomic counter, warp by warp, over the
 // tiles in the order `order` gives (descending span, so the longest tiles
-// start first). A warp stages its next 32 slots itself in its own corner
-// of shared memory (a lane loads one slot; the diet variant decodes its
+// start first), or in tile order where none is given. A warp stages its
+// next 32 slots itself in its own corner of shared memory (a lane loads one slot; the diet variant decodes its
 // f16 pairs there with __half2float on the raw 16 bits, bit-exact like the
 // JAX package's _f16_to_f32), so warps never wait on each other: a warp
 // leaves its part as soon as its 32 pixels are done or the range ends, and
@@ -113,7 +113,7 @@ rasterize_fwd_kernel(const uint32_t* __restrict__ soa, int64_t stride,
     if (lane == 0) item = atomicAdd(counter, 1);
     item = __shfl_sync(kFull, item, 0);
     if (item >= n_items) break;
-    const int t = order[item / kParts];
+    const int t = order != nullptr ? order[item / kParts] : item / kParts;
     const int q = item % kParts;
     const int p = part_pixel(q, lane);
     const int start = ranges[2 * t];
@@ -265,7 +265,8 @@ int launch(const void* soa, int64_t stride, const void* ranges,
 // soa: [>= 6, stride] 32-bit words (diet layout: rows 0,1 tile-relative f32
 // x, y; rows 2..5 f16 pairs (c00,c01) (c11,opac) (r,g) (b,0)).
 // ranges: [n_tiles, 2] int32 raw [start, end). order: [n_tiles] int32, a
-// permutation of the tiles (the order parts are handed out in). bg: [3] f32.
+// permutation of the tiles (the order parts are handed out in), or null for
+// tile order. bg: [3] f32.
 // out: [n_tiles, 4, 1024] f32. scratch: 1 int32 (cleared here).
 BRUSH_EXPORT int brush_rasterize_fwd_diet(const void* soa, int64_t stride,
                                           const void* ranges,

@@ -32,8 +32,8 @@
 // where the raw colour is > 0 (the blend uses max(rgb, 0)).
 //
 // What bounds it on the H100: operations, about 21 f32 operations (one
-// exp) to replay a (pixel, slot) pair and about 54 more where it was
-// blended; the bytes (40 per replayed slot, 48 KB of tiles a tile, 44 per
+// exp) to replay a (pixel, slot) pair up to its part's useful length and
+// about 54 more where it was blended; the bytes (40 per replayed slot, 48 KB of tiles a tile, 44 per
 // splat written) are far below. The first design (one block per tile,
 // 4 pixels a thread, a cross-warp reduce in shared memory with two
 // barriers every 64 slots, one column per slot into an [11, S] buffer

@@ -5,11 +5,10 @@ beside it (port of `brush_tpu/ops/rasterize_pallas.py`).
   `csrc/rasterize.cu`, replacing `_fwd_kernel` with fwd_only=True
   (rasterize_pallas.py:152, entry `rasterize_forward_pallas` :356).
 * `rasterize_forward_train` — the training blend on the f32 SoA, which also
-  returns each pixel's final transmittance and each tile's `useful_len`.
-  The same kernel source, training variant, replacing `_fwd_kernel` with
-  fwd_only=False. `rasterize_forward_train_scheduled` also returns the
-  `TileSchedule` the backward kernel takes: the tile order and each tile
-  part's own useful length.
+  returns each pixel's final transmittance and each tile's `useful_len`,
+  and the `TileSchedule` the backward kernel takes (the tile order and each
+  tile part's own useful length). The same kernel source, training
+  variant, replacing `_fwd_kernel` with fwd_only=False.
 * `rasterize_backward_splats` — per-splat gradients from the image
   cotangent. Kernel `csrc/rasterize_bwd.cu`, replacing `_bwd_kernel`
   (rasterize_pallas.py:431, entry `rasterize_backward_pallas` :737)
@@ -23,15 +22,16 @@ beside it (port of `brush_tpu/ops/rasterize_pallas.py`).
 The unit of work of the forward kernels is one part of a tile, an 8x4
 block of 32 pixels (`TILE_PARTS` of them a tile), one a lane of one warp;
 of the backward, two parts stacked. A persistent grid takes them from an
-atomic counter over the tiles in descending order of their slot span
-(`tile_order`), so the longest tiles start first; a warp stages its own
+atomic counter over the tiles, in the training kernels in descending order
+of their slot span (`tile_order`), so the longest tiles start first; a warp stages its own
 batches of slots in shared memory and leaves its part once its pixels are
 done, and every pixel blends front to back with the sequential
 T *= (1 - alpha). The backward replays only its parts' useful slots and
 adds each slot's 11 warp sums into the splat's gradient row with f64
 atomics, which a second launch rounds to f32. Bound on the H100: operations
 (about 27 f32 operations per (pixel, slot) pair the forward evaluates; 21
-per pair the backward replays and 54 more where the pair was blended).
+per pair the backward replays up to the pixel's part's useful length and 54
+more where the pair was blended).
 
 The TPU formed T as exp(prefix sum of log(1 - alpha)) on the MXU; the
 sequential product differs from it by a few ulps, so a pixel near the
@@ -266,18 +266,26 @@ def rasterize_forward(soa, tile_ranges, bg, img_size):
     soa = soa.contiguous()
     tile_ranges = tile_ranges.contiguous()
     bg = bg.contiguous()
-    order = tile_order(tile_ranges)
-    out = torch.empty((n_tiles, OUT_ROWS, TILE_PIX), dtype=torch.float32,
-                      device=soa.device)
-    counter = torch.empty(1, dtype=torch.int32, device=soa.device)
-    err = build.library().brush_rasterize_fwd_diet(
-        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(),
-        order.data_ptr(), bg.data_ptr(), out.data_ptr(), counter.data_ptr(),
-        n_tiles, build.stream_ptr(soa.device))
-    build.check(err, "rasterize_forward")
+    out = _launch_diet(soa, tile_ranges, bg, n_tiles, None)
     kernels.note_launch("rasterize_fwd", _replay, compare, soa, tile_ranges,
                         bg, img_size)
     return out
+
+
+def _launch_diet(soa, tile_ranges, bg, n_tiles, order):
+    """Launch the diet kernel on checked, contiguous inputs, handing parts
+    out in tile order (`order` None) or in `order`'s (int32 [T])."""
+    # The tiles and, in the word after them, the kernel's work counter
+    # (cleared by the C call): one allocation.
+    words = torch.empty(n_tiles * OUT_ROWS * TILE_PIX + 1,
+                        dtype=torch.float32, device=soa.device)
+    err = build.library().brush_rasterize_fwd_diet(
+        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(),
+        None if order is None else order.data_ptr(), bg.data_ptr(),
+        words.data_ptr(), words[-1:].data_ptr(), n_tiles,
+        build.stream_ptr(soa.device))
+    build.check(err, "rasterize_forward")
+    return words[:-1].view(n_tiles, OUT_ROWS, TILE_PIX)
 
 
 def _replay(inputs):
@@ -313,43 +321,27 @@ def compare(got, want) -> float:
 
 def rasterize_forward_train_plain(soa, tile_ranges, bg, img_size,
                                   count_pairs: bool = False):
-    """Plain version of `rasterize_forward_train`: tiles [T, 8, 1024] (and,
-    with count_pairs, the (pixel, slot) pairs evaluated)."""
+    """Plain version of `rasterize_forward_train`: (tiles [T, 8, 1024],
+    schedule) (and, with count_pairs, the (pixel, slot) pairs evaluated)."""
     _check("rasterize_forward_train", soa, torch.float32, TRAIN_ROWS,
            tile_ranges, bg, img_size)
     px, py = _pixel_centres(img_size, soa.device, absolute=True)
-    tiles, _, pairs = _blend_plain(_fetch_train(soa), tile_ranges, px, py,
-                                   bg, True)
-    return (tiles, pairs) if count_pairs else tiles
-
-
-def rasterize_forward_train_scheduled_plain(soa, tile_ranges, bg, img_size):
-    """Plain version of `rasterize_forward_train_scheduled`."""
-    _check("rasterize_forward_train", soa, torch.float32, TRAIN_ROWS,
-           tile_ranges, bg, img_size)
-    px, py = _pixel_centres(img_size, soa.device, absolute=True)
-    tiles, part_useful, _ = _blend_plain(_fetch_train(soa), tile_ranges, px,
-                                        py, bg, True)
-    return tiles, TileSchedule(tile_order(tile_ranges), part_useful)
+    tiles, part_useful, pairs = _blend_plain(_fetch_train(soa), tile_ranges,
+                                             px, py, bg, True)
+    schedule = TileSchedule(tile_order(tile_ranges), part_useful)
+    return (tiles, schedule, pairs) if count_pairs else (tiles, schedule)
 
 
 def rasterize_forward_train(soa, tile_ranges, bg, img_size):
-    """Rasterize the sorted f32 training SoA -> tiles [T, 8, 1024] f32: rows
-    0..2 rgb + T*bg, 3 alpha = 1 - T, 4 the final T, 5 `useful_len` (one
-    past the last slot any pixel of the tile blended, counted from the
-    tile's start, the same value in every lane), 6, 7 zero."""
-    return rasterize_forward_train_scheduled(soa, tile_ranges, bg,
-                                             img_size)[0]
-
-
-def rasterize_forward_train_scheduled(soa, tile_ranges, bg, img_size):
-    """`rasterize_forward_train`'s tiles and the `TileSchedule` of this
-    launch, which the backward kernel replays by."""
+    """Rasterize the sorted f32 training SoA -> (tiles [T, 8, 1024] f32,
+    `TileSchedule`). Tile rows: 0..2 rgb + T*bg, 3 alpha = 1 - T, 4 the
+    final T, 5 `useful_len` (one past the last slot any pixel of the tile
+    blended, counted from the tile's start, the same value in every lane),
+    6, 7 zero. The schedule is what the backward kernel replays by."""
     n_tiles = _check("rasterize_forward_train", soa, torch.float32,
                      TRAIN_ROWS, tile_ranges, bg, img_size)
     if soa.device.type == "cpu":
-        return rasterize_forward_train_scheduled_plain(soa, tile_ranges, bg,
-                                                       img_size)
+        return rasterize_forward_train_plain(soa, tile_ranges, bg, img_size)
     kernels.require_cuda("rasterize_forward_train", soa, tile_ranges, bg)
     soa = soa.contiguous()
     tile_ranges = tile_ranges.contiguous()
@@ -374,8 +366,8 @@ def rasterize_forward_train_scheduled(soa, tile_ranges, bg, img_size):
 
 
 def _replay_train(inputs):
-    return (lambda: rasterize_forward_train_scheduled(*inputs),
-            lambda: rasterize_forward_train_scheduled_plain(*inputs))
+    return (lambda: rasterize_forward_train(*inputs),
+            lambda: rasterize_forward_train_plain(*inputs))
 
 
 def compare_train(got, want) -> float:
@@ -420,7 +412,9 @@ def rasterize_backward_plain(soa, tile_ranges, tiles, v_tiles, bg, img_size,
     0 and never 0 * inf.
 
     Returns slot gradients [11, L] (and, with count_pairs, the numbers of
-    (pixel, slot) pairs replayed and blended)."""
+    (pixel, slot) pairs replayed and blended; replayed up to each 8x4
+    part's own useful length, past which its pixels blend nothing, so these
+    are the pairs the backward needs)."""
     n_tiles = _check_bwd(soa, tile_ranges, tiles, v_tiles, bg, img_size)
     dev = soa.device
     img_w, img_h = img_size
@@ -445,7 +439,9 @@ def rasterize_backward_plain(soa, tile_ranges, tiles, v_tiles, bg, img_size,
     trans = torch.ones_like(t_fin)
     done = torch.zeros_like(t_fin, dtype=torch.bool)
     zero = torch.zeros_like(t_fin)
-    replayed = torch.zeros((), dtype=torch.int64, device=dev)
+    evaluated = torch.zeros_like(t_fin, dtype=torch.int64)
+    part_len = torch.zeros((n_tiles, TILE_PARTS), dtype=torch.int64,
+                           device=dev)
     blended = torch.zeros((), dtype=torch.int64, device=dev)
 
     for i in range(int(spans.max()) if n_tiles else 0):
@@ -457,8 +453,9 @@ def rasterize_backward_plain(soa, tile_ranges, tiles, v_tiles, bg, img_size,
         dx, dy, gauss, og, alpha, blend, stop, next_t, weight = _blend_step(
             vals, px, py, trans, done, live)
         if count_pairs:
-            replayed += (live & ~done).sum()
+            evaluated += live & ~done
             blended += blend.sum()
+            part_len = torch.where(_by_part(blend).any(2), i + 1, part_len)
         cmax = [torch.clamp_min(vals[6 + c], 0.0)[:, None] for c in range(3)]
         v_w = cmax[0] * v_rgb[0] + cmax[1] * v_rgb[1] + cmax[2] * v_rgb[2]
         r_after = r_rem - weight * v_w
@@ -486,7 +483,12 @@ def rasterize_backward_plain(soa, tile_ranges, tiles, v_tiles, bg, img_size,
         trans = torch.where(blend, next_t, trans)
         r_rem = torch.where(blend, r_after, r_rem)
         done = done | stop
-    return (out, replayed, blended) if count_pairs else out
+    if not count_pairs:
+        return out
+    # A pixel is evaluated min(span, slots until done) times; its part
+    # needs min(part length, slots until done), part length <= span.
+    replayed = torch.minimum(_by_part(evaluated), part_len[:, :, None]).sum()
+    return out, replayed, blended
 
 
 def _check_gid(gid_from_isect, n: int, width: int) -> None:
@@ -516,7 +518,7 @@ def rasterize_backward_splats(soa, tile_ranges, tiles, v_tiles, bg, img_size,
                               gid_from_isect, n: int, schedule):
     """Per-splat gradients [11, n] f32 from the image cotangent in tile
     layout `v_tiles` [T, 4, 1024] and the training forward's `tiles` and
-    `schedule` (`rasterize_forward_train_scheduled`): rows 0,1 v_xy, 2..4
+    `schedule` (`rasterize_forward_train`): rows 0,1 v_xy, 2..4
     v_conic, 5 v_opac, 6..8 v_rgb, 9 the refine weight
     sum_p |v_xy * (W, H)| / max(alpha_p, 1e-5), 10 sum_p w, each summed
     over the sorted slots whose splat id (`gid_from_isect`, int32 [S]) is
@@ -632,7 +634,7 @@ class _RasterizeTrain(torch.autograd.Function):
     def forward(ctx, mean2d, conic, color, opac, refine_holder,
                 visible_holder, soa, tile_ranges, gid_from_isect, bg,
                 img_size):
-        tiles, (order, part_useful) = rasterize_forward_train_scheduled(
+        tiles, (order, part_useful) = rasterize_forward_train(
             soa, tile_ranges, bg, img_size)
         ctx.save_for_backward(soa, tiles, tile_ranges, gid_from_isect, bg,
                               order, part_useful)

@@ -77,11 +77,13 @@ Phases, each of which must pass (any failure exits non-zero):
              time (CUDA events over back-to-back calls, `ms`, which a small
              kernel's host call rate can set), its device time (the device
              ops of the same calls under torch.profiler, `device_ms`; a scan
-             call must run one kernel and a backward call its two, and
-             at most one memset), the plain version's time, a library
-             call's where one computes the same function, and its bound on
-             the card; the int32 scan wrapper's host time a call, piece by
-             piece (`wrapper_us`); and, for each backward launch, the
+             call and a diet forward call must run one kernel and a
+             backward call its two, and at most one memset), the plain
+             version's time, a library call's where one computes the same
+             function, and its bound on the card; the int32 scan's and the
+             diet forward's wrapper host time a call, piece by piece
+             (`wrapper_us`); the diet kernel's device time in tile order
+             and longest tile first; and, for each backward launch, the
              per-slot reduce the backward used to need after it (an
              [11, S] zero-fill and `index_add_` of the plain per-slot
              gradients), timed at the same shapes beside the fused kernel.
@@ -151,9 +153,10 @@ BWD_REPLAY_OPS_PER_PAIR = 21
 BWD_BLEND_OPS_PER_PAIR = 54
 
 # Device ops a call of these kernels' wrappers may run: their own launches
-# (the scan: one; the backward: its gradient kernel and the launch that
-# rounds its f64 sums to f32) and at most one memset.
-OWN_LAUNCHES = {"scan": 1, "scan_f32": 1, "scan_max": 1, "rasterize_bwd": 2}
+# (the scan and the diet forward: one; the backward: its gradient kernel
+# and the launch that rounds its f64 sums to f32) and at most one memset.
+OWN_LAUNCHES = {"scan": 1, "scan_f32": 1, "scan_max": 1, "rasterize_fwd": 1,
+                "rasterize_bwd": 2}
 
 KERNEL_META = {
     "scan": ("brush_tpu_torch/csrc/scan.cu",
@@ -202,10 +205,12 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def time_ms(torch, fn, iters: int) -> float:
+def time_ms(torch, fn, iters: int, warm: bool = True) -> float:
     """Mean device time of `fn` over `iters` back-to-back calls (CUDA
-    events, after one warm-up call)."""
-    fn()
+    events, after one warm-up call unless `warm` is False: the caller has
+    just run it)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -309,6 +314,78 @@ def scan_wrapper_us(torch, x, calls: int = 200, repeats: int = 5) -> dict:
             x.device).cuda_stream,
         "torch_cumsum": lambda: torch.cumsum(x, dim=1, dtype=x.dtype),
     }
+    us = host_us(torch, pieces, calls, repeats)
+    us["rest"] = us["call"] - sum(us[k] for k in (
+        "checks", "empty_out", "empty_scratch", "stream", "c_call"))
+    return us
+
+
+def diet_wrapper_us(torch, inputs, calls: int = 200,
+                    repeats: int = 5) -> dict:
+    """Host time, in microseconds a call, of the diet forward's wrapper
+    (`rasterize_forward`) on a launch's inputs and of its pieces: the
+    checks and `contiguous`, the one allocation (tiles and work counter),
+    the stream handle and the C call (memset and launch); `rest` is the
+    call less those. Beside them, `tile_order` (the sort and int32 cast a
+    longest-first order would add). Timed as `scan_wrapper_us` does."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.kernels import build
+    from brush_tpu_torch.ops import rasterize_cuda as rc
+
+    soa, ranges, bg, img_size = inputs
+    n_tiles = ranges.shape[0]
+    words = torch.empty(n_tiles * rc.OUT_ROWS * rc.TILE_PIX + 1,
+                        dtype=torch.float32, device=soa.device)
+    lib = build.library()
+    stream = build.stream_ptr(soa.device)
+    pieces = {
+        "call": lambda: rc.rasterize_forward(*inputs),
+        "checks": lambda: (
+            rc._check("rasterize_forward", soa, torch.int32, rc.DIET_WORDS,
+                      ranges, bg, img_size),
+            kernels.require_cuda("rasterize_forward", soa, ranges, bg),
+            soa.contiguous(), ranges.contiguous(), bg.contiguous()),
+        "empty": lambda: torch.empty(n_tiles * rc.OUT_ROWS * rc.TILE_PIX + 1,
+                                     dtype=torch.float32, device=soa.device),
+        "stream": lambda: build.stream_ptr(soa.device),
+        "c_call": lambda: lib.brush_rasterize_fwd_diet(
+            soa.data_ptr(), soa.shape[1], ranges.data_ptr(), None,
+            bg.data_ptr(), words.data_ptr(), words[-1:].data_ptr(), n_tiles,
+            stream),
+        "tile_order": lambda: rc.tile_order(ranges),
+    }
+    us = host_us(torch, pieces, calls, repeats)
+    us["rest"] = us["call"] - sum(us[k] for k in (
+        "checks", "empty", "stream", "c_call"))
+    return us
+
+
+def diet_order_ms(torch, launch) -> dict:
+    """Device ms a call of the diet kernel on a launch's inputs with its
+    parts handed out in tile order (as the wrapper does) and longest tile
+    first (`tile_order`), this with and without the sort that forms the
+    order; the longest-first tiles held to the plain version too."""
+    from brush_tpu_torch.ops import rasterize_cuda as rc
+
+    soa, ranges, bg, _ = launch.inputs
+    n_tiles = ranges.shape[0]
+    order = rc.tile_order(ranges)
+    sorted_first = rc._launch_diet(soa, ranges, bg, n_tiles, order)
+    launch.compare(sorted_first, rc.rasterize_forward_plain(*launch.inputs))
+    del sorted_first
+    ms = {
+        "tile_order": lambda: rc._launch_diet(soa, ranges, bg, n_tiles, None),
+        "longest_first": lambda: rc._launch_diet(soa, ranges, bg, n_tiles,
+                                                 order),
+        "longest_first_with_sort": lambda: rc._launch_diet(
+            soa, ranges, bg, n_tiles, rc.tile_order(ranges)),
+    }
+    return {k: device_time(torch, fn, ITERS)["ms"] for k, fn in ms.items()}
+
+
+def host_us(torch, pieces, calls: int, repeats: int) -> dict:
+    """Median over `repeats` runs of each piece's host time, microseconds a
+    call over `calls` back-to-back calls."""
     us = {}
     for name, fn in pieces.items():
         runs = []
@@ -320,8 +397,6 @@ def scan_wrapper_us(torch, x, calls: int = 200, repeats: int = 5) -> dict:
             runs.append((time.perf_counter() - t0) / calls * 1e6)
         us[name] = sorted(runs)[repeats // 2]
     torch.cuda.synchronize()
-    us["rest"] = us["call"] - sum(us[k] for k in (
-        "checks", "empty_out", "empty_scratch", "stream", "c_call"))
     return us
 
 
@@ -1188,12 +1263,36 @@ def phase_init_lod(torch, loop):
                 pup_peak_mb=peak_mb)
 
 
-def kernel_work(launch, got):
+def plain_counted(launch, plain):
+    """The plain version's result on a launch's inputs, from one run, with
+    what `kernel_work` counts from that run: for the rasterizers the
+    (pixel, slot) pairs, for the backward also its per-slot gradients
+    (before the per-splat sum). (result, pairs or None, slot gradients or
+    None)."""
+    from brush_tpu_torch.ops import rasterize_cuda as rc
+    name, inputs = launch.name, launch.inputs
+    if name == "rasterize_fwd":
+        tiles, pairs = rc.rasterize_forward_plain(*inputs, count_pairs=True)
+        return tiles, (pairs,), None
+    if name == "rasterize_fwd_train":
+        tiles, schedule, pairs = rc.rasterize_forward_train_plain(
+            *inputs, count_pairs=True)
+        return (tiles, schedule), (pairs,), None
+    if name == "rasterize_bwd":
+        slot_grads, replayed, blended = rc.rasterize_backward_plain(
+            *inputs[:6], count_pairs=True)
+        return (rc.reduce_slot_grads(slot_grads, inputs[6], inputs[7]),
+                (replayed, blended), slot_grads)
+    return plain(), None, None
+
+
+def kernel_work(launch, got, pairs):
     """(bytes the function must move, f32 operations it must do, shape) for
     one launch on these inputs: each input read once, each output written
     once; the rasterizers' operations count the (pixel, slot) pairs this
-    run's data needs (forward: before each pixel is done; backward: pairs
-    replayed and pairs blended over the tiles' useful ranges)."""
+    run's data needs, `pairs` from `plain_counted` (forward: before each
+    pixel is done; backward: pairs replayed, up to each 8x4 part's own
+    useful length, and pairs blended)."""
     import torch
 
     from brush_tpu_torch.ops import emit_cuda, rasterize_cuda
@@ -1223,25 +1322,20 @@ def kernel_work(launch, got):
     n_tiles = ranges.shape[0]
     tile_bytes = rasterize_cuda.TILE_PIX * 4
     if name == "rasterize_fwd":
-        _, pairs = rasterize_cuda.rasterize_forward_plain(*inputs,
-                                                          count_pairs=True)
         return (int(spans.sum()) * rasterize_cuda.DIET_WORDS * 4
                 + n_tiles * (8 + rasterize_cuda.OUT_ROWS * tile_bytes) + 12,
-                int(pairs) * RASTER_OPS_PER_PAIR,
+                int(pairs[0]) * RASTER_OPS_PER_PAIR,
                 [n_tiles, int(spans.sum()), int(spans.max())])
     if name == "rasterize_fwd_train":
-        _, pairs = rasterize_cuda.rasterize_forward_train_plain(
-            *inputs, count_pairs=True)
         return (int(spans.sum()) * rasterize_cuda.TRAIN_ROWS * 4
                 + n_tiles * (8 + rasterize_cuda.TRAIN_OUT_ROWS * tile_bytes)
                 + 12,
-                int(pairs) * RASTER_OPS_PER_PAIR,
+                int(pairs[0]) * RASTER_OPS_PER_PAIR,
                 [n_tiles, int(spans.sum()), int(spans.max())])
     # rasterize_bwd: reads the replayed slots' nine attributes and splat
     # ids, the saved and cotangent tiles and the schedule (tile order, part
     # lengths); writes the [11, n] per-splat sums.
-    _, replayed, blended = rasterize_cuda.rasterize_backward_plain(
-        *inputs[:6], count_pairs=True)
+    replayed, blended = pairs
     useful = inputs[2][:, 5, 0].to(torch.int64)
     return (int(useful.sum()) * (rasterize_cuda.TRAIN_ROWS + 1) * 4
             + n_tiles * (8 + (rasterize_cuda.TRAIN_OUT_ROWS
@@ -1254,15 +1348,14 @@ def kernel_work(launch, got):
              int(blended)])
 
 
-def slot_reduce_ms(torch, inputs) -> float:
+def slot_reduce_ms(torch, inputs, slot_grads) -> float:
     """Device time of what the backward ran besides its kernel before it
     summed per splat itself: the memset of the [11, S] per-slot
     buffer, and `reduce_slot_grads` (a zeroed [11, n] and the `index_add_`
     over the slots' splat ids) of the per-slot gradients (here the plain
-    version's), on a backward launch's inputs."""
+    version's, `plain_counted`'s), on a backward launch's inputs."""
     from brush_tpu_torch.ops import rasterize_cuda
     gid, n = inputs[6], inputs[7]
-    slot_grads = rasterize_cuda.rasterize_backward_plain(*inputs[:6])
 
     def reduce():
         torch.zeros_like(slot_grads)      # the per-slot buffer's memset
@@ -1319,11 +1412,12 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                  err=0.0, bytes=0, ops=0, shape=[], parts=[])
         for launch in launches:
             kernel, plain = launch.replay(launch.inputs)
-            got, want = kernel(), plain()
+            got = kernel()
+            want, pairs, slot_grads = plain_counted(launch, plain)
             torch.cuda.synchronize()
             err = launch.compare(got, want)
             del want
-            nbytes, ops, shape = kernel_work(launch, got)
+            nbytes, ops, shape = kernel_work(launch, got, pairs)
             del got
             dev = device_time(torch, kernel, ITERS)
             lib = (library[name](launch.inputs) if name in library
@@ -1333,7 +1427,8 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                 device_ms=dev["ms"],
                 device_ops={k: dev[k] for k in ("kernels", "memsets",
                                                 "copies")},
-                plain_ms=time_ms(torch, plain, plain_iters.get(name, ITERS)),
+                plain_ms=time_ms(torch, plain, plain_iters.get(name, ITERS),
+                                 warm=False),
                 library_ms=(time_ms(torch, lib, ITERS) if lib else None),
                 library_device_ms=(device_time(torch, lib, ITERS)["ms"]
                                    if lib else None),
@@ -1349,10 +1444,11 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                       f"by trace {dev['ops_by_trace']}")
             if name == "rasterize_bwd":
                 part["slot_reduce_device_ms"] = slot_reduce_ms(
-                    torch, launch.inputs)
+                    torch, launch.inputs, slot_grads)
                 r["slot_reduce_device_ms"] = (
                     r.get("slot_reduce_device_ms", 0.0)
                     + part["slot_reduce_device_ms"])
+            del slot_grads
             r["err"] = max(r["err"], err)
             r["bytes"] += nbytes
             r["ops"] += ops
@@ -1469,8 +1565,7 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
     log("[kernels] rasterize_bwd yardstick, device ms by path: the fused "
         "kernel with its memset and rounding launch, and the per-slot "
         "design's [11, S] memset "
-        "+ `index_add_` reduce at the same shapes (its kernel aside; "
-        "rasterize_turns.py times a parent checkout whole): "
+        "+ `index_add_` reduce at the same shapes (its kernel aside): "
         + json.dumps({p: {"fused": round(a, 5), "slot_reduce": round(b, 5)}
                       for p, (a, b) in yard.items()}))
     # Which of the scan wrapper's pieces sets its host time a call, at the
@@ -1481,6 +1576,21 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
     log("[kernels] scan wrapper at the served frame's shape, host us a "
         "call: " + json.dumps({k: round(v, 3)
                                for k, v in scan_entry["wrapper_us"].items()}))
+    # The diet forward: its wrapper's host pieces at the served frame, and
+    # what a longest-first tile order would change at the served frame and
+    # at an evaluation view after the loop.
+    diet = next(e for e in line if e["name"] == "rasterize_fwd")
+    diet["wrapper_us"] = diet_wrapper_us(
+        torch, paths["serve"][1]["rasterize_fwd"][0].inputs)
+    diet["order_device_ms"] = {
+        p: diet_order_ms(torch, paths[p][1]["rasterize_fwd"][0])
+        for p in ("serve", "eval") if "rasterize_fwd" in paths[p][1]}
+    log("[kernels] rasterize_fwd wrapper at the served frame, host us a "
+        "call: " + json.dumps({k: round(v, 3)
+                               for k, v in diet["wrapper_us"].items()})
+        + "; device ms a call by tile order: "
+        + json.dumps({p: {k: round(v, 5) for k, v in o.items()}
+                      for p, o in diet["order_device_ms"].items()}))
     return line
 
 

@@ -575,8 +575,8 @@ def test_rasterizer_kernels_match_plain_on_built_slots(case, cuda):
     bg = torch.tensor([0.3, 0.2, 0.1], device=cuda)
     _same(rasterize_cuda.rasterize_forward, diet, ranges, bg, img)
     with kernels.capture() as launches:
-        tiles, schedule = rasterize_cuda.rasterize_forward_train_scheduled(
-            soa, ranges, bg, img)
+        tiles, schedule = rasterize_cuda.rasterize_forward_train(soa, ranges,
+                                                                 bg, img)
     launches[0].check()
     spans = (ranges[:, 1] - ranges[:, 0]).cpu()
     useful = tiles[:, 5, 0].cpu()

@@ -559,13 +559,15 @@ def test_training_kernel_compares_catch_one_wrong_slot():
     soa = torch.from_numpy(np.asarray(isect.soa).copy())
     ranges = torch.from_numpy(np.asarray(isect.tile_ranges).copy())
     bg = torch.tensor([0.3, 0.2, 0.1])
-    full = rasterize_cuda.rasterize_forward_train_plain(soa, ranges, bg, img)
+    full, _ = rasterize_cuda.rasterize_forward_train_plain(soa, ranges, bg,
+                                                           img)
     assert rasterize_cuda.compare(full.clone(), full) == 0.0
     # Drop the first slot of the fullest tile: it is blended.
     fullest = int((ranges[:, 1] - ranges[:, 0]).argmax())
     dropped = ranges.clone()
     dropped[fullest, 0] += 1
-    wrong = rasterize_cuda.rasterize_forward_train_plain(soa, dropped, bg, img)
+    wrong, _ = rasterize_cuda.rasterize_forward_train_plain(soa, dropped, bg,
+                                                            img)
     with pytest.raises(AssertionError, match="ulps"):
         rasterize_cuda.compare(wrong, full)
     short = full.clone()

@@ -11,7 +11,8 @@
     tile order; each tile part's useful length (the schedule the training
     forward hands the backward) bounds the slots that 8x4 part of the tile
     blends, and the tile's `useful_len` (row 5) is the largest of its
-    parts'.
+    parts'; the backward's count of replayed (pixel, slot) pairs, which
+    its bound reads, stops at each part's useful length.
 
 The scenes are binned by the port itself; the JAX comparisons of the same
 functions are in test_torch_kernels.py and test_torch_train.py.
@@ -77,8 +78,7 @@ def _cotangent(img, seed=0):
 @pytest.mark.parametrize("kind", ["opaque_wall", "thin", "nan_conic"])
 def test_splat_backward_plain_is_the_reduced_slot_backward(kind):
     soa, ranges, gid, n, img = _scene(kind)
-    tiles, schedule = rc.rasterize_forward_train_scheduled(soa, ranges, BG,
-                                                           img)
+    tiles, schedule = rc.rasterize_forward_train(soa, ranges, BG, img)
     v_tiles = _cotangent(img)
     slots = rc.rasterize_backward_plain(soa, ranges, tiles, v_tiles, BG, img)
     want = rc.reduce_slot_grads(slots, gid, n)
@@ -108,7 +108,7 @@ def test_splat_backward_plain_is_the_reduced_slot_backward(kind):
 
 def test_splat_compare_catches_a_dropped_slot_and_a_zeroed_row():
     soa, ranges, gid, n, img = _scene("opaque_wall")
-    tiles = rc.rasterize_forward_train(soa, ranges, BG, img)
+    tiles, _ = rc.rasterize_forward_train(soa, ranges, BG, img)
     v_tiles = _cotangent(img, seed=1)
     slots = rc.rasterize_backward_plain(soa, ranges, tiles, v_tiles, BG, img)
     want = rc.reduce_slot_grads(slots, gid, n)
@@ -152,8 +152,7 @@ def test_tile_order_is_a_stable_descending_permutation(seed):
 @pytest.mark.parametrize("kind", ["opaque_wall", "thin"])
 def test_part_useful_lengths_bound_what_each_part_blends(kind):
     soa, ranges, _, _, img = _scene(kind)
-    tiles, schedule = rc.rasterize_forward_train_scheduled(soa, ranges, BG,
-                                                           img)
+    tiles, schedule = rc.rasterize_forward_train(soa, ranges, BG, img)
     assert torch.equal(schedule.order, rc.tile_order(ranges))
     part_useful = schedule.part_useful
     n_tiles = ranges.shape[0]
@@ -181,19 +180,32 @@ def test_part_useful_lengths_bound_what_each_part_blends(kind):
         pix = part_of_pixel[q]
         cut = ranges.clone()
         cut[:, 1] = ranges[:, 0] + part_useful[:, q]
-        same = rc.rasterize_forward_train(soa, cut, BG, img)
+        same, _ = rc.rasterize_forward_train(soa, cut, BG, img)
         assert torch.equal(same[:, :5, pix], tiles[:, :5, pix])
         shorter = cut.clone()
         shorter[:, 1] = torch.clamp_min(cut[:, 1] - 1, ranges[:, 0])
-        less = rc.rasterize_forward_train(soa, shorter, BG, img)
+        less, _ = rc.rasterize_forward_train(soa, shorter, BG, img)
         moved = (less[:, :4, pix] != tiles[:, :4, pix]).flatten(1).any(1)
         assert torch.equal(moved, part_useful[:, q] > 0)
 
 
+@pytest.mark.parametrize("kind", ["opaque_wall", "thin"])
+def test_backward_pair_count_stops_at_each_part_length(kind):
+    soa, ranges, _, _, img = _scene(kind)
+    tiles, schedule = rc.rasterize_forward_train(soa, ranges, BG, img)
+    _, replayed, blended = rc.rasterize_backward_plain(
+        soa, ranges, tiles, _cotangent(img), BG, img, count_pairs=True)
+    per_part = rc.PART_W * rc.PART_H * int(schedule.part_useful.sum())
+    per_tile = rc.TILE_PIX * int(tiles[:, 5, 0].sum())
+    assert 0 < int(blended) <= int(replayed) <= per_part < per_tile
+    if kind == "thin":
+        # No pixel is ever done: each pixel replays its part's whole length.
+        assert int(replayed) == per_part
+
+
 def test_backward_splats_refuses_what_the_kernel_does_not_take():
     soa, ranges, gid, n, img = _scene("thin")
-    tiles, schedule = rc.rasterize_forward_train_scheduled(soa, ranges, BG,
-                                                           img)
+    tiles, schedule = rc.rasterize_forward_train(soa, ranges, BG, img)
     v_tiles = _cotangent(img)
     with pytest.raises(ValueError, match="int32"):
         rc.rasterize_backward_splats(soa, ranges, tiles, v_tiles, BG, img,
