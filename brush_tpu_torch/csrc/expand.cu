@@ -35,7 +35,7 @@
 // rows * cap * 4 written.
 #include <climits>
 
-#include "common.cuh"
+#include "owner_search.cuh"
 
 namespace {
 
@@ -53,35 +53,9 @@ static_assert(kThreads >= 64 && kThreads % 32 == 0,
               "two warps search the tile's first and last owner");
 constexpr int kGroupStride = kThreads * 4;          // slots between them
 constexpr int kTileSlots = kGroupStride * kGroups;  // slots a block
-constexpr unsigned kFull = 0xffffffffu;
 
-// Number of owners g < n with starts[g] <= s, by one whole warp: each round
-// probes 32 evenly spaced owners of the open interval and keeps the gap
-// between the last probe at or before s and the first past it.
-__device__ int warp_upper_bound(const int32_t* __restrict__ starts, int n,
-                                int s, int lane) {
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (hi - lo > 32) {
-    const int64_t span = hi - lo;
-    const int p = lo + static_cast<int>((lane + 1) * span / 33);
-    const int c = __popc(__ballot_sync(kFull, starts[p] <= s));
-    const int base = lo;
-    if (c > 0) lo = base + static_cast<int>(c * span / 33) + 1;
-    if (c < 32) hi = base + static_cast<int>((c + 1) * span / 33);
-  }
-  const int p = lo + lane;
-  return lo + __popc(__ballot_sync(kFull, p < hi && starts[p] <= s));
-}
-
-// First index in [lo, hi) of the shared window whose start is past s.
-__device__ __forceinline__ int window_upper_bound(const int32_t* w_start,
-                                                  int lo, int hi, int s) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (w_start[mid] <= s) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
+using owner_search::warp_upper_bound;
+using owner_search::window_upper_bound;
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 expand_segments_kernel(const uint32_t* __restrict__ table,

@@ -7,7 +7,8 @@
 // run in parallel and in no order, so nothing can be carried in a block.
 // One launch instead: a single-pass chained scan with decoupled look-back
 // (Merrill & Garland, "Single-pass Parallel Prefix Scan with Decoupled
-// Look-back", NVIDIA, 2016):
+// Look-back", NVIDIA, 2016; the tile counter, the status words and the
+// tile scan are csrc/lookback.cuh, which the segmented fill shares):
 //   * Each block takes the next tile of kTile lanes from an atomic counter,
 //     so a block only waits on tiles that have started, whatever order the
 //     hardware runs blocks in. Tiles are numbered row-major over
@@ -35,32 +36,23 @@
 // the tile prefixes in whatever order the look-back met them, which depends
 // on timing): it may differ from run to run, and from `torch.cumsum` by
 // rounding, within a few ulps of the running sum of |x|.
-#include <climits>
-
-#include "common.cuh"
+#include "lookback.cuh"
 
 namespace {
+
+using lookback::MaxI32;
 
 // Tile shape, as tuned on the H100 (PERF.md, section 6): 256 threads of
 // 10 vectors (119 registers, 2 blocks an SM) read 4-7 % faster than 8
 // vectors and 19-23 % faster than 4 at 30M lanes and [11, 6.1M].
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kVecs = 10;                      // 4-lane vectors a thread
-static_assert(kThreads % 32 == 0 && kWarps <= 32,
-              "one warp scans the warps' totals");
 constexpr int kWarpLanes = 32 * 4 * kVecs;     // lanes a warp scans
 constexpr int kTile = kThreads * 4 * kVecs;    // lanes a block scans
-constexpr unsigned kFull = 0xffffffffu;
 
-// Status word of a tile: 0 until the tile publishes; then its aggregate or
-// its inclusive prefix (the row's scan up to and including the tile).
-constexpr uint64_t kAggregate = 1ull << 32;
-constexpr uint64_t kPrefix = 2ull << 32;
-
-// The three scans: element type, identity, combine and the 32-bit pattern
-// the status word carries. The int32 sum works on uint32 words so that
-// overflow wraps instead of being undefined.
+// The two sums: element type, identity, combine and the 32-bit pattern
+// the status word carries (the max is lookback::MaxI32). The int32 sum
+// works on uint32 words so that overflow wraps instead of being undefined.
 struct SumU32 {
   using T = uint32_t;
   static __device__ __forceinline__ T identity() { return 0u; }
@@ -79,80 +71,6 @@ struct SumF32 {
     return __uint_as_float(b);
   }
 };
-struct MaxI32 {
-  using T = int32_t;
-  static __device__ __forceinline__ T identity() { return INT_MIN; }
-  static __device__ __forceinline__ T combine(T a, T b) { return a > b ? a : b; }
-  static __device__ __forceinline__ uint32_t bits(T v) {
-    return static_cast<uint32_t>(v);
-  }
-  static __device__ __forceinline__ T from_bits(uint32_t b) {
-    return static_cast<T>(b);
-  }
-};
-
-// Status words are read and written whole, relaxed at device scope: the
-// value travels in the same word as its flag, so no fence is needed.
-__device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void store_status(uint64_t* p, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
-template <typename Op>
-__device__ __forceinline__ typename Op::T warp_inclusive(typename Op::T v,
-                                                         int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const typename Op::T n = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v = Op::combine(n, v);
-  }
-  return v;
-}
-
-// The combine of all 32 lanes' values, in every lane.
-template <typename Op>
-__device__ __forceinline__ typename Op::T warp_all(typename Op::T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = Op::combine(v, __shfl_xor_sync(kFull, v, off));
-  }
-  return v;
-}
-
-// Exclusive prefix of tile `t` (> 0) of a row whose status words start at
-// `row_status`, by one whole warp. Lane l reads the tile l + 1 + back before
-// t; lanes before the row's first tile read as an inclusive identity.
-template <typename Op>
-__device__ typename Op::T look_back(const uint64_t* row_status, int t,
-                                    int lane) {
-  using T = typename Op::T;
-  T prefix = Op::identity();
-  for (int back = 0;; back += 32) {
-    const int i = t - 1 - lane - back;
-    uint64_t w;
-    for (;;) {
-      w = i >= 0 ? load_status(row_status + i)
-                 : (kPrefix | Op::bits(Op::identity()));
-      if (__all_sync(kFull, (w >> 32) != 0)) break;
-      __nanosleep(20);
-    }
-    const T v = Op::from_bits(static_cast<uint32_t>(w));
-    const unsigned done = __ballot_sync(kFull, (w >> 32) == 2);
-    if (done != 0) {
-      // The nearest inclusive prefix and the aggregates after it.
-      const int stop = __ffs(done) - 1;
-      return Op::combine(warp_all<Op>(lane <= stop ? v : Op::identity()),
-                         prefix);
-    }
-    prefix = Op::combine(warp_all<Op>(v), prefix);
-  }
-}
 
 template <typename Op>
 __device__ __forceinline__ void load4(const typename Op::T* p, bool vec,
@@ -199,14 +117,9 @@ scan_rows_kernel(const typename Op::T* __restrict__ x,
                  unsigned long long* __restrict__ scratch, int64_t len,
                  int tiles_per_row) {
   using T = typename Op::T;
-  __shared__ unsigned s_tile;
-  __shared__ T s_warp[kWarps];
-  if (threadIdx.x == 0) {
-    s_tile = static_cast<unsigned>(atomicAdd(scratch, 1ull));
-  }
-  __syncthreads();
-  const int64_t row = s_tile / tiles_per_row;
-  const int t = static_cast<int>(s_tile % tiles_per_row);
+  const unsigned tile = lookback::claim_tile(scratch);
+  const int64_t row = tile / tiles_per_row;
+  const int t = static_cast<int>(tile % tiles_per_row);
   uint64_t* row_status =
       reinterpret_cast<uint64_t*>(scratch) + 1 + row * tiles_per_row;
   const T* xr = x + row * len;
@@ -229,56 +142,10 @@ scan_rows_kernel(const typename Op::T* __restrict__ x,
     const int64_t pos = pos0 + 128 * k;
     load4<Op>(xr, kVec && pos >= 0 && pos + 3 < len, pos, len, v[k]);
   }
-  // Scan within the warp: each vector's exclusive prefix among the warp's
-  // lanes, and the warp's total.
-  T pre[kVecs];
-  T carry = Op::identity();
-#pragma unroll
-  for (int k = 0; k < kVecs; ++k) {
-    const T s = Op::combine(Op::combine(v[k][0], v[k][1]),
-                            Op::combine(v[k][2], v[k][3]));
-    const T incl = warp_inclusive<Op>(s, lane);
-    T excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = Op::identity();
-    pre[k] = Op::combine(carry, excl);
-    carry = Op::combine(carry, __shfl_sync(kFull, incl, 31));
-  }
-  if (lane == 0) s_warp[warp] = carry;
-  __syncthreads();
-  if (warp == 0) {
-    // The warps' totals -> each warp's exclusive prefix and the tile's
-    // aggregate; then the tile's own prefix from its predecessors.
-    const T wincl = warp_inclusive<Op>(
-        lane < kWarps ? s_warp[lane] : Op::identity(), lane);
-    const T aggregate = __shfl_sync(kFull, wincl, kWarps - 1);
-    T wexcl = __shfl_up_sync(kFull, wincl, 1);
-    if (lane == 0) wexcl = Op::identity();
-    T tile_prefix = Op::identity();
-    if (t == 0) {
-      if (lane == 0) store_status(row_status, kPrefix | Op::bits(aggregate));
-    } else {
-      if (lane == 0) {
-        store_status(row_status + t, kAggregate | Op::bits(aggregate));
-      }
-      tile_prefix = look_back<Op>(row_status, t, lane);
-      if (lane == 0) {
-        store_status(row_status + t,
-                     kPrefix | Op::bits(Op::combine(tile_prefix, aggregate)));
-      }
-    }
-    if (lane < kWarps) s_warp[lane] = Op::combine(tile_prefix, wexcl);
-  }
-  __syncthreads();
-  const T warp_prefix = s_warp[warp];
+  lookback::scan_tile<Op, kThreads, kVecs>(v, row_status, t);
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
     const int64_t pos = pos0 + 128 * k;
-    T run = Op::combine(warp_prefix, pre[k]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      run = Op::combine(run, v[k][j]);
-      v[k][j] = run;
-    }
     store4<Op>(orow, kVec && pos >= 0 && pos + 3 < len, pos, len, v[k]);
   }
 }

@@ -17,7 +17,7 @@ import contextlib
 from typing import Callable, NamedTuple
 
 # `scan` is the int32 sum of the binning; `scan_f32` and `scan_max` are the
-# other two variants of the same kernel (`scan_max` runs inside `fill_rows`).
+# other two variants of the same kernel.
 # `expand` and `fill` lie on no render or training path, as in the JAX
 # package since the emission kernel took over the remainder expansion: the
 # 30M-slot stress run of the binning primitives drives them.
@@ -30,7 +30,7 @@ SERVE_PATH = ("scan", "stack", "emit", "rasterize_fwd")
 TRAIN_PATH = ("scan", "stack", "emit", "rasterize_fwd_train",
               "rasterize_bwd")
 # The kernels the stress run of the binning primitives launches.
-STRESS_PATH = ("scan", "scan_f32", "scan_max", "stack", "expand", "fill")
+STRESS_PATH = ("scan", "scan_f32", "stack", "expand", "fill")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 _captured: list | None = None

@@ -1,19 +1,22 @@
 """Tile-sort slot emission: per-splat table -> sort operands, one pass
 (port of `brush_tpu/ops/emit_pallas.py`).
 
-Kernel `csrc/emit.cu`, replacing `_emit_kernel` (emit_pallas.py:133). One
-thread per output slot. The slot layout is the JAX package's jnp emission
-(`brush_tpu/ops/tiling.py` `_emit_jnp`): a dense k-major region [k0, N]
-(slot k*N + g is splat g's k-th emitted tile) followed by a remainder
-region [rem_cap] holding the later slots of large splats, so
-s_cap = N*k0 + rem_cap. A remainder slot finds its owner by binary search
-over the monotone `rem_starts` (the TPU used a windowed one-hot matmul),
-and the key leaves the kernel as an int64 holding the u32 value (the TPU's
-u16 key limbs existed only because a TPU copy may canonicalise NaN bits).
+Kernel `csrc/emit.cu`, replacing `_emit_kernel` (emit_pallas.py:133). The
+slot layout is the JAX package's jnp emission (`brush_tpu/ops/tiling.py`
+`_emit_jnp`): a dense k-major region [k0, N] (slot k*N + g is splat g's
+k-th emitted tile) followed by a remainder region [rem_cap] holding the
+later slots of large splats, so s_cap = N*k0 + rem_cap. One launch: the
+dense region takes one thread a splat (the table read once, the hit mask
+walked bit by bit, each of the k0 slots written by a warp as one coalesced
+run); the remainder is block-searched as `expand_segments` is (a block
+finds its owner range with two warp searches of `rem_starts` and each
+thread finds its 4-slot groups' owners in shared memory; the TPU used a
+windowed one-hot matmul). The key leaves the kernel as an int64 holding
+the u32 value (the TPU's u16 key limbs existed only because a TPU copy may
+canonicalise NaN bits).
 
 Bound on the H100: bytes — the 18-row table is read once, and every slot
-writes an 8-byte key and ten 4-byte payload words; the decode is a few
-dozen integer operations per slot.
+writes an 8-byte key and ten 4-byte payload words.
 
 Contract (emit_pallas.py:20-28): the MULTISET of non-sentinel
 (key, payload, gid) slots equals `_emit_jnp`'s. The plain version here

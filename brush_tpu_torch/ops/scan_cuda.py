@@ -13,12 +13,14 @@ with a plain PyTorch version beside it (port of
   their predecessors' words. One memset of the scratch (status words and
   counter) and one launch a call, 8 bytes moved per element.
 * `fill_rows`: segmented forward fill along axis 1 of [R, L] (each lane
-  takes the words of the nearest valid lane at or before it). Kernels
-  `csrc/fill.cu` around the max scan, replacing `_fill_kernel`
-  (scan_pallas.py:111). Bound: bytes (x read once, the result written once).
-  The TPU dragged all R words through a select-combine scan; here the scan
-  carries one index per lane (`cummax_1d` of valid ? lane : -1) and a gather
-  kernel moves the words.
+  takes the words of the nearest valid lane at or before it). Kernel
+  `csrc/fill.cu`, replacing `_fill_kernel` (scan_pallas.py:111). Bound:
+  bytes (valid and x read once, the result written once). The TPU dragged
+  all R words through a select-combine scan; here one single-pass launch
+  with the scan's decoupled look-back (`csrc/lookback.cuh`) carries one
+  index a lane (the running max of valid ? lane : -1) and moves each row's
+  words from a shared-memory copy of the tile: one memset of the scratch
+  and one launch a call, 20 bytes a lane at R = 2.
 * `stack_rows`: 1-D rows of 32-bit words -> [total_rows, padded] matrix.
   Kernel `csrc/stack.cu`, replacing `_stack_kernel` (scan_pallas.py:167).
   Bound: bytes (each row read once, the matrix written once). A plain
@@ -191,11 +193,26 @@ def fill_rows_plain(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return out.view(x.dtype)
 
 
+@functools.cache
+def fill_tile_items() -> int:
+    """Lanes one block of the fill kernel covers (asked of the library
+    once)."""
+    return build.library().brush_fill_tile_items()
+
+
+def fill_scratch_words(length: int, tile: int) -> int:
+    """8-byte words of scratch the fill kernel needs for rows of `length`
+    lanes: one status word per tile of the lane axis (all rows share it)
+    and the tile counter."""
+    return -(-length // tile) + 1
+
+
 def fill_rows(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Carry fill along axis 1 of [R, L]: each lane takes the row values of
     the nearest valid lane at or before it, zeros before the first valid
     lane. `x` is any 32-bit dtype, moved as raw words and returned in that
-    dtype; `valid` is [L] int32 (> 0 is valid) or bool."""
+    dtype; `valid` is [L] int32 (> 0 is valid) or bool (converted to int32
+    first, one more launch)."""
     _check_fill(x, valid)
     if x.device.type == "cpu":
         return fill_rows_plain(x, valid)
@@ -205,16 +222,13 @@ def fill_rows(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = build.library()
-    stream = build.stream_ptr(x.device)
     flags = valid.to(torch.int32).contiguous()
-    marked = torch.empty(length, dtype=torch.int32, device=x.device)
-    build.check(lib.brush_fill_mark(flags.data_ptr(), length,
-                                    marked.data_ptr(), stream), "fill_rows")
-    last = cummax_1d(marked)
-    build.check(lib.brush_fill_gather(x.data_ptr(), last.data_ptr(), rows,
-                                      length, out.data_ptr(), stream),
-                "fill_rows")
+    words = fill_scratch_words(length, fill_tile_items())
+    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
+    err = build.library().brush_fill_rows(
+        x.data_ptr(), flags.data_ptr(), rows, length, out.data_ptr(),
+        scratch.data_ptr(), words, build.stream_ptr(x.device))
+    build.check(err, "fill_rows")
     kernels.note_launch("fill", _replay_fill_rows, kernels.same_bits, x,
                         valid)
     return out

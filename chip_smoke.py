@@ -45,7 +45,17 @@ Phases, each of which must pass (any failure exits non-zero):
              counts, `isect_cap` slots), held to the emission's remainder
              rows. Every launch of the phase is replayed against its plain
              version bit for bit. Counters zeroed before, read after.
-8. loop    — the training loop at full width: the 1M scene in a capacity of
+8. grow    — overflow growth on the card: the served scene in a splat
+             capacity of 2^20 (95 % full), `isect_cap` a quarter of what
+             the served frame of view 0 needed, refine every 3 steps, 6
+             turns of `process.loop_step`: the first two steps overflow and
+             leave the means unchanged, the host reports the overflow one
+             step late with `isect_cap = _next_pow2(needed * 1.3)`, the
+             first refine doubles the capacity to 2^21 (`_grow_state`),
+             and the state is finite afterwards. Prints each step's ms.
+             The launches of step 1 (overflowing) and of step 4 (the first
+             at the grown capacities) are kept for the kernel phase.
+9. loop    — the training loop at full width: the 1M scene in a capacity of
              2^21, three views with rendered ground truth,
              `TrainConfig(refine_every=8)`, 24 turns of `process.loop_step`
              (a `train_step`, the one-step-behind overflow check, capacity
@@ -57,28 +67,31 @@ Phases, each of which must pass (any failure exits non-zero):
              capacities. Prints step and refine times and peak memory. The
              launches of step 1 and of step 9 (the first after a refine)
              are kept for the kernel phase.
-9. eval    — `eval_views` over the three views before and after the loop,
+10. eval   — `eval_views` over the three views before and after the loop,
              and of the ground truth's own scene (PSNR above 60 dB, SSIM
              within 1e-3 of 1).
-10. init-lod — `create_random_splats(10_000)` and `to_init_splats` of
+11. init-lod — `create_random_splats(10_000)` and `to_init_splats` of
              100,000 random points, each rendered once; `pup_scores` of the
              trained scene over 2 views x 2 probes and `decimate_to_count`
              to half: finite scores, the live count halved, the kept set
              the top-scoring set. One scoring view's launches are kept for
              the kernel phase, as are those of one view of the evaluation
              after the loop.
-11. kernels — each kernel against its plain PyTorch version, on the card,
+12. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
-             calls, the stress run, two loop steps, an evaluation view and
-             a LOD scoring view gave it (scan, stack, emit, expand
+             calls, the stress run, two growth steps, two loop steps, an
+             evaluation view and a LOD scoring view gave it (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
              time (CUDA events over back-to-back calls, `ms`, which a small
              kernel's host call rate can set), its device time (the device
-             ops of the same calls under torch.profiler, `device_ms`; a scan
-             call and a diet forward call must run one kernel and a
-             backward call its two, and at most one memset), the plain
+             ops of the same calls under torch.profiler, `device_ms`: a
+             call must run its own kernels (one, the backward two) and at
+             most its memsets (none for the stack, emit and expand, one
+             for the others), the training forward at least one kernel; a
+             trace that dropped them is taken again, and a reading of zero
+             fails the phase), the plain
              version's time, a library call's where one computes the same
              function, and its bound on the card; the int32 scan's and the
              diet forward's wrapper host time a call, piece by piece
@@ -87,7 +100,7 @@ Phases, each of which must pass (any failure exits non-zero):
              per-slot reduce the backward used to need after it (an
              [11, S] zero-fill and `index_add_` of the plain per-slot
              gradients), timed at the same shapes beside the fused kernel.
-12. profile — frames, training steps, loop steps and refines (of the
+13. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
              time, its idle share and the top device ops.
@@ -131,6 +144,15 @@ REFINE_EVERY = 8
 INIT_RANDOM = 10_000        # the default init_count of a training run
 INIT_POINTS = 100_000       # point-cloud init (the KD-tree path)
 LOD_VIEWS, LOD_PROBES = 2, 2
+# The overflow-growth run: the served scene in a capacity of 2^20 (95 %
+# full), a tile-sort capacity a quarter of what a step needs.
+GROW_CAPACITY = 1 << 20
+GROW_STEPS = 6
+GROW_REFINE_EVERY = 3
+# The kernel phase replays the launches of the first step (it overflows:
+# the emission's remainder is a quarter of what it needs) and of the first
+# step at the grown capacities (2^21 splats, the grown tile-sort capacity).
+GROW_CAPTURED_STEPS = (1, GROW_REFINE_EVERY + 1)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores.
@@ -152,11 +174,18 @@ RASTER_OPS_PER_PAIR = 27
 BWD_REPLAY_OPS_PER_PAIR = 21
 BWD_BLEND_OPS_PER_PAIR = 54
 
-# Device ops a call of these kernels' wrappers may run: their own launches
-# (the scan and the diet forward: one; the backward: its gradient kernel
-# and the launch that rounds its f64 sums to f32) and at most one memset.
-OWN_LAUNCHES = {"scan": 1, "scan_f32": 1, "scan_max": 1, "rasterize_fwd": 1,
-                "rasterize_bwd": 2}
+# Device ops a call of each kernel's wrapper may run: (its own launches, the
+# most memsets). The backward's two launches are its gradient kernel and
+# the launch that rounds its f64 sums to f32; the memsets clear a kernel's
+# scratch (look-back status words, work counters, the f64 sums). The
+# training forward still sorts its tile spans (other kernels, memsets and
+# copies), so it has no memset limit: its calls must run at least its one
+# kernel, as every entry's must. Every entry of `KERNEL_NAMES` needs a row.
+OWN_LAUNCHES = {"scan": (1, 1), "scan_f32": (1, 1), "scan_max": (1, 1),
+                "stack": (1, 0), "emit": (1, 0), "expand": (1, 0),
+                "fill": (1, 1), "rasterize_fwd": (1, 1),
+                "rasterize_fwd_train": (1, None),
+                "rasterize_bwd": (2, 1)}
 
 KERNEL_META = {
     "scan": ("brush_tpu_torch/csrc/scan.cu",
@@ -222,7 +251,7 @@ def time_ms(torch, fn, iters: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(torch, fn, iters: int, traces: int = 3) -> dict:
+def device_time(torch, fn, iters: int, traces: int = 3, own: int = 1) -> dict:
     """Device time of one call of `fn`: every device op (kernels, memsets,
     copies) that `iters` back-to-back calls launched, under torch.profiler,
     summed and divided by `iters` (after one warm-up call); and the ops a
@@ -230,13 +259,16 @@ def device_time(torch, fn, iters: int, traces: int = 3) -> dict:
     card waits for the host between launches. A trace on the H100 now and
     then drops ops or reads short durations, so each op's mean time counts
     the nearest whole number of times a call (every call launches the same
-    ops), at least once, and of `traces` traces the median one is kept;
-    `ops_by_trace` lists every trace's (kernels, memsets, copies) a call."""
+    ops), at least once; a trace that saw fewer than `own` kernels a call
+    (it dropped the kernel's own launches) is taken again, up to four
+    times; and of `traces` traces the median one is kept. `ops_by_trace`
+    lists every kept trace's (kernels, memsets, copies) a call, `retraced`
+    the traces taken again."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    readings = []
-    for _ in range(traces):
+
+    def trace():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -262,10 +294,21 @@ def device_time(torch, fn, iters: int, traces: int = 3) -> dict:
             reading["memsets" if name.startswith("Memset") else
                     "copies" if name.startswith("Memcpy") else
                     "kernels"] += per_call
+        return reading
+
+    readings, retraced = [], 0
+    for _ in range(traces):
+        reading = trace()
+        for _ in range(4):
+            if reading["kernels"] >= own:
+                break
+            retraced += 1
+            reading = trace()
         readings.append(reading)
     median = dict(sorted(readings, key=lambda r: r["ms"])[len(readings) // 2])
     median["ops_by_trace"] = [(r["kernels"], r["memsets"], r["copies"])
                               for r in readings]
+    median["retraced"] = retraced
     return median
 
 
@@ -498,6 +541,7 @@ def phase_serve(torch):
     kernels.reset_launches()
     captured = None
     n_frames = 0
+    isects = []
     # Warm-up: one frame per view (the first also records every kernel's
     # inputs for the kernel phase), then the timed frames.
     for i, (angle, ci, cfg) in enumerate(plans):
@@ -510,6 +554,7 @@ def phase_serve(torch):
         n_frames += 1
         torch.cuda.synchronize()
         num_isects = int(aux.num_isects)
+        isects.append(num_isects)
         check(num_isects <= cfg.isect_cap,
               f"capacity overflow at yaw {angle}: {num_isects} > {cfg.isect_cap}")
         check(tuple(out.shape) == (img[1], img[0], 4),
@@ -567,7 +612,7 @@ def phase_serve(torch):
     return dict(median_ms=statistics.median(ms), stages=stages,
                 host_ms=statistics.median(host_ms), launches=launches,
                 frames=n_frames, captured=captured, frame=frame,
-                splats=splats, plans=plans)
+                splats=splats, plans=plans, isects=isects)
 
 
 def phase_golden(torch):
@@ -721,7 +766,8 @@ def phase_train(torch, serve):
     return dict(median_ms=statistics.median(ms), stages=stages,
                 host_ms=statistics.median(host_ms), launches=launches,
                 steps=n_steps, captured=captured, step=step_fn,
-                peak_mb=peak_mb, loss_peak_mb=loss_peak_mb, losses=losses)
+                peak_mb=peak_mb, loss_peak_mb=loss_peak_mb, losses=losses,
+                batch=batch)
 
 
 def phase_golden_train(torch):
@@ -922,6 +968,127 @@ def phase_stress(torch, serve):
     for name in kernels.STRESS_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
     return dict(launches=launches, captured=captured, total=total)
+
+
+def phase_grow(torch, serve, train):
+    """Overflow growth and `_grow_state` on the card: the served scene in a
+    capacity of 2^20 (95 % full) and a tile-sort capacity of a quarter of
+    what the served frame of view 0 needed, against the training phase's
+    ground truth. The first step overflows and is a no-op on the device;
+    the host reads it one step late (the second step, already enqueued, is
+    lost too) and grows `isect_cap`; the first refine doubles the splat
+    buffer before it refines. (The refine comes every 3 steps, not every 2:
+    a refine on step 2 would run in the turn that reports the second lost
+    step and compact the rows before they can be checked.)"""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.process import LoopState, _next_pow2, loop_step
+    from brush_tpu_torch.render import RenderConfig
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import init_train_state
+    from brush_tpu_torch.utils.synthetic import bench_splats
+
+    img = IMG_SIZE
+    serve_cfg = serve["plans"][0][2]
+    cam = views(N_VIEWS, YAW)[0][1]
+    t0 = time.perf_counter()
+    splats = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED,
+                          capacity=GROW_CAPACITY)
+    cap0 = serve["isects"][0] // 4
+    rcfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE, isect_cap=cap0,
+                        expand_k0=serve_cfg.expand_k0, use_pallas=True)
+    tcfg = TrainConfig(refine_every=GROW_REFINE_EVERY)
+    centers = torch.tensor(cam.position[None], dtype=torch.float32,
+                           device="cuda")
+    focals = torch.tensor([cam.focal(img)[0]], dtype=torch.float32,
+                          device="cuda")
+    loop = LoopState(state=init_train_state(splats, SEED), rcfg=rcfg)
+    start = loop.state.splats.means.clone()
+    torch.cuda.synchronize()
+    log(f"[grow] scene {N_SPLATS} splats in a capacity of {GROW_CAPACITY} "
+        f"({N_SPLATS / GROW_CAPACITY:.3f} full), isect_cap={cap0} (a quarter "
+        f"of the served frame's {serve['isects'][0]}), refine every "
+        f"{GROW_REFINE_EVERY}; set-up {time.perf_counter() - t0:.3f} s")
+
+    kernels.reset_launches()
+    events, stats_all, kinds, messages = [], [], [], []
+    means, capacity = [], []     # each step's means and splat capacity
+    captured = []
+    for i in range(GROW_STEPS):
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        with (kernels.capture() if i + 1 in GROW_CAPTURED_STEPS
+              else contextlib.nullcontext([])) as cap_list:
+            loop, stats, msgs = loop_step(loop, train["batch"], tcfg,
+                                          centers, focals)
+        captured += cap_list
+        end_ev.record()
+        events.append((start_ev, end_ev))
+        stats_all.append(stats)
+        kinds.append([m.kind for m in msgs])
+        messages += msgs
+        means.append(loop.state.splats.means)
+        capacity.append(loop.state.splats.capacity)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ms = [a.elapsed_time(b) for a, b in events]
+    flags = [bool(st.overflowed) for st in stats_all]
+    losses = [float(st.loss) for st in stats_all]
+    overflow = next((m for m in messages if m.kind == "overflow"), None)
+    refines = [m for m in messages if m.kind == "refine"]
+    log(f"[grow] steps={GROW_STEPS} step_ms={[round(t, 4) for t in ms]} "
+        f"overflowed={flags} messages={kinds} capacity={capacity} "
+        f"losses={[round(x, 6) for x in losses]}")
+    check(overflow is not None, "no overflow message")
+    log(f"[grow] overflow seen after step {overflow.iter}: "
+        + json.dumps(overflow.data))
+    for m in refines:
+        log(f"[grow] refine at step {m.iter}: " + json.dumps(m.data))
+    log(f"[grow] launches over {GROW_STEPS} steps: {json.dumps(launches)}; "
+        f"{len(captured)} launches of steps {list(GROW_CAPTURED_STEPS)} kept "
+        f"for the kernel phase ({held_mib(torch, captured):.1f} MiB)")
+
+    state = loop.state
+    check(flags == [True, True] + [False] * (GROW_STEPS - 2),
+          f"overflowed steps {flags}: the first two steps must be lost")
+    check(kinds == [[], ["overflow"], ["refine"], [], [], ["refine"]],
+          f"messages by step {kinds}")
+    check(overflow.iter == 1 and overflow.data["isects"] > cap0
+          and overflow.data["isect_cap"] == _next_pow2(
+              int(overflow.data["isects"] * 1.3))
+          and loop.rcfg.isect_cap == overflow.data["isect_cap"],
+          f"overflow {overflow.data}, isect_cap {loop.rcfg.isect_cap}")
+    for i in (0, 1):
+        check(bool(torch.equal(means[i], start)),
+              f"lost step {i + 1} moved the means")
+    check(capacity == [GROW_CAPACITY] * 2 + [2 * GROW_CAPACITY] * 4,
+          f"capacity by step {capacity}")
+    n_alive = int(state.splats.n_alive)
+    check(n_alive == refines[-1].data["total"], "live count moved")
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    for name, new in state.splats.params().items():
+        check(new.shape[0] == 2 * GROW_CAPACITY, f"{name} not grown")
+        check(bool(torch.isfinite(new[:n_alive]).all()),
+              f"{name} not finite")
+        for which in ("moment1", "moment2"):
+            mom = getattr(state.opt[name], which)
+            check(mom.shape[0] == 2 * GROW_CAPACITY
+                  and bool(torch.isfinite(mom).all()),
+                  f"{name}.{which} not grown or not finite")
+    for f in dataclasses.fields(state.refine):
+        check(getattr(state.refine, f.name).shape[0] == 2 * GROW_CAPACITY,
+              f"refine record {f.name} not grown")
+    check(int(state.step) == GROW_STEPS, f"step {int(state.step)}")
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    log(f"[grow] the lost steps left the means unchanged; isect_cap "
+        f"{cap0} -> {loop.rcfg.isect_cap}, capacity {GROW_CAPACITY} -> "
+        f"{state.splats.capacity} at the first refine, {n_alive} live, "
+        f"state finite")
+    return dict(launches=launches, captured=captured, steps=GROW_STEPS,
+                step_ms=ms, overflow=overflow.data,
+                isect_cap=loop.rcfg.isect_cap,
+                capacity=state.splats.capacity)
 
 
 def _ground_truths(torch, scene, cams):
@@ -1363,21 +1530,24 @@ def slot_reduce_ms(torch, inputs, slot_grads) -> float:
     return device_time(torch, reduce, ITERS)["ms"]
 
 
-def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
+def phase_kernels(torch, serve, train, direct, stress, grow, loop,
+                  init_lod):
     """Replay every launch of the first served frame, of the first training
-    step, of the direct calls, of the stress run, of two loop steps (the
-    first, and the first after a refine), of one view of the evaluation
-    after the loop and of one view of the LOD scoring: kernel against plain
-    version on the same inputs (each kernel module's own `compare` holds
-    them), then the kernel's, the plain version's and the library call's
-    times. A kernel is listed under the first of those paths that launched
-    it; where a later one did too (scan, stack and emit in the training
-    step; the scans and the stack in the stress run; every render and
-    training kernel in the loop, the evaluation and the LOD scoring, over a
-    capacity whose second half is dead) it is held and timed at those
-    shapes as well, as `<path>_ms`, the sum over that path's replayed
-    launches. `launches_by_path` holds the counters of every path driven,
-    each read after that path's own run."""
+    step, of the direct calls, of the stress run, of two growth steps (the
+    overflowing first, and the first at the grown capacities), of two loop
+    steps (the first, and the first after a refine), of one view of the
+    evaluation after the loop and of one view of the LOD scoring: kernel
+    against plain version on the same inputs (each kernel module's own
+    `compare` holds them), then the kernel's, the plain version's and the
+    library call's times. A kernel is listed under the first of those paths
+    that launched it; where a later one did too (scan, stack and emit in
+    the training step; the scans and the stack in the stress run; every
+    render and training kernel in the growth steps, and in the loop, the
+    evaluation and the LOD scoring over a capacity whose second half is
+    dead) it is held and timed at those shapes as well, as `<path>_ms`,
+    the sum over that path's replayed launches. `launches_by_path` holds
+    the counters of every path driven, each read after that path's own
+    run."""
     from brush_tpu_torch import kernels
 
     def repeat_columns(inputs):
@@ -1419,14 +1589,30 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
             del want
             nbytes, ops, shape = kernel_work(launch, got, pairs)
             del got
-            dev = device_time(torch, kernel, ITERS)
+            check(name in OWN_LAUNCHES, f"{name} has no OWN_LAUNCHES row")
+            own, memsets = OWN_LAUNCHES[name]
+            dev = device_time(torch, kernel, ITERS, own=own)
+            # No reading of zero: a call runs at least its own kernels and
+            # takes device time (a trace that dropped them was retaken).
+            check(dev["ms"] > 0.0 and dev["kernels"] >= own,
+                  f"{name} {shape}: device_ms {dev['ms']} with (kernels, "
+                  f"memsets, copies) a call by trace {dev['ops_by_trace']}")
+            if memsets is not None:
+                # The kernel's own launches a call and at most its memsets,
+                # nothing else, in some trace (a trace may drop ops, never
+                # add).
+                check(any(k == own and m <= memsets and c == 0
+                          for k, m, c in dev["ops_by_trace"]),
+                      f"{name} {shape}: (kernels, memsets, copies) a call "
+                      f"by trace {dev['ops_by_trace']}, expected {own} "
+                      f"kernels, at most {memsets} memsets, no copies")
             lib = (library[name](launch.inputs) if name in library
                    else None)
             part = dict(
                 shape=shape, ms=time_ms(torch, kernel, ITERS),
                 device_ms=dev["ms"],
                 device_ops={k: dev[k] for k in ("kernels", "memsets",
-                                                "copies")},
+                                                "copies", "retraced")},
                 plain_ms=time_ms(torch, plain, plain_iters.get(name, ITERS),
                                  warm=False),
                 library_ms=(time_ms(torch, lib, ITERS) if lib else None),
@@ -1434,14 +1620,6 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                                    if lib else None),
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3)
-            if name in OWN_LAUNCHES:
-                # The kernel's own launches a call and at most the memset of
-                # its scratch, nothing else, in some trace (a trace may drop
-                # ops, never add).
-                check(any(k == OWN_LAUNCHES[name] and m <= 1 and c == 0
-                          for k, m, c in dev["ops_by_trace"]),
-                      f"{name} {shape}: (kernels, memsets, copies) a call "
-                      f"by trace {dev['ops_by_trace']}")
             if name == "rasterize_bwd":
                 part["slot_reduce_device_ms"] = slot_reduce_ms(
                     torch, launch.inputs, slot_grads)
@@ -1474,6 +1652,7 @@ def phase_kernels(torch, serve, train, direct, stress, loop, init_lod):
                   train["steps"]),
         "direct": (direct["launches"], by_name(direct["captured"]), 1),
         "stress": (stress["launches"], by_name(stress["captured"]), 1),
+        "grow": (grow["launches"], by_name(grow["captured"]), grow["steps"]),
         "loop": (loop["launches"], by_name(loop["captured"]), loop["steps"]),
         "eval": (loop["eval_launches"], by_name(loop["eval_captured"]),
                  N_VIEWS),
@@ -1668,10 +1847,11 @@ def main() -> int:
     phase_golden_train(torch)
     direct = phase_direct(torch, train)
     stress = phase_stress(torch, serve)
+    grow = phase_grow(torch, serve, train)
     loop = phase_loop(torch, serve)
     init_lod = phase_init_lod(torch, loop)
-    kernel_line = phase_kernels(torch, serve, train, direct, stress, loop,
-                                init_lod)
+    kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
+                                loop, init_lod)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],
@@ -1701,6 +1881,10 @@ def main() -> int:
                       "loop_losses": loop["losses"],
                       "refines": loop["refines"],
                       "overflows": loop["overflows"],
+                      "grow_step_ms": grow["step_ms"],
+                      "grow_overflow": grow["overflow"],
+                      "grow_isect_cap": grow["isect_cap"],
+                      "grow_capacity": grow["capacity"],
                       "eval_psnr_before": loop["psnr"]["before"],
                       "eval_psnr_after": loop["psnr"]["after"],
                       "eval_ssim_before": loop["ssim"]["before"],

@@ -41,10 +41,12 @@ import torch
 
 from brush_tpu_torch import kernels
 from brush_tpu_torch.camera import Camera
+from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.models.splats import from_raw
-from brush_tpu_torch.ops import expand_cuda, rasterize_cuda, scan_cuda
+from brush_tpu_torch.ops import (
+    emit_cuda, expand_cuda, rasterize_cuda, scan_cuda)
 from brush_tpu_torch.ops.capacity import plan_caps
-from brush_tpu_torch.ops.tiling_key import _pack2f16
+from brush_tpu_torch.ops.tiling_key import _pack2f16, tile_key_bits
 from brush_tpu_torch.render import (
     RenderConfig,
     camera_inputs,
@@ -249,8 +251,10 @@ def test_expand_kernel_takes_a_strided_table_and_no_owners(cuda):
     (1, 1, 1), (5, 255, 0), (5, 256, 3), (17, 257, 257), (3, 8892, 37),
     (2, 1_000_003, 5000), (1, 5_000_000, 1)])
 def test_fill_kernel_matches_plain(rows, length, n_valid, cuda):
-    """Lengths around the 256-thread block and the scan's 4096 chunk, no
-    valid lane, every lane valid, one valid lane late in a long row."""
+    """Lengths around the 256-thread block and the kernel's 4096-lane
+    tile, no valid lane, every lane valid, one valid lane late in a long
+    row; one launch a call (the look-back scan of the valid lanes is the
+    fill kernel's own)."""
     rng = np.random.default_rng(length)
     words = rng.integers(-2 ** 31, 2 ** 31, (rows, length),
                          dtype=np.int64).astype(np.int32)
@@ -264,9 +268,8 @@ def test_fill_kernel_matches_plain(rows, length, n_valid, cuda):
     v = torch.from_numpy(valid).to(cuda)
     with kernels.capture() as launches:
         out = scan_cuda.fill_rows(x.view(torch.float32), v)
-    assert [launch.name for launch in launches] == ["scan_max", "fill"]
-    for launch in launches:
-        launch.check()
+    assert [launch.name for launch in launches] == ["fill"]
+    launches[0].check()
     assert out.dtype == torch.float32
     as_bool = scan_cuda.fill_rows(x, v > 0)
     assert as_bool.dtype == torch.int32
@@ -277,6 +280,71 @@ def test_fill_kernel_matches_plain(rows, length, n_valid, cuda):
         assert torch.equal(as_bool[:, first], x[:, first])
         last = int(np.nonzero(valid > 0)[0][-1])
         assert torch.equal(as_bool[:, -1], x[:, last])
+
+
+# Fill cases: (rows, length, valid lanes, words). The kernel's tile is 4096
+# lanes; 1,000,003 lanes with valid lanes at 5 and 900,000 leave a run of
+# 219 tiles with none; 17,000,003 lanes put valid lanes past 2^24.
+FILL_CASES = {
+    "no_valid_lane": (2, 100_003, "none", "int"),
+    "first_lane_only": (17, 50_001, "first", "int"),
+    "last_lane_only": (2, 123_457, "last", "int"),
+    "gap_over_100_tiles": (2, 1_000_003, "gap", "int"),
+    "length_4097": (1, 4097, "random", "int"),
+    "length_8191": (2, 8191, "random", "int"),
+    "length_12289": (17, 12_289, "random", "int"),
+    "starts_past_2_24": (1, 17_000_003, "sparse", "int"),
+    "nan_words": (2, 70_001, "random", "nan"),
+    "valid_off_the_grid": (2, 40_001, "offset", "int"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FILL_CASES))
+def test_fill_kernel_edges_match_plain(case, cuda):
+    """Bit for bit against the plain version, through the wrapper's
+    capture and against the whole plain call on the CPU: empty and
+    one-lane valid sets, a look-back across more than 100 tiles with no
+    valid lane, lengths that are neither a multiple of the tile nor of 4,
+    valid lanes past 2^24, R = 1, 2 and 17, NaN bit patterns, and a valid
+    row that starts one lane past a 16-byte boundary (the kernel's scalar
+    loads)."""
+    rows, length, where, words = FILL_CASES[case]
+    rng = np.random.default_rng(length)
+    if words == "nan":
+        nans = np.array([0x7FC00001, 0x7F800001, -0x400000, 0x7F800000, 0],
+                        np.int64).astype(np.int32)
+        x = rng.choice(nans, (rows, length))
+    else:
+        x = rng.integers(-2 ** 31, 2 ** 31, (rows, length),
+                         dtype=np.int64).astype(np.int32)
+    valid = np.zeros(length + 1, np.int32)
+    if where == "first":
+        valid[0] = 1
+    elif where == "last":
+        valid[length - 1] = 1
+    elif where == "gap":
+        valid[[5, 900_000]] = 1
+    elif where == "sparse":
+        valid[np.sort(rng.choice(length, 2000, replace=False))] = 1
+        valid[2 ** 24 + 3] = 1
+    elif where in ("random", "offset"):
+        valid[:length] = rng.random(length) < 0.05
+    v = torch.from_numpy(valid).to(cuda)
+    # Lane 0 of `v[1:]` lies 4 bytes past the allocation's 16-byte boundary.
+    v = v[1:] if where == "offset" else v[:length]
+    xt = torch.from_numpy(x).to(cuda).view(torch.float32)
+    assert _same(scan_cuda.fill_rows, xt, v) == 0.0
+    got = scan_cuda.fill_rows(xt, v)
+    want = scan_cuda.fill_rows_plain(xt.cpu(), v.cpu())
+    assert kernels.same_bits(got.cpu(), want) == 0.0
+    flags = v.cpu().numpy() > 0
+    first = int(np.argmax(flags)) if flags.any() else length
+    assert not got[:, :first].view(torch.int32).any()
+    if flags.any():
+        last = int(np.nonzero(flags)[0][-1])
+        assert torch.equal(got[:, -1].view(torch.int32),
+                           xt[:, last].view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -295,6 +363,120 @@ def test_fill_of_scatter_equals_expand_on_the_card(cuda):
     valid = torch.zeros(total, dtype=torch.int32, device=cuda)
     valid[starts[owners].long()] = 1
     assert kernels.same_bits(scan_cuda.fill_rows(x, valid), expanded) == 0.0
+
+
+# Emission cases: (splats, k0, seed). The image is 4096x2048 (128 x 64
+# tiles), large enough that every tile an emitted slot names lies in the
+# grid.
+EMIT_IMG = (4096, 2048)
+EMIT_CASES = {
+    "one_splat_no_remainder": (1, 1, 0),
+    "remainder_over_blocks": (300, 4, 1),
+    "zero_remainder_crowd": (12_000, 4, 2),
+    "counts_past_popcount": (2_000, 2, 3),
+    "nan_depth_and_payload": (3_000, 4, 4),
+    "past_rem_needed": (2_500, 4, 5),
+    "overflowed": (4_000, 4, 6),
+    "half_dead": (1 << 14, 4, 7),
+    "ragged_dense": (1_001, 3, 8),
+}
+
+
+def _emit_case(case):
+    """The 17 f32 table rows (as numpy words), rem_starts, k0 and rem_cap of
+    an emission case. Splats emit 0-40 slots into a bbox 4-8 tiles wide
+    under a random 32-bit hit mask (so counts often pass the mask's
+    popcount), each case adding its edge: one splat and no remainder slot;
+    one splat whose 2,996 remainder slots cross three 1,024-slot blocks;
+    5,000 splats in a row with no remainder (one start, inside one block's
+    owner range); masks of at most 3 bits; NaN depth and payload words;
+    remainder capacity past what the splats need, or a quarter of it (the
+    overflowing step); a dead second half (no slots, garbage words); and a
+    dense region whose length is not a multiple of 4."""
+    n, k0, seed = EMIT_CASES[case]
+    rng = np.random.default_rng(seed)
+    tile_bw, tile_bh = EMIT_IMG[0] // TILE_WIDTH, EMIT_IMG[1] // TILE_WIDTH
+    counts = rng.integers(0, 41, n)
+    masks = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    bb_w = rng.integers(4, 9, n)
+    if case == "one_splat_no_remainder":
+        counts[:] = 3
+    elif case == "remainder_over_blocks":
+        counts[150], masks[150], bb_w[150] = 3000, 2 ** 32 - 1, tile_bw
+    elif case == "zero_remainder_crowd":
+        counts[3000:8000] = rng.integers(0, k0 + 1, 5000)
+    elif case == "counts_past_popcount":
+        masks = np.bitwise_or.reduce(
+            [np.int64(1) << rng.integers(0, 32, n) for _ in range(3)])
+        masks[::2] = 0
+        counts = rng.integers(10, 41, n)
+    elif case == "half_dead":
+        counts[n // 2:], masks[n // 2:] = 0, 0
+    local_max = 32 + counts
+    tmin_x = (rng.random(n) * (tile_bw - bb_w + 1)).astype(np.int64)
+    tmin_y = (rng.random(n) * (tile_bh - local_max // bb_w)).astype(np.int64)
+    words = rng.integers(-2 ** 31, 2 ** 31, (17, n), dtype=np.int64)
+    table = np.zeros((17, n), np.float32)
+    table[:9] = rng.normal(0, 3, (9, n))
+    table[9] = np.arange(n)
+    table[10] = np.abs(rng.normal(0, 5, n)).astype(np.float32)
+    if case in ("nan_depth_and_payload", "half_dead"):
+        bits = words.astype(np.int32)
+        bits[:, ::7] = np.int32(0x7FC00001)
+        bits[:, 3::7] = np.int32(-0x400000)            # 0xffc00000
+        rows = slice(0, 11) if case == "nan_depth_and_payload" else slice(
+            0, 9)
+        dead = slice(None) if case == "nan_depth_and_payload" else slice(
+            n // 2, None)
+        table[rows, dead] = bits[rows, dead].view(np.float32)
+    table[11], table[12], table[13] = tmin_x, tmin_y, bb_w
+    table[14] = counts
+    table[15], table[16] = masks & 0xFFFF, masks >> 16
+    rem = np.maximum(counts - k0, 0)
+    starts = (np.cumsum(rem) - rem).astype(np.int32)
+    needed = int(rem.sum())
+    rem_cap = {"one_splat_no_remainder": 0, "past_rem_needed": 4 * needed + 5,
+               "overflowed": needed // 4}.get(case, needed + 37)
+    return table, starts, k0, rem_cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EMIT_CASES))
+def test_emit_kernel_matches_plain(case, cuda):
+    """The emission kernel bit for bit against its plain version, through
+    the wrapper (stack, then emit: two launches) and against the whole
+    plain call on the CPU."""
+    table, starts, k0, rem_cap = _emit_case(case)
+    rows = [torch.from_numpy(r) for r in table]
+    starts_t = torch.from_numpy(starts)
+    with kernels.capture() as launches:
+        got = emit_cuda.emit_slots([r.to(cuda) for r in rows],
+                                   starts_t.to(cuda), k0, rem_cap, EMIT_IMG)
+    assert [launch.name for launch in launches] == ["stack", "emit"]
+    for launch in launches:
+        assert launch.check() == 0.0
+    want = emit_cuda.emit_slots(rows, starts_t, k0, rem_cap, EMIT_IMG)
+    assert kernels.same_bits(tuple(t.cpu() for t in got), want) == 0.0
+    n = table.shape[1]
+    num_tiles = (EMIT_IMG[0] // TILE_WIDTH) * (EMIT_IMG[1] // TILE_WIDTH)
+    tiles = want[0].numpy() >> (32 - tile_key_bits(num_tiles))
+    assert tiles.max() <= num_tiles            # num_tiles: a sentinel slot
+    real = tiles < num_tiles
+    needed = int(np.maximum(table[14] - k0, 0).sum())
+    if case == "remainder_over_blocks":
+        assert real[n * k0:].sum() == min(needed, rem_cap) > 2 * 1024
+    elif case == "past_rem_needed":
+        assert not real[n * k0 + needed:].any()
+    elif case == "overflowed":
+        assert rem_cap < needed and real[n * k0:].all()
+    elif case == "counts_past_popcount":
+        pc = np.array([bin(int(m)).count("1") for m in
+                       (table[15].astype(np.int64)
+                        | table[16].astype(np.int64) << 16)])
+        assert (table[14] > pc).mean() > 0.9
+    elif case == "half_dead":
+        dense = real[:n * k0].reshape(k0, n)
+        assert not dense[:, n // 2:].any() and dense[:, :n // 2].any()
 
 
 @pytest.mark.cuda

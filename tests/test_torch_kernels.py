@@ -152,6 +152,36 @@ def test_scan_asks_the_library_for_its_tile_once(monkeypatch):
         scan_cuda.scan_tile_items.cache_clear()
 
 
+@pytest.mark.parametrize("length", [1, 4095, 4096, 4097, 1_000_003,
+                                    17_000_003])
+def test_fill_scratch_covers_every_tile_the_kernel_takes(length):
+    """The fill kernel's tiles start at lane 0 and every row reads the same
+    look-back over the lane axis: one 8-byte status word a tile, behind the
+    tile counter, whatever the number of rows."""
+    tile = 4096
+    words = scan_cuda.fill_scratch_words(length, tile)
+    assert (words - 2) * tile < length <= (words - 1) * tile
+
+
+def test_fill_asks_the_library_for_its_tile_once(monkeypatch):
+    from brush_tpu_torch.kernels import build
+
+    calls = []
+
+    class Library:
+        def brush_fill_tile_items(self):
+            calls.append(1)
+            return 4096
+
+    scan_cuda.fill_tile_items.cache_clear()
+    monkeypatch.setattr(build, "library", Library)
+    try:
+        assert [scan_cuda.fill_tile_items() for _ in range(3)] == [4096] * 3
+        assert len(calls) == 1
+    finally:
+        scan_cuda.fill_tile_items.cache_clear()
+
+
 def _stack_input(rng, n_rows=6, length=9000):
     words = rng.integers(-2 ** 31, 2 ** 31, (n_rows, length), dtype=np.int64)
     words = words.astype(np.int32)
@@ -440,6 +470,14 @@ def _opaque_wall(n=600, img=(96, 64)):
     return params, cam, img, 0
 
 
+def _digest(**arrays):
+    """Short hashes of arrays, for assertion messages: a run on fixed
+    inputs that reads differently names the array that changed."""
+    import hashlib
+    return {k: hashlib.sha256(np.ascontiguousarray(np.asarray(v)).tobytes())
+            .hexdigest()[:12] for k, v in arrays.items()}
+
+
 def _jax_diet_soa(params, cam, img, sh_degree, isect_cap=1 << 13, k0=4):
     ci = j_camera_inputs(cam, img)
 
@@ -472,8 +510,11 @@ def test_rasterize_plain_matches_pallas_fwd_only(scene):
         spans = np.diff(np.asarray(isect.tile_ranges), axis=1)
         assert spans.max() > 256 and (want[:, 3] > 0.999).mean() > 0.25
     diff = np.abs(got - want)
-    assert np.quantile(diff, 0.999) <= 1e-5, np.quantile(diff, 0.999)
-    assert diff.max() <= 2.0 / 255.0, diff.max()
+    arrays = _digest(soa=isect.soa, ranges=isect.tile_ranges, want=want,
+                     got=got)
+    assert np.quantile(diff, 0.999) <= 1e-5, (np.quantile(diff, 0.999),
+                                              arrays)
+    assert diff.max() <= 2.0 / 255.0, (diff.max(), arrays)
     # The image layout of the JAX package.
     from brush_tpu.ops.rasterize_pallas import tiles_to_image as j_tti
     np.testing.assert_array_equal(
@@ -498,8 +539,10 @@ def test_kernel_compares_catch_one_wrong_slot():
     dropped[int((ranges[:, 1] - ranges[:, 0]).argmax()), 1] -= 1
     wrong = rasterize_cuda.rasterize_forward_plain(soa, dropped, bg, img)
     diff = (wrong - full).abs().flatten().numpy()
-    assert 0 < (diff > 0).mean() < 1e-3 and diff.max() < 2.0 / 255.0
-    assert np.quantile(diff, 0.999) <= 1e-5
+    arrays = _digest(soa=soa, ranges=ranges, full=full)
+    assert 0 < (diff > 0).mean() < 1e-3 and diff.max() < 2.0 / 255.0, (
+        (diff > 0).mean(), diff.max(), arrays)
+    assert np.quantile(diff, 0.999) <= 1e-5, arrays
     assert rasterize_cuda.compare(full.clone(), full) == 0.0
     with pytest.raises(AssertionError, match="ulps"):
         rasterize_cuda.compare(wrong, full)
