@@ -91,6 +91,28 @@ def _kb4_d(theta: float, k1, k2, k3, k4) -> float:
     return theta * (1.0 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
 
 
+def _kb4_dd(theta: float, k1, k2, k3, k4) -> float:
+    t2 = theta * theta
+    return 1.0 + t2 * (3 * k1 + t2 * (5 * k2 + t2 * (7 * k3 + t2 * 9 * k4)))
+
+
+def _kb4_invert_d(target: float, k1, k2, k3, k4) -> float:
+    """Newton inversion of d(theta) = target on [0, pi]."""
+    if target <= 0.0:
+        return 0.0
+    theta = min(target, math.pi - 1e-6)
+    for _ in range(50):
+        fp = _kb4_dd(theta, k1, k2, k3, k4)
+        if abs(fp) < 1e-12:
+            break
+        nxt = min(max(theta - (_kb4_d(theta, k1, k2, k3, k4) - target) / fp,
+                      0.0), math.pi)
+        if abs(nxt - theta) < 1e-12:
+            return nxt
+        theta = nxt
+    return theta
+
+
 def _rt8_radial(r: float, m: RadialTangential8) -> float:
     r2 = r * r
     r4 = r2 * r2
@@ -128,6 +150,18 @@ def fov_to_focal(fov: float, pixels: int, model: CameraModel) -> float:
     else:  # ThinPrismFisheye uses its KB4 part
         projected = _kb4_d(half, model.k1, model.k2, model.k3, model.k4)
     return r_pix / projected
+
+
+def focal_to_fov(focal: float, pixels: int, model: CameraModel) -> float:
+    """Inverse of `fov_to_focal` (the dataset readers' intrinsics)."""
+    r_norm = (pixels / 2.0) / focal
+    if isinstance(model, Pinhole):
+        half = math.atan(r_norm)
+    elif isinstance(model, RadialTangential8):
+        half = math.atan(rt8_undistort_radius(r_norm, model))
+    else:  # KannalaBrandt4, and ThinPrismFisheye through its KB4 part
+        half = _kb4_invert_d(r_norm, model.k1, model.k2, model.k3, model.k4)
+    return 2.0 * half
 
 
 # --------------------------------------------------------------------------

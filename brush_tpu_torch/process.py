@@ -1,5 +1,14 @@
-"""The loop around the training step (the part of `brush_tpu/process.py`
-that needs no dataset; the reference is train_stream.rs:34-503).
+"""Process orchestration: dataset -> init -> train loop -> eval/export
+(port of `brush_tpu/process.py`; the reference is brush-process,
+crates/brush-process/src/{lib,train_stream}.rs).
+
+`train_process` is the whole training run as a stream of typed messages
+a consumer (the CLI) reads: it loads a dataset, initialises the splats
+(init ply > point cloud > random), and drives `loop_step` over the
+loader's views, with periodic evaluation, PLY export, full-state
+checkpoints, resume, telemetry and the LOD bake. Within an iteration the
+messages come in the JAX package's order: `overflow`, `step`, `refine`,
+`eval`, `export`, `checkpoint`.
 
 `loop_step` is one turn of the training loop: a `train_step`, then the
 host's policy between steps:
@@ -11,35 +20,82 @@ host's policy between steps:
 * every `refine_every` steps, until 95 % of the run: the splat capacity
   doubles ahead of demand once it is 80 % full, then `refine_step`.
 
-The caller owns the views and their order. `train_process`,
-`ProcessConfig`, the dataset loaders, evaluation cadence, export and
-checkpoints belong to the part of the port that brings the data and IO
-modules.
+The live viewer (`slot=`) belongs to the viewer part of the port and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
+from pathlib import Path
+from typing import Callable, Iterator
 
+import numpy as np
 import torch
 
-from brush_tpu_torch.models.splats import grow_capacity
-from brush_tpu_torch.render import RenderAux, RenderConfig
+from brush_tpu_torch.camera import fov_to_focal
+from brush_tpu_torch.data.dataloader import SceneLoader
+from brush_tpu_torch.data.formats import Dataset, LoadConfig, load_dataset
+from brush_tpu_torch.data.scene import AlphaMode, image_dims
+from brush_tpu_torch.io import ply as ply_io
+from brush_tpu_torch.models.splats import Splats, grow_capacity
+from brush_tpu_torch.ops.sh import rgb_to_sh_dc
+from brush_tpu_torch.render import RenderAux, RenderConfig, camera_inputs
 from brush_tpu_torch.train.config import TrainConfig
 from brush_tpu_torch.train.refine import refine_step
+from brush_tpu_torch.train.splat_init import (
+    create_random_splats,
+    to_init_splats,
+)
 from brush_tpu_torch.train.trainer import (
     SceneBatch,
     TrainState,
     TrainStepStats,
+    init_train_state,
+    stack_batches,
     train_step,
+    train_step_impl,
 )
+from brush_tpu_torch.utils.device import resolve_device
 from brush_tpu_torch.utils.tracing import stage
+
+# Host-byte budget for cached packed eval views (the reference byte-budgets
+# its packed-batch cache at 6 GiB, brush-dataset/src/config.rs:8; eval
+# splits are smaller, and these live in host memory, not on the card).
+EVAL_CACHE_BUDGET = 2 << 30
+
+
+@dataclasses.dataclass
+class ProcessConfig:
+    """brush-process/src/config.rs ProcessArgs (flattened); the JAX
+    package's fields and defaults."""
+
+    total_iters: int | None = None       # overrides tcfg when set
+    eval_every: int = 1000
+    export_every: int = 5000
+    export_path: str = "./export_{iter}.ply"
+    start_iter: int = 0
+    seed: int = 42
+    init_count: int = 10000              # random-init splat count
+    use_pallas: bool = True              # False: the plain rasterizer
+    sh_degree: int = 3
+    log_every: int = 50
+    ckpt_every: int = 0                  # full-state checkpoint cadence
+    ckpt_dir: str = "./ckpt"
+    resume_from: str | None = None       # checkpoint dir to resume from
+    lpips_weights: str | None = None     # VGG-LPIPS weights (not ported)
+    eval_save_to_disk: str | None = None  # dir for per-view eval PNGs
+    views_per_batch: int = 1             # >1: batched multi-view steps
+    init_isect_cap: int = 1 << 21        # starting capacities; grown on
+    init_chunk_cap: int = 1 << 15        # overflow (tests set these tiny)
 
 
 @dataclasses.dataclass
 class TrainMessage:
-    kind: str                            # "overflow" | "refine"
+    kind: str    # "overflow" | "step" | "refine" | "eval" | "export" |
+    #              "checkpoint" | "report" | "warning"
     iter: int
     data: dict
 
@@ -76,23 +132,14 @@ def _grow_state(state: TrainState, new_cap: int) -> TrainState:
         refine=refine)
 
 
-def loop_step(
-    loop: LoopState,
-    batch: SceneBatch,
-    tcfg: TrainConfig,
-    view_centers: torch.Tensor,
-    view_focals: torch.Tensor,
-    has_alpha: bool = False,
-    alpha_is_mask: bool = False,
-) -> tuple[LoopState, TrainStepStats, list[TrainMessage]]:
-    """One training step and the host policy after it (process.py's loop
-    body). `view_centers` [V, 3] and `view_focals` [V] feed the refine's 3D
-    filter. Returns the next LoopState, the step's statistics and the
-    messages of this turn ("overflow", "refine")."""
+def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
+               has_alpha: bool, alpha_is_mask: bool, batched: bool = False):
+    """The training step of a turn and the overflow check of the step
+    before it: (LoopState, stats, ["overflow"] or [])."""
     rcfg = loop.rcfg
-    state, stats, aux = train_step(loop.state, batch, tcfg, rcfg,
-                                   has_alpha=has_alpha,
-                                   alpha_is_mask=alpha_is_mask)
+    state, stats, aux = train_step_impl(
+        loop.state, batch, tcfg, rcfg, has_alpha=has_alpha,
+        alpha_is_mask=alpha_is_mask, batched=batched)
     it = loop.it + 1
     messages = []
 
@@ -113,24 +160,456 @@ def loop_step(
             messages.append(TrainMessage("overflow", it - 1, dict(
                 isects=p_isects, chunks=p_chunks, isect_cap=rcfg.isect_cap,
                 chunk_cap=rcfg.resolved_chunk_cap(state.splats.capacity))))
-
-    # Refine cadence: every refine_every until 95 % progress
-    # (train_stream.rs:321-327).
-    if (it % tcfg.refine_every == 0
-            and it < tcfg.total_train_iters * 0.95):
-        cap = state.splats.capacity
-        if int(state.splats.n_alive) > 0.8 * cap and cap < tcfg.max_splats:
-            state = _grow_state(state, min(_next_pow2(cap * 2),
-                                           _next_pow2(tcfg.max_splats)))
-        with stage("refine"):
-            state, rstats = refine_step(state, tcfg, view_centers,
-                                        view_focals)
-        messages.append(TrainMessage("refine", it, dict(
-            added=int(rstats.num_added), pruned=int(rstats.num_pruned),
-            oversized=int(rstats.num_oversized),
-            resampled=int(rstats.num_resampled),
-            grad_grown=int(rstats.num_grad_grown),
-            total=int(rstats.total_splats))))
-
     return (LoopState(state=state, rcfg=rcfg, it=it, prev_aux=aux), stats,
             messages)
+
+
+def _memory_mb(dev: torch.device) -> dict:
+    """The card's memory in use and its size, MiB (none on the CPU)."""
+    if dev.type != "cuda":
+        return {}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    return dict(mem_used_mb=round(torch.cuda.memory_allocated(dev) / 2**20, 1),
+                mem_limit_mb=round(total / 2**20, 1))
+
+
+def _refine_turn(loop: LoopState, tcfg: TrainConfig,
+                 view_centers: torch.Tensor, view_focals: torch.Tensor):
+    """The refine of a turn, on its cadence: every refine_every until 95 %
+    progress (train_stream.rs:321-327). Returns (LoopState, ["refine"] or
+    [])."""
+    it, state = loop.it, loop.state
+    if not (it % tcfg.refine_every == 0
+            and it < tcfg.total_train_iters * 0.95):
+        return loop, []
+    cap = state.splats.capacity
+    if int(state.splats.n_alive) > 0.8 * cap and cap < tcfg.max_splats:
+        state = _grow_state(state, min(_next_pow2(cap * 2),
+                                       _next_pow2(tcfg.max_splats)))
+    with stage("refine"):
+        state, rstats = refine_step(state, tcfg, view_centers, view_focals)
+    msg = TrainMessage("refine", it, dict(
+        added=int(rstats.num_added), pruned=int(rstats.num_pruned),
+        oversized=int(rstats.num_oversized),
+        resampled=int(rstats.num_resampled),
+        grad_grown=int(rstats.num_grad_grown),
+        total=int(rstats.total_splats),
+        **_memory_mb(state.splats.means.device)))
+    return dataclasses.replace(loop, state=state), [msg]
+
+
+def loop_step(
+    loop: LoopState,
+    batch: SceneBatch,
+    tcfg: TrainConfig,
+    view_centers: torch.Tensor,
+    view_focals: torch.Tensor,
+    has_alpha: bool = False,
+    alpha_is_mask: bool = False,
+) -> tuple[LoopState, TrainStepStats, list[TrainMessage]]:
+    """One training step and the host policy after it (process.py's loop
+    body). `view_centers` [V, 3] and `view_focals` [V] feed the refine's 3D
+    filter. Returns the next LoopState, the step's statistics and the
+    messages of this turn ("overflow", "refine")."""
+    loop, stats, messages = _step_turn(loop, batch, tcfg, has_alpha,
+                                       alpha_is_mask)
+    loop, refined = _refine_turn(loop, tcfg, view_centers, view_focals)
+    return loop, stats, messages + refined
+
+
+# --------------------------------------------------------------------------
+# the dataset-to-PLY run
+# --------------------------------------------------------------------------
+
+
+def _export_splats(path: str, splats: Splats) -> None:
+    """Write a ply export; a `.compressed.ply` suffix selects SuperSplat
+    chunk-quantized output (export.rs picks by the same convention)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    folded = splats.fold_min_scale()
+    if path.endswith(".compressed.ply"):
+        n = int(folded.n_alive)
+
+        def rows(x):
+            return x[:n].detach().cpu().numpy()
+
+        ply_io.save_compressed_ply(
+            path, means=rows(folded.means), log_scales=rows(folded.log_scales),
+            quats=rows(folded.quats), sh_coeffs=rows(folded.sh_coeffs),
+            raw_opacities=rows(folded.raw_opacities))
+    else:
+        Path(path).write_bytes(ply_io.splats_to_ply_bytes(folded))
+
+
+def init_splats_for_dataset(ds: Dataset, tcfg: TrainConfig,
+                            pcfg: ProcessConfig, device="cuda") -> Splats:
+    """ply init > point-cloud init > random init (train_stream.rs:102-143)."""
+    rng = np.random.default_rng(pcfg.seed)
+    cams = [v.camera for v in ds.train.views]
+    if ds.init_ply is not None:
+        data = ply_io.load_splat_ply(ds.train.vfs.open(ds.init_ply))
+        splats = to_init_splats(
+            data.means, data.log_scales, data.rotations, data.sh_coeffs,
+            data.raw_opacities,
+            capacity=_next_pow2(int(data.num_splats * 2)), device=device)
+    elif ds.init_points is not None and len(ds.init_points) > 0:
+        sh = None
+        if ds.init_colors is not None:
+            sh = np.asarray(rgb_to_sh_dc(ds.init_colors),
+                            np.float32)[:, None, :]
+        splats = to_init_splats(
+            ds.init_points, sh_coeffs=sh,
+            capacity=_next_pow2(int(len(ds.init_points) * 2)), device=device)
+    else:
+        splats = create_random_splats(
+            pcfg.init_count, cams, rng,
+            scene_scale_override=tcfg.random_init_scene_scale,
+            capacity=_next_pow2(pcfg.init_count * 4), device=device)
+    return splats.with_sh_degree(pcfg.sh_degree)
+
+
+def view_camera_arrays(ds: Dataset, max_resolution: int, device="cuda"):
+    """(centers [V,3], focal_px [V]) for the Mip 3D filter
+    (train_stream.rs per-view center/focal)."""
+    dev = resolve_device(device)
+    centers, focals = [], []
+    for v in ds.train.views:
+        w, h = image_dims(ds.train.vfs, v.image_path, max_resolution)
+        centers.append(v.camera.position)
+        focals.append(fov_to_focal(v.camera.fov_x, w, v.camera.model))
+    return (torch.as_tensor(np.stack(centers), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(np.array(focals), dtype=torch.float32,
+                            device=dev))
+
+
+class PinnedUpload:
+    """Host arrays -> tensors on the device. On the card each array goes
+    through a pinned staging buffer, two a shape, each reused once its
+    last copy has finished, and is copied with `non_blocking=True`: a copy
+    from pageable memory would wait for all the work queued on the card
+    (PyTorch synchronises the stream after it), so the host could not run
+    ahead of the step before."""
+
+    def __init__(self, device):
+        self.dev = resolve_device(device)
+        self._slots: dict = {}   # (shape, dtype) -> [[pinned buffer, event]]
+
+    def __call__(self, host: np.ndarray) -> torch.Tensor:
+        host = np.ascontiguousarray(host)
+        if self.dev.type != "cuda":
+            return torch.from_numpy(host).to(self.dev)
+        slots = self._slots.setdefault((host.shape, host.dtype.str), [])
+        if len(slots) < 2:
+            slot = [torch.from_numpy(host).pin_memory(), None]
+        else:
+            slot = slots.pop(0)            # the least recently used buffer
+            slot[1].synchronize()
+            slot[0].numpy()[...] = host
+        slots.append(slot)
+        out = slot[0].to(self.dev, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
+
+
+def _scene_batch(view, upload: PinnedUpload) -> SceneBatch:
+    """A loaded view on the device (its packed ground truth as int32
+    words)."""
+    words = np.ascontiguousarray(view.gt_packed, np.uint32).view(np.int32)
+    return SceneBatch(gt_packed=upload(words),
+                      cam=camera_inputs(view.camera, view.img_size,
+                                        device=upload.dev))
+
+
+def train_process(
+    source: str,
+    tcfg: TrainConfig | None = None,
+    lcfg: LoadConfig | None = None,
+    pcfg: ProcessConfig | None = None,
+    on_message: Callable[[TrainMessage], None] | None = None,
+    slot=None,
+    telemetry_dir: str | None = None,
+    device="cuda",
+) -> Iterator[TrainMessage]:
+    """Full training run as a message stream (train_stream.rs:34-503), on
+    `device`."""
+    if slot is not None:
+        raise NotImplementedError(
+            "train_process(slot=...), the live viewer, belongs to the viewer "
+            "part of the port (ROADMAP.md queue 1, item 9)")
+    dev = resolve_device(device)
+    tcfg = tcfg or TrainConfig()
+    lcfg = lcfg or LoadConfig()
+    pcfg = pcfg or ProcessConfig()
+    if tcfg.lpips_loss_weight > 0.0 and pcfg.lpips_weights:
+        raise NotImplementedError(
+            "the LPIPS term belongs to the LPIPS part of the port "
+            "(ROADMAP.md queue 1, item 11)")
+    telem = None
+    if telemetry_dir:
+        from brush_tpu_torch.utils.telemetry import TelemetryLogger
+        telem = TelemetryLogger(telemetry_dir)
+    if pcfg.total_iters:
+        tcfg = dataclasses.replace(tcfg, total_train_iters=pcfg.total_iters)
+
+    def emit(msg: TrainMessage) -> TrainMessage:
+        if on_message:
+            on_message(msg)
+        return msg
+
+    ds = load_dataset(source, lcfg)
+    if telem:
+        telem.log_scene(ds)
+    splats = init_splats_for_dataset(ds, tcfg, pcfg, device=dev)
+    state = init_train_state(splats, pcfg.seed)
+
+    if pcfg.resume_from:
+        # Full-state resume (params + Adam moments + refine record + the
+        # generator) — more than the reference's ply + --start-iter (§5.4).
+        from brush_tpu_torch.train.checkpoint import (
+            checkpoint_meta,
+            load_checkpoint,
+        )
+        meta = checkpoint_meta(pcfg.resume_from)
+        if meta["sh_degree"] != pcfg.sh_degree:
+            raise ValueError(
+                f"checkpoint sh_degree {meta['sh_degree']} != "
+                f"configured {pcfg.sh_degree}")
+        if meta["capacity"] != state.splats.capacity:
+            if meta["capacity"] > state.splats.capacity:
+                state = _grow_state(state, meta["capacity"])
+            else:
+                raise ValueError(
+                    f"checkpoint capacity {meta['capacity']} smaller than "
+                    f"init capacity {state.splats.capacity}; lower "
+                    "init_count or re-export")
+        state = load_checkpoint(pcfg.resume_from, state)
+        pcfg = dataclasses.replace(pcfg, start_iter=meta["iteration"])
+
+    loader = SceneLoader(ds.train, seed=pcfg.seed,
+                         alpha_mode=lcfg.alpha_mode)
+    upload = PinnedUpload(dev)
+    centers, focals = view_camera_arrays(ds, lcfg.max_resolution, device=dev)
+    eval_cache: dict = {}  # packed eval views, decoded once per run
+    batched = pcfg.views_per_batch > 1
+    alpha_is_mask = lcfg.alpha_mode == AlphaMode.MASKED
+
+    # Initial intersection / gradient-chunk capacities, grown on overflow
+    # (replaces the reference's exact-count readback, SURVEY.md §7). The
+    # image size follows each view; the grown capacities carry over.
+    first = ds.train.views[0]
+    loop = LoopState(
+        state=state, it=pcfg.start_iter,
+        rcfg=RenderConfig(
+            img_size=image_dims(ds.train.vfs, first.image_path,
+                                lcfg.max_resolution),
+            sh_degree=pcfg.sh_degree, isect_cap=pcfg.init_isect_cap,
+            chunk_cap=pcfg.init_chunk_cap, use_pallas=pcfg.use_pallas))
+    t_start = time.perf_counter()
+    try:
+        while loop.it < tcfg.total_train_iters:
+            view = next(loader)
+            if batched:
+                # B same-sized views (datasets are near-uniform; odd sizes
+                # fall back to repeating until the batch fills).
+                views = [view]
+                tries = 0
+                while (len(views) < pcfg.views_per_batch
+                       and tries < 4 * pcfg.views_per_batch):
+                    v = next(loader)
+                    tries += 1
+                    if (v.img_size == view.img_size
+                            and v.has_alpha == view.has_alpha):
+                        views.append(v)
+                if len(views) < pcfg.views_per_batch:
+                    # Padding by repetition biases the mean-loss gradient
+                    # toward the repeated view: surface it.
+                    yield emit(TrainMessage("warning", loop.it, dict(
+                        message=f"batch padded by repeating a view "
+                                f"({len(views)}/{pcfg.views_per_batch} "
+                                f"distinct; mixed image sizes in dataset?) "
+                                f"— the mean-loss gradient is biased toward "
+                                f"the repeat")))
+                while len(views) < pcfg.views_per_batch:
+                    views.append(views[0])
+                batch = stack_batches([_scene_batch(v, upload)
+                                       for v in views])
+            else:
+                batch = _scene_batch(view, upload)
+            loop = dataclasses.replace(loop, rcfg=dataclasses.replace(
+                loop.rcfg, img_size=view.img_size))
+            loop, stats, overflows = _step_turn(
+                loop, batch, tcfg, view.has_alpha, alpha_is_mask,
+                batched=batched)
+            it, state = loop.it, loop.state
+            for msg in overflows:
+                yield emit(msg)
+
+            if it % pcfg.log_every == 0 or it == tcfg.total_train_iters:
+                aux = loop.prev_aux
+                msg = TrainMessage("step", it, dict(
+                    loss=float(stats.loss),
+                    num_visible=int(stats.num_visible),
+                    splats=int(state.splats.n_alive),
+                    isects=int(aux.num_isects),
+                    # Slots emitted under bbox-tail semantics (exact tile
+                    # test bypassed past B_SCAN).
+                    bbox_tail_isects=int(aux.num_bbox_tail),
+                    sps=pcfg.log_every / max(
+                        time.perf_counter() - t_start, 1e-9),
+                ))
+                t_start = time.perf_counter()
+                if telem:
+                    telem.log_scalars(it, **{
+                        k: v for k, v in msg.data.items()
+                        if isinstance(v, (int, float))})
+                yield emit(msg)
+
+            loop, refined = _refine_turn(loop, tcfg, centers, focals)
+            state = loop.state
+            for msg in refined:
+                if telem:
+                    d = msg.data
+                    telem.log_scalars(
+                        it, refine_added=d["added"],
+                        refine_pruned=d["pruned"],
+                        refine_oversized=d["oversized"],
+                        refine_resampled=d["resampled"],
+                        refine_grad_grown=d["grad_grown"],
+                        splats_total=d["total"],
+                        **{k: d[k] for k in ("mem_used_mb", "mem_limit_mb")
+                           if k in d})
+                    telem.log_splat_distribution(it, state.splats)
+                    telem.log_memory(it)
+                yield emit(msg)
+
+            if pcfg.eval_every and it % pcfg.eval_every == 0 and ds.eval:
+                emsg = _run_eval(state, ds, lcfg, pcfg, it,
+                                 loop.rcfg.isect_cap, cache=eval_cache)
+                if telem:
+                    telem.log_scalars(it, **emsg.data)
+                yield emit(emsg)
+
+            if pcfg.export_every and it % pcfg.export_every == 0:
+                path = pcfg.export_path.format(iter=it)
+                _export_splats(path, state.splats)
+                yield TrainMessage("export", it, dict(path=path))
+
+            if pcfg.ckpt_every and it % pcfg.ckpt_every == 0:
+                from brush_tpu_torch.train.checkpoint import save_checkpoint
+                save_checkpoint(pcfg.ckpt_dir, state, iteration=it)
+                yield TrainMessage("checkpoint", it,
+                                   dict(path=pcfg.ckpt_dir))
+    finally:
+        loader.stop()
+
+    it, state = loop.it, loop.state
+    isect_cap, chunk_cap = loop.rcfg.isect_cap, loop.rcfg.chunk_cap
+    # Final export.
+    path = pcfg.export_path.format(iter=it)
+    _export_splats(path, state.splats)
+    yield TrainMessage("export", it, dict(path=path, final=True))
+
+    if telem:
+        from brush_tpu_torch.utils.report import write_report
+        rpath = write_report(telem.dir)
+        yield TrainMessage("report", it, dict(path=str(rpath)))
+
+    # --- LOD baking phases (train_stream.rs:220-291, lod.rs) ---
+    for level in range(1, tcfg.lod_levels + 1):
+        state = _bake_lod_level(state, ds, lcfg, pcfg, tcfg, level,
+                                isect_cap, chunk_cap, upload)
+        lod_path = path.replace(".ply", f"_lod{level}.ply")
+        _export_splats(lod_path, state.splats)
+        yield TrainMessage("export", it, dict(
+            path=lod_path, lod_level=level,
+            splats=int(state.splats.n_alive)))
+    if telem:
+        telem.close()
+
+
+def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,
+                    pcfg: ProcessConfig, tcfg: TrainConfig, level: int,
+                    isect_cap: int, chunk_cap: int,
+                    upload: PinnedUpload) -> TrainState:
+    """One LOD level: PUP scores over a handful of training views at half
+    resolution, decimation to `lod_decimation_keep` percent, then
+    `lod_refine_steps` steps on downscaled images with growth off."""
+    from brush_tpu_torch.train.lod import decimate_to_count, pup_scores
+
+    score_views = ds.train.views[::max(1, len(ds.train.views) // 8)]
+    w, h = image_dims(ds.train.vfs, score_views[0].image_path,
+                      lcfg.max_resolution, subscale=2)
+    score_rcfg = RenderConfig(
+        img_size=(w, h), sh_degree=pcfg.sh_degree, isect_cap=isect_cap,
+        chunk_cap=chunk_cap, use_pallas=pcfg.use_pallas)
+    cams = [camera_inputs(v.camera, (w, h), device=upload.dev)
+            for v in score_views]
+    scores = pup_scores(state.splats, cams, score_rcfg, level, n_probes=4)
+    keep = int(int(state.splats.n_alive)
+               * (tcfg.lod_decimation_keep / 100.0))
+    state = init_train_state(decimate_to_count(state.splats, scores, keep),
+                             state.rng)
+
+    sub = max(1, round(100 / max(tcfg.lod_image_scale, 1)))
+    lod_loader = SceneLoader(dataclasses.replace(ds.train, subscale=sub),
+                             seed=pcfg.seed + level,
+                             alpha_mode=lcfg.alpha_mode)
+    lod_tcfg = dataclasses.replace(tcfg, growth_stop_iter=0,
+                                   total_train_iters=tcfg.lod_refine_steps)
+    try:
+        for _ in range(tcfg.lod_refine_steps):
+            view = next(lod_loader)
+            rcfg = RenderConfig(img_size=view.img_size,
+                                sh_degree=pcfg.sh_degree, isect_cap=isect_cap,
+                                use_pallas=pcfg.use_pallas)
+            state, _, _ = train_step(state, _scene_batch(view, upload),
+                                     lod_tcfg, rcfg)
+    finally:
+        lod_loader.stop()
+    return state
+
+
+def _run_eval(state, ds, lcfg, pcfg, it, isect_cap, cache=None):
+    """Evaluate on the eval split. `cache` (a dict owned by the caller's
+    run) keeps the decoded and packed eval views across evals, byte-
+    budgeted like the reference's packed-batch cache (scene_loader.rs:
+    57-163, config.rs:8): host numpy up to EVAL_CACHE_BUDGET bytes, copied
+    to the device each eval; views past the budget are decoded each eval."""
+    from brush_tpu_torch.data.scene import load_image, pack_rgba
+    from brush_tpu_torch.train.eval import eval_views
+
+    key = ("eval_pairs", lcfg.max_resolution, lcfg.alpha_mode)
+    if cache is None or key not in cache:
+        cached_pairs = []   # (camera, packed ndarray) within budget
+        tail_views = []     # views past the budget: re-decode per eval
+        img_size = None
+        budget = EVAL_CACHE_BUDGET
+        for v in ds.eval.views:
+            if budget <= 0:
+                tail_views.append(v)
+                continue
+            arr, _ = load_image(ds.eval.vfs, v.image_path,
+                                lcfg.max_resolution, mask_path=v.mask_path)
+            packed = pack_rgba(arr, lcfg.alpha_mode)
+            budget -= packed.nbytes
+            cached_pairs.append((v.camera, packed))
+            img_size = (packed.shape[1], packed.shape[0])
+        if cache is not None:
+            cache[key] = (cached_pairs, tail_views, img_size)
+    else:
+        cached_pairs, tail_views, img_size = cache[key]
+    pairs = list(cached_pairs)
+    for v in tail_views:
+        arr, _ = load_image(ds.eval.vfs, v.image_path,
+                            lcfg.max_resolution, mask_path=v.mask_path)
+        packed = pack_rgba(arr, lcfg.alpha_mode)
+        pairs.append((v.camera, packed))
+        img_size = img_size or (packed.shape[1], packed.shape[0])
+    rcfg = RenderConfig(img_size=img_size, sh_degree=pcfg.sh_degree,
+                        isect_cap=isect_cap, use_pallas=pcfg.use_pallas,
+                        forward_only=pcfg.use_pallas)
+    stats = eval_views(state.splats, pairs, rcfg,
+                       save_dir=pcfg.eval_save_to_disk, step=it)
+    return TrainMessage("eval", it, dict(psnr=stats.psnr, ssim=stats.ssim))

@@ -2,7 +2,7 @@
 
     project -> exact tile counts -> emit -> key sort -> SoA -> rasterize
 
-Two configurations run:
+Three configurations run:
 
   * serving: `RenderConfig(use_pallas=True, forward_only=True)`, the
     configuration the viewer, eval and the benchmark render with. The whole
@@ -13,14 +13,16 @@ Two configurations run:
     whose backward hands the per-splat gradients back to projection.
     `render_with_refine` threads the two holders whose gradients carry the
     densify refine weight and the visibility mask.
+  * `use_pallas=False`: the JAX package's jnp oracle rasterizer, in plain
+    PyTorch (ops/rasterize_torch.py: per-tile gather bounded by
+    `max_per_tile`, `smooth_cutoff`, a backward that recomputes the blend),
+    on the CPU or the card alike; the binning still runs its kernels on
+    the card. `forward_only` does not apply to it (as in the JAX package),
+    and `render` reports exact contribution visibility.
 
-`use_pallas=False` (the JAX package's jnp oracle rasterizer) raises
-NotImplementedError: its torch twin comes with the process loop, whose
-configuration selects it (eval, refine and LOD scoring run on the kernels).
-
-PyTorch runs eagerly and nothing in either path reads a value back to the
-host, so a frame or a training step is queued on the card without a
-synchronize.
+PyTorch runs eagerly and nothing in the kernel paths reads a value back to
+the host, so a frame or a training step is queued on the card without a
+synchronize (the plain rasterizer reads its longest tile's length once).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from brush_tpu_torch.camera import Camera, CameraModel, Pinhole, is_fisheye
 from brush_tpu_torch.constants import TILE_WIDTH
+from brush_tpu_torch.ops import rasterize_torch
 from brush_tpu_torch.ops.projection import CameraInputs, project_splats
 from brush_tpu_torch.ops.rasterize_cuda import (
     rasterize_forward,
@@ -115,15 +118,6 @@ def camera_inputs(cam: Camera, img_size: Tuple[int, int],
     )
 
 
-def _check_config(cfg: RenderConfig) -> None:
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "brush_tpu_torch renders through its CUDA kernels only: set "
-            "RenderConfig(use_pallas=True). The plain rasterizer of "
-            "use_pallas=False (per-tile gather, max_per_tile, smooth_cutoff) "
-            "comes with the process-loop part of the port.")
-
-
 def render(
     means: torch.Tensor,
     log_scales: torch.Tensor,
@@ -138,7 +132,8 @@ def render(
     ([H, W, 4] f32 image, RenderAux). With `forward_only=False` the image
     is differentiable w.r.t. the five splat arrays and `bg`."""
     return _render_impl(means, log_scales, quats, sh_coeffs, raw_opacities,
-                        cam, bg, cfg, refine_holder=None)
+                        cam, bg, cfg, refine_holder=None,
+                        with_visibility=not cfg.use_pallas)
 
 
 def render_with_refine(
@@ -155,9 +150,9 @@ def render_with_refine(
 
 
 def _render_impl(means, log_scales, quats, sh_coeffs, raw_opacities, cam, bg,
-                 cfg: RenderConfig, refine_holder, visible_holder=None):
-    _check_config(cfg)
-    fwd_only = cfg.forward_only
+                 cfg: RenderConfig, refine_holder, visible_holder=None,
+                 with_visibility: bool = False):
+    fwd_only = cfg.forward_only and cfg.use_pallas
     n = means.shape[0]
     bg = bg.to(torch.float32)
     with torch.set_grad_enabled(torch.is_grad_enabled() and not fwd_only):
@@ -177,15 +172,28 @@ def _render_impl(means, log_scales, quats, sh_coeffs, raw_opacities, cam, bg,
                                       cfg.img_size), cfg.img_size)
             else:
                 zeros = means.new_zeros(n, dtype=torch.float32)
-                img = rasterize_train(
-                    proj.mean2d, proj.conic, proj.color, proj.opac,
-                    zeros if refine_holder is None else refine_holder,
-                    zeros if visible_holder is None else visible_holder,
-                    isect.soa, isect.tile_ranges, isect.gid_from_isect, bg,
-                    cfg.img_size)
+                holders = (zeros if refine_holder is None else refine_holder,
+                           zeros if visible_holder is None
+                           else visible_holder)
+                if cfg.use_pallas:
+                    img = rasterize_train(
+                        proj.mean2d, proj.conic, proj.color, proj.opac,
+                        *holders, isect.soa, isect.tile_ranges,
+                        isect.gid_from_isect, bg, cfg.img_size)
+                else:
+                    img = rasterize_torch.rasterize(
+                        proj.mean2d, proj.conic, proj.color, proj.opac,
+                        *holders, isect.gid_from_isect, isect.tile_ranges,
+                        bg, cfg.img_size, cfg.max_per_tile, cfg.chunk,
+                        cfg.smooth_cutoff)
     with torch.no_grad():
         per_tile = isect.tile_ranges[:, 1] - isect.tile_ranges[:, 0]
-        if fwd_only:
+        if with_visibility:
+            visible = rasterize_torch.rasterize_with_visibility(
+                proj.mean2d, proj.conic, proj.color, proj.opac,
+                isect.gid_from_isect, isect.tile_ranges, cfg.img_size,
+                cfg.max_per_tile, cfg.chunk)
+        elif fwd_only:
             visible = torch.zeros(n, dtype=torch.float32,
                                   device=means.device)
         else:

@@ -20,9 +20,12 @@ gate is a `torch.where` over the new and the old state, and the step
 counter is a tensor. The step is functional (new tensors out, the old state
 untouched), as in the JAX package.
 
-`batched=True` (a leading view axis, the multi-device path) and
-`lpips_model` raise NotImplementedError: they belong to later parts of the
-port.
+`batched=True` takes views with a leading axis (`stack_batches`): the loss
+is the mean over the views, rendered one after another on one device, and
+the refine statistics are those of one view a step (the holder gradients
+times B, the render statistics max-combined). The multi-device mesh and
+the `lpips_model` term belong to later parts of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -88,6 +91,43 @@ class SceneBatch(NamedTuple):
 
     gt_packed: torch.Tensor      # [H, W] packed RGBA words (ops/loss.py)
     cam: CameraInputs
+
+
+def stack_batches(batches: list[SceneBatch]) -> SceneBatch:
+    """Per-view batches -> one batch with a leading [B] axis on every
+    field (the fisheye bound becomes a [B] tensor)."""
+    cams = [b.cam for b in batches]
+    dev = batches[0].gt_packed.device
+    return SceneBatch(
+        gt_packed=torch.stack([b.gt_packed for b in batches]),
+        cam=CameraInputs(
+            *(torch.stack([getattr(c, f) for c in cams])
+              for f in ("viewmat", "pinhole", "clamp_limits", "cam_pos")),
+            half_max_render_fov=torch.tensor(
+                [float(c.half_max_render_fov) for c in cams],
+                dtype=torch.float32, device=dev)))
+
+
+def _view_of(batch: SceneBatch, v: int) -> SceneBatch:
+    """View `v` of a stacked batch."""
+    c = batch.cam
+    return SceneBatch(gt_packed=batch.gt_packed[v], cam=CameraInputs(
+        c.viewmat[v], c.pinhole[v], c.clamp_limits[v], c.cam_pos[v],
+        c.half_max_render_fov[v]))
+
+
+def _max_aux(auxs: list[RenderAux]) -> RenderAux:
+    """Render statistics of B views, max-combined (the JAX package's
+    batched aux)."""
+    def mx(name):
+        return torch.stack([getattr(a, name) for a in auxs]).amax(dim=0)
+    return RenderAux(
+        num_visible=mx("num_visible"), num_isects=mx("num_isects"),
+        num_bbox_tail=mx("num_bbox_tail"),
+        max_isects_per_tile=mx("max_isects_per_tile"),
+        visible=mx("visible"), max_radius=mx("max_radius"),
+        num_chunks=(mx("num_chunks") if auxs[0].num_chunks is not None
+                    else None))
 
 
 class TrainStepStats(NamedTuple):
@@ -197,11 +237,8 @@ def train_step_impl(
     batched: bool = False,
     lpips_model=None,
 ) -> tuple[TrainState, TrainStepStats, RenderAux]:
-    """One training step on one view."""
-    if batched:
-        raise NotImplementedError(
-            "train_step_impl(batched=True), a leading view axis, belongs to "
-            "the multi-device part of the port")
+    """One training step. With `batched=True` the batch carries a leading
+    view axis [B] (`stack_batches`) and the loss is the mean over views."""
     if lpips_model is not None:
         raise NotImplementedError(
             "the LPIPS term belongs to the LPIPS part of the port")
@@ -210,7 +247,7 @@ def train_step_impl(
                          "RenderConfig(forward_only=False)")
     splats = state.splats
     dev = splats.means.device
-    n_views = 1
+    n_views = batch.gt_packed.shape[0] if batched else 1
 
     # Background: base + uniform noise, clamped (config background_noise).
     base_bg = torch.tensor(tcfg.background_color, dtype=torch.float32,
@@ -219,7 +256,6 @@ def train_step_impl(
         base_bg + sample_background_noise(
             state.rng, n_views, tcfg.background_noise_strength, dev),
         0.0, 1.0)
-    bg = bgs[0]
 
     params = {k: v.detach().requires_grad_(True)
               for k, v in splats.params().items()}
@@ -235,20 +271,30 @@ def train_step_impl(
                       and tcfg.match_alpha_weight > 0.0)
     composite = has_alpha  # bg noise makes bg != 0 almost surely
 
-    rendered = splats.with_params(params).fold_min_scale()
-    img, aux = render_with_refine(
-        rendered.means, rendered.log_scales, rendered.quats,
-        rendered.sh_coeffs, rendered.raw_opacities,
-        batch.cam, bg, rcfg, refine_holder, visible_holder)
-    with stage("loss"):
-        pred = img if do_alpha_match else img[..., :3]
-        # Compositing folds gt + (1-a)*bg inside the loss (train.rs:215-218).
-        lcfg = ImageLossConfig(
-            l1_weight=l1_w, ssim_weight=ssim_w, composite_bg=None,
-            mask=alpha_is_mask, alpha_match=do_alpha_match)
-        loss = image_loss(pred, batch.gt_packed, lcfg,
-                          tcfg.match_alpha_weight,
-                          bg_dyn=bg if composite else None)
+    def view_loss(view: SceneBatch, bg):
+        rendered = splats.with_params(params).fold_min_scale()
+        img, aux = render_with_refine(
+            rendered.means, rendered.log_scales, rendered.quats,
+            rendered.sh_coeffs, rendered.raw_opacities,
+            view.cam, bg, rcfg, refine_holder, visible_holder)
+        with stage("loss"):
+            pred = img if do_alpha_match else img[..., :3]
+            # Compositing folds gt + (1-a)*bg inside the loss
+            # (train.rs:215-218).
+            lcfg = ImageLossConfig(
+                l1_weight=l1_w, ssim_weight=ssim_w, composite_bg=None,
+                mask=alpha_is_mask, alpha_match=do_alpha_match)
+            loss = image_loss(pred, view.gt_packed, lcfg,
+                              tcfg.match_alpha_weight,
+                              bg_dyn=bg if composite else None)
+        return loss, aux
+
+    if batched:
+        losses, auxs = zip(*(view_loss(_view_of(batch, v), bgs[v])
+                             for v in range(n_views)))
+        loss, aux = torch.stack(losses).mean(), _max_aux(list(auxs))
+    else:
+        loss, aux = view_loss(batch, bgs[0])
     with stage("backward"):
         names = list(params)
         grads = torch.autograd.grad(
@@ -259,6 +305,11 @@ def train_step_impl(
     loss = loss.detach()
 
     with stage("adam"), torch.no_grad():
+        # The batched loss is a mean over views: undo the 1/B factor so the
+        # refine statistics accumulate as one view a step does.
+        if batched:
+            refine_weight = refine_weight * float(n_views)
+            visible_grad = visible_grad * float(n_views)
         visible = torch.clamp(visible_grad, 0.0, 1.0)
 
         # --- Learning rates (train.rs:311-364) ---

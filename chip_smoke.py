@@ -77,10 +77,31 @@ Phases, each of which must pass (any failure exits non-zero):
              the top-scoring set. One scoring view's launches are kept for
              the kernel phase, as are those of one view of the evaluation
              after the loop.
-12. kernels — each kernel against its plain PyTorch version, on the card,
+12. process — `train_process` as a user runs it: a COLMAP binary scene
+             the phase writes to a temporary directory (8 PINHOLE views of
+             1920x1080 about the serve camera, the port's own 8-bit renders
+             of a second 1M scene as PNG ground truth, the 1M scene as
+             init.ply, so the capacity is 2^21), 24 steps, refine every 8,
+             eval every 12 on the 2 held-out views, a checkpoint at 24, the
+             final export and one LOD level. Counters zeroed before, read
+             after: every training kernel and the diet forward must have
+             launched. Asserts the message kinds, finite losses, no
+             overflow after the host grew the capacities, the final PLY
+             equal bit for bit to the checkpoint's folded live rows, the
+             checkpoint restoring the step-24 state and generator bit for
+             bit, the LOD level at half the splats, a compressed export a
+             third of the size or less, the eval PSNR not falling by more
+             than 0.5 dB; then resumes to step 26 and runs the CLI for 2
+             steps at 960 px. Prints the turn's median wall time beside the
+             loop phase's step, the time to first step, eval, export,
+             checkpoint and LOD times, peak memory and the ground-truth
+             upload's host time (pageable against pinned). Step 13's
+             launches are kept for the kernel phase.
+13. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
              calls, the stress run, two growth steps, two loop steps, an
-             evaluation view and a LOD scoring view gave it (scan, stack, emit, expand
+             evaluation view, a LOD scoring view and a process step gave it
+             (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
@@ -100,7 +121,7 @@ Phases, each of which must pass (any failure exits non-zero):
              per-slot reduce the backward used to need after it (an
              [11, S] zero-fill and `index_add_` of the plain per-slot
              gradients), timed at the same shapes beside the fused kernel.
-13. profile — frames, training steps, loop steps and refines (of the
+14. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
              time, its idle share and the top device ops.
@@ -153,6 +174,12 @@ GROW_REFINE_EVERY = 3
 # the emission's remainder is a quarter of what it needs) and of the first
 # step at the grown capacities (2^21 splats, the grown tile-sort capacity).
 GROW_CAPTURED_STEPS = (1, GROW_REFINE_EVERY + 1)
+# The process phase: `train_process` over a COLMAP dataset of 8 views it
+# writes (2 held out for eval), 24 steps; the kernel phase replays the
+# launches of step 13, the first after the first evaluation.
+PROCESS_VIEWS = 8
+PROCESS_STEPS = 24
+PROCESS_CAPTURED_STEP = 13
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores.
@@ -1430,6 +1457,374 @@ def phase_init_lod(torch, loop):
                 pup_peak_mb=peak_mb)
 
 
+def write_colmap_scene(root: str, cams, focal: float, pngs) -> None:
+    """A COLMAP binary scene: one PINHOLE camera of focal `focal` and the
+    size of the images, a view a (Camera, [H, W, 3] uint8) in `cams` /
+    `pngs` as sparse/0/{cameras,images,points3D}.bin and
+    images/view_XX.png (no 3D points: an init.ply beside them seeds the
+    splats)."""
+    import struct
+
+    from PIL import Image
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+    h, w = pngs[0].shape[:2]
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, w, h))            # PINHOLE
+        f.write(struct.pack("<4d", focal, focal, w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for i, cam in enumerate(cams):
+            q = cam.rotation / np.linalg.norm(cam.rotation)
+            # World-to-camera pose: the inverse rotation and -R^T t.
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<4d", q[0], -q[1], -q[2], -q[3]))
+            f.write(struct.pack("<3d", *cam.world_to_local()[:3, 3]))
+            f.write(struct.pack("<i", 1))
+            f.write(f"view_{i:02d}.png".encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 0))
+    for i, rgb in enumerate(pngs):
+        Image.fromarray(rgb).save(
+            os.path.join(root, "images", f"view_{i:02d}.png"),
+            compress_level=1)
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, wrap):
+    """`module.name` replaced by `wrap(original)` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def timed(torch, sink: list):
+    """A wrapper factory: each call's wall seconds, up to the end of its
+    device work, go to `sink`."""
+    def wrap(real):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            sink.append(time.perf_counter() - t0)
+            return out
+        return run
+    return wrap
+
+
+def phase_process(torch, loop):
+    """`train_process` from a COLMAP dataset the phase writes, at full
+    width: eval, checkpoint, export, the LOD bake, resume and the CLI."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="brush_process_")
+    try:
+        return _process_run(torch, loop, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _process_run(torch, loop, work):
+    from brush_tpu_torch import cli, kernels, process
+    from brush_tpu_torch.camera import Camera, Pinhole, focal_to_fov
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.ops.loss import gt_tensor
+    from brush_tpu_torch.process import ProcessConfig, train_process
+    from brush_tpu_torch.train import checkpoint
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.utils.synthetic import bench_splats
+
+    # --- the dataset: 8 views about the serve camera, GT rendered ---
+    t0 = time.perf_counter()
+    w, h = IMG_SIZE
+    focal = (w / 2.0) / np.tan(0.5)          # the serve camera's fov_x, 1.0
+    cams = [(a, Camera(position=c.position, rotation=c.rotation,
+                       fov_x=focal_to_fov(focal, w, Pinhole()),
+                       fov_y=focal_to_fov(focal, h, Pinhole())))
+            for a, c in views(PROCESS_VIEWS, YAW)]
+    teacher = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED + 1)
+    pngs = [np.ascontiguousarray(
+        gt.cpu().numpy().view(np.uint8).reshape(h, w, 4)[..., :3])
+        for _, _, gt in _ground_truths(torch, teacher, cams)]
+    del teacher
+    data = os.path.join(work, "scene")
+    write_colmap_scene(data, [c for _, c in cams], focal, pngs)
+    init = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED)
+    with open(os.path.join(data, "init.ply"), "wb") as f:
+        f.write(ply.splats_to_ply_bytes(init))
+    del init
+    out = os.path.join(work, "out")
+    log(f"[process] dataset: {PROCESS_VIEWS} views {w}x{h} PINHOLE f="
+        f"{focal:.4f}, init.ply of {N_SPLATS} splats "
+        f"({os.path.getsize(os.path.join(data, 'init.ply')) / 2**20:.1f} "
+        f"MiB); written in {time.perf_counter() - t0:.3f} s")
+
+    rgb = pngs[0].astype(np.uint32)
+    packed = rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | (
+        np.uint32(255) << 24)
+    # The host's share of a ground-truth upload: a copy from pageable
+    # memory against the pinned staging buffers of `PinnedUpload`, on an
+    # idle card (20 calls) and behind 50 ms of queued device work (a call
+    # each of 5 turns, median), as a training step leaves the queue; and
+    # of a small tensor made from a list on the card (as the trainer makes
+    # its background colour).
+    upload = process.PinnedUpload("cuda")
+    words = packed.view(np.int32)
+    upload_ms = {}
+    for how, fn in (("pageable", lambda: gt_tensor(packed, device="cuda")),
+                    ("pinned", lambda: upload(words)),
+                    ("list_to_tensor", lambda: torch.tensor(
+                        [0.0, 0.0, 0.0], device="cuda"))):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        upload_ms[how] = (time.perf_counter() - t1) * 1e3 / 20
+        busy = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(100_000_000)      # ~50 ms at 1.98 GHz
+            t1 = time.perf_counter()
+            fn()
+            busy.append((time.perf_counter() - t1) * 1e3)
+        upload_ms[how + "_behind_queued_work"] = statistics.median(busy)
+        torch.cuda.synchronize()
+    check(torch.equal(upload(words), gt_tensor(packed, device="cuda")),
+          "the pinned upload differs")
+    log(f"[process] ground-truth upload, host ms a call ({packed.nbytes} "
+        f"bytes): " + json.dumps({k: round(v, 4)
+                                  for k, v in upload_ms.items()}))
+
+    # --- the run ---
+    tcfg = TrainConfig(total_train_iters=PROCESS_STEPS,
+                       refine_every=REFINE_EVERY, lod_levels=1,
+                       lod_refine_steps=2, lod_decimation_keep=50,
+                       lod_image_scale=50)
+    lcfg = LoadConfig(max_resolution=w, eval_split_every=4)
+    ckpt_dir = os.path.join(work, "ckpt")
+    pcfg = ProcessConfig(eval_every=12, export_every=0, log_every=6,
+                         ckpt_every=PROCESS_STEPS, ckpt_dir=ckpt_dir,
+                         export_path=os.path.join(out, "out_{iter}.ply"),
+                         use_pallas=True, sh_degree=SH_DEGREE, seed=SEED)
+    turns, flags, captured, final = [], [], [], {}
+    secs = dict(eval=[], export=[], save=[], lod=[])
+
+    def step_turn(real):
+        def run(loop_state, *a, **k):
+            turns.append(time.perf_counter())
+            it = loop_state.it + 1
+            with (kernels.capture() if it == PROCESS_CAPTURED_STEP
+                  else contextlib.nullcontext([])) as cap_list:
+                res = real(loop_state, *a, **k)
+            captured.extend(cap_list)
+            flags.append(res[1].overflowed)
+            if it == PROCESS_STEPS:
+                final.update(state=res[0].state,
+                             rng=res[0].state.rng.get_state())
+            return res
+        return run
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    t_call = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for mod, name, wrap in (
+                (process, "_step_turn", step_turn),
+                (process, "_run_eval", timed(torch, secs["eval"])),
+                (process, "_export_splats", timed(torch, secs["export"])),
+                (process, "_bake_lod_level", timed(torch, secs["lod"])),
+                (checkpoint, "save_checkpoint", timed(torch, secs["save"]))):
+            stack.enter_context(wrapped(mod, name, wrap))
+        msgs = list(train_process(data, tcfg, lcfg, pcfg,
+                                  telemetry_dir=os.path.join(work, "telem")))
+    torch.cuda.synchronize()
+    run_secs = time.perf_counter() - t_call
+    launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    held_mb = held_mib(torch, captured)
+
+    kinds = [m.kind for m in msgs]
+    steps = [m for m in msgs if m.kind == "step"]
+    evals = [m for m in msgs if m.kind == "eval"]
+    refines = [m for m in msgs if m.kind == "refine"]
+    overflows = [m for m in msgs if m.kind == "overflow"]
+    exports = [m for m in msgs if m.kind == "export"]
+    final_export = [m for m in exports if m.data.get("final")]
+    lod_export = [m for m in exports if m.data.get("lod_level") == 1]
+    check([m.iter for m in steps] == [6, 12, 18, 24], f"steps {kinds}")
+    check([m.iter for m in refines] == [8, 16], f"refines {kinds}")
+    check([m.iter for m in evals] == [12, 24], f"evals {kinds}")
+    check([m.iter for m in msgs if m.kind == "checkpoint"] == [24],
+          f"checkpoints {kinds}")
+    check(len(final_export) == 1 and len(lod_export) == 1,
+          f"exports {[m.data for m in exports]}")
+    losses = [m.data["loss"] for m in steps]
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    flags = [bool(f) for f in flags]
+    settled = max([m.iter + 1 for m in overflows], default=0)
+    check(len(flags) == PROCESS_STEPS and not any(flags[settled:]),
+          f"a step overflowed after the capacities were grown: steps "
+          f"{[i + 1 for i, f in enumerate(flags) if f]}, grown after "
+          f"{[m.iter for m in overflows]}")
+    psnr = [m.data["psnr"] for m in evals]
+    ssim = [m.data["ssim"] for m in evals]
+    check(all(np.isfinite(psnr + ssim)), f"eval psnr {psnr} ssim {ssim}")
+    check(psnr[1] >= psnr[0] - 0.5, f"eval psnr fell: {psnr}")
+    for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
+        check(launches[name] > 0, f"kernel {name} was not launched")
+
+    # The checkpoint restores the state of step 24 bit for bit, generator
+    # included, and the final export is its folded live rows.
+    saved = final["state"]
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir,
+                                              checkpoint.STATE_FILE))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    restored = checkpoint.load_checkpoint(ckpt_dir, saved)
+    torch.cuda.synchronize()
+    load_secs = time.perf_counter() - t1
+    check(checkpoint.checkpoint_meta(ckpt_dir) == dict(
+        iteration=PROCESS_STEPS, capacity=saved.splats.capacity,
+        sh_degree=SH_DEGREE), "checkpoint meta")
+    check(torch.equal(restored.rng.get_state(), final["rng"]),
+          "the restored generator differs")
+    for path, a, b in _state_pairs(torch, saved, restored):
+        check(b is not None and a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b),
+              f"checkpoint {path} differs")
+    n = int(restored.splats.n_alive)
+    folded = restored.splats.fold_min_scale()
+    raw_path = final_export[0].data["path"]
+    got = ply.load_splat_ply(raw_path)
+    check(got.num_splats == n, f"export holds {got.num_splats} of {n}")
+    for name, field in (("means", "means"), ("log_scales", "log_scales"),
+                        ("rotations", "quats"), ("sh_coeffs", "sh_coeffs"),
+                        ("raw_opacities", "raw_opacities")):
+        want = getattr(folded, field)[:n].cpu().numpy()
+        check(np.array_equal(getattr(got, name).view(np.int32),
+                             want.view(np.int32)),
+              f"export {name} differs from the checkpoint's")
+    lod = ply.load_splat_ply(lod_export[0].data["path"])
+    check(lod.num_splats == int(n * 0.5) and np.isfinite(lod.means).all(),
+          f"LOD holds {lod.num_splats} of {n}")
+    comp_path = os.path.join(out, "state.compressed.ply")
+    t1 = time.perf_counter()
+    process._export_splats(comp_path, restored.splats)
+    comp_secs = time.perf_counter() - t1
+    comp = ply.load_splat_ply(comp_path)
+    raw_bytes, comp_bytes = (os.path.getsize(raw_path),
+                             os.path.getsize(comp_path))
+    check(comp.num_splats == -(-n // 256) * 256
+          and np.isfinite(comp.means).all(),
+          f"compressed export holds {comp.num_splats} rows for {n}")
+    check(comp_bytes * 3 < raw_bytes,
+          f"compressed {comp_bytes} bytes against {raw_bytes}")
+    del saved, restored, folded, final
+
+    # --- resume from the checkpoint to step 26 ---
+    t1 = time.perf_counter()
+    resumed = list(train_process(
+        data, dataclasses.replace(tcfg, lod_levels=0), lcfg,
+        dataclasses.replace(pcfg, total_iters=PROCESS_STEPS + 2,
+                            resume_from=ckpt_dir, ckpt_every=0, eval_every=0,
+                            log_every=1, export_path=os.path.join(
+                                out, "resumed_{iter}.ply"))))
+    resume_secs = time.perf_counter() - t1
+    r_steps = [m for m in resumed if m.kind == "step"]
+    check([m.iter for m in r_steps] == [PROCESS_STEPS + 1, PROCESS_STEPS + 2]
+          and all(np.isfinite(m.data["loss"]) for m in r_steps),
+          f"resumed steps {[(m.iter, m.data.get('loss')) for m in r_steps]}")
+
+    # --- the CLI, in-process ---
+    cli_export = os.path.join(out, "cli_{iter}.ply")
+    t1 = time.perf_counter()
+    rc = cli.main([data, "--total-train-iters", "2", "--max-resolution",
+                   "960", "--eval-every", "0", "--export-path", cli_export])
+    cli_secs = time.perf_counter() - t1
+    check(rc == 0 and os.path.exists(cli_export.format(iter=2)),
+          f"cli returned {rc}")
+
+    # A turn's wall time: from one `_step_turn` call to the next (host
+    # clock; the loader, the upload, the step and its reads), over the
+    # turns without a refine, eval or checkpoint after their step.
+    busy = {REFINE_EVERY, 2 * REFINE_EVERY, 12}
+    turn_ms = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(turns, turns[1:]),
+                                                       start=1)
+               if i not in busy]
+    res = dict(
+        step_median_ms=statistics.median(turn_ms),
+        step_min_ms=min(turn_ms), step_max_ms=max(turn_ms),
+        loop_step_median_ms=loop["step_median_ms"],
+        first_step_s=turns[0] - t_call, run_s=run_secs,
+        eval_ms_per_view=[s * 1e3 / 2 for s in secs["eval"]],
+        export_ms=secs["export"][0] * 1e3, export_mb=raw_bytes / 1e6,
+        lod_export_ms=secs["export"][1] * 1e3,
+        compressed_export_ms=comp_secs * 1e3, compressed_mb=comp_bytes / 1e6,
+        ckpt_save_ms=secs["save"][0] * 1e3, ckpt_load_ms=load_secs * 1e3,
+        ckpt_bytes=ckpt_bytes, lod_bake_s=secs["lod"][0],
+        peak_mib=peak_mb, base_mib=base_mb, held_mib=held_mb,
+        upload_host_ms=upload_ms,
+        resume_s=resume_secs, cli_s=cli_secs, losses=losses,
+        resumed_losses=[m.data["loss"] for m in r_steps], psnr=psnr,
+        ssim=ssim, refines=[m.data for m in refines],
+        overflows=[m.data for m in overflows],
+        live=n, lod_live=lod.num_splats)
+    log(f"[process] train_process {PROCESS_STEPS} steps in {run_secs:.3f} s: "
+        f"step_median_ms={res['step_median_ms']:.4f} (host clock between "
+        f"turns, {len(turn_ms)} turns without a refine or eval; min "
+        f"{res['step_min_ms']:.4f} max {res['step_max_ms']:.4f}) against "
+        f"the loop phase's {loop['step_median_ms']:.4f}; time to first step "
+        f"{res['first_step_s']:.3f} s; eval ms a view "
+        f"{[round(x, 3) for x in res['eval_ms_per_view']]} (the first "
+        f"decodes the PNGs); export {res['export_ms']:.3f} ms "
+        f"{res['export_mb']:.3f} MB (LOD {res['lod_export_ms']:.3f} ms, "
+        f"compressed {res['compressed_export_ms']:.3f} ms "
+        f"{res['compressed_mb']:.3f} MB); checkpoint save "
+        f"{res['ckpt_save_ms']:.3f} ms load {res['ckpt_load_ms']:.3f} ms "
+        f"{ckpt_bytes} bytes; LOD bake {res['lod_bake_s']:.3f} s; peak "
+        f"{peak_mb:.1f} MiB, {peak_mb - base_mb:.1f} over the {base_mb:.1f} "
+        f"earlier phases held at its start (of it {held_mb:.1f} MiB kernel "
+        f"inputs of step {PROCESS_CAPTURED_STEP}); resume "
+        f"{resume_secs:.3f} s; cli "
+        f"{cli_secs:.3f} s")
+    log(f"[process] losses {[round(x, 6) for x in losses]} resumed "
+        f"{[round(x, 6) for x in res['resumed_losses']]} psnr {psnr} ssim "
+        f"{ssim}; live {n}, LOD {lod.num_splats}; refines "
+        f"{json.dumps(res['refines'])}; overflows "
+        f"{json.dumps(res['overflows'])}; launches {json.dumps(launches)}")
+    res.update(launches=launches, captured=captured)
+    return res
+
+
+def _state_pairs(torch, a, b, path="state"):
+    """(path, tensor of a, tensor or None of b) for every tensor of a
+    TrainState `a`, by the same path in `b`."""
+    if torch.is_tensor(a):
+        yield path, a, b if torch.is_tensor(b) else None
+        return
+    if isinstance(a, dict):
+        items = a.items()
+        get = b.get
+    elif dataclasses.is_dataclass(a):
+        items = ((f.name, getattr(a, f.name)) for f in dataclasses.fields(a))
+        get = lambda k: getattr(b, k, None)        # noqa: E731
+    else:
+        return
+    for k, v in items:
+        yield from _state_pairs(torch, v, get(k), f"{path}.{k}")
+
+
 def plain_counted(launch, plain):
     """The plain version's result on a launch's inputs, from one run, with
     what `kernel_work` counts from that run: for the rasterizers the
@@ -1531,20 +1926,21 @@ def slot_reduce_ms(torch, inputs, slot_grads) -> float:
 
 
 def phase_kernels(torch, serve, train, direct, stress, grow, loop,
-                  init_lod):
+                  init_lod, proc):
     """Replay every launch of the first served frame, of the first training
     step, of the direct calls, of the stress run, of two growth steps (the
     overflowing first, and the first at the grown capacities), of two loop
     steps (the first, and the first after a refine), of one view of the
-    evaluation after the loop and of one view of the LOD scoring: kernel
+    evaluation after the loop, of one view of the LOD scoring and of one
+    step of `train_process` (the first after its first evaluation): kernel
     against plain version on the same inputs (each kernel module's own
     `compare` holds them), then the kernel's, the plain version's and the
     library call's times. A kernel is listed under the first of those paths
     that launched it; where a later one did too (scan, stack and emit in
     the training step; the scans and the stack in the stress run; every
     render and training kernel in the growth steps, and in the loop, the
-    evaluation and the LOD scoring over a capacity whose second half is
-    dead) it is held and timed at those shapes as well, as `<path>_ms`,
+    evaluation, the LOD scoring and the process over a capacity whose
+    second half is dead) it is held and timed at those shapes as well, as `<path>_ms`,
     the sum over that path's replayed launches. `launches_by_path` holds
     the counters of every path driven, each read after that path's own
     run."""
@@ -1656,7 +2052,9 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         "loop": (loop["launches"], by_name(loop["captured"]), loop["steps"]),
         "eval": (loop["eval_launches"], by_name(loop["eval_captured"]),
                  N_VIEWS),
-        "init-lod": (init_lod["launches"], by_name(init_lod["captured"]), 1)}
+        "init-lod": (init_lod["launches"], by_name(init_lod["captured"]), 1),
+        "process": (proc["launches"], by_name(proc["captured"]),
+                    PROCESS_STEPS)}
     counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
     for name in kernels.KERNEL_NAMES:
@@ -1850,8 +2248,9 @@ def main() -> int:
     grow = phase_grow(torch, serve, train)
     loop = phase_loop(torch, serve)
     init_lod = phase_init_lod(torch, loop)
+    proc = phase_process(torch, loop)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
-                                loop, init_lod)
+                                loop, init_lod, proc)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],
@@ -1894,6 +2293,8 @@ def main() -> int:
                       **{f"loop_{k}": v for k, v in profiled_loop.items()},
                       **{f"refine_{k}": v
                          for k, v in profiled_refine.items()}}))
+    print(json.dumps({"process_" + k: v for k, v in proc.items()
+                      if k not in ("launches", "captured")}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

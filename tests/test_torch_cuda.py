@@ -33,6 +33,10 @@ slot: one tile of 2,500 unsaturated slots among short tiles, one splat in
 every tile of a 1080p grid (every warp adds into the same gradient row),
 empty tiles and tiles nothing blends in, NaN and infinite conics, a single
 splat, and a capacity whose second half is dead.
+
+`train_process` runs on the card over a 32x32 COLMAP scene, with the
+kernels and with the plain rasterizer, each held to the same run on the
+CPU; a checkpoint restores a CUDA generator on the card.
 """
 
 import numpy as np
@@ -785,3 +789,174 @@ def test_rasterizer_kernels_match_plain_on_built_slots(case, cuda):
         assert got[10, 0] > 0
     else:
         assert not got[:, n // 2:].any() and got[10, :n // 2].any()
+
+
+# --------------------------------------------------------------------------
+# the dataset-to-PLY run on the card
+# --------------------------------------------------------------------------
+
+
+def _card_scene(root):
+    """A 32x32 COLMAP scene of 4 views (one held out) and an init.ply of
+    160 splats in front of them, written with chip_smoke's writer."""
+    from chip_smoke import write_colmap_scene
+    from brush_tpu_torch.camera import Pinhole, focal_to_fov
+    from brush_tpu_torch.io import ply
+    rng = np.random.default_rng(12)
+    cams = [Camera(position=np.array([-0.1 * i, 0.0, 4.0]),
+                   rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                   fov_x=focal_to_fov(50.0, 32, Pinhole()),
+                   fov_y=focal_to_fov(50.0, 32, Pinhole()))
+            for i in range(4)]
+    pngs = [rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+            for _ in cams]
+    write_colmap_scene(str(root), cams, 50.0, pngs)
+    n = 160
+    means = np.concatenate([rng.uniform(-1.2, 1.2, (n, 2)),
+                            rng.uniform(7.0, 10.0, (n, 1))], 1)
+    splats = from_raw(
+        means.astype(np.float32),
+        np.log(rng.uniform(0.05, 0.2, (n, 3))).astype(np.float32),
+        rng.normal(0, 1, (n, 4)).astype(np.float32),
+        rng.normal(0, 0.5, (n, 1, 3)).astype(np.float32),
+        rng.normal(0.5, 1.0, n).astype(np.float32), device="cpu")
+    (root / "init.ply").write_bytes(ply.splats_to_ply_bytes(splats))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_train_process_on_the_card_matches_the_cpu(tmp_path, monkeypatch,
+                                                   use_pallas, cuda):
+    """`train_process` on `cuda` (the kernels, or the plain rasterizer)
+    against the same run on the CPU (the plain versions), noise and refine
+    off, one loader thread: per-step losses within 1e-3 relative, eval
+    PSNR within 0.05 dB, exported parameters within 2 * lr * steps + 1e-5
+    (the rule the CPU run meets against the JAX package,
+    tests/test_torch_process.py)."""
+    import functools
+
+    from brush_tpu_torch import process
+    from brush_tpu_torch.data import dataloader
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.train.config import TrainConfig
+    _card_scene(tmp_path / "scene")
+    monkeypatch.setattr(process, "SceneLoader", functools.partial(
+        dataloader.SceneLoader, n_threads=1))
+    steps = 6
+    tcfg = TrainConfig(total_train_iters=steps, refine_every=1000,
+                       background_noise_strength=0.0, mean_noise_weight=0.0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pcfg = process.ProcessConfig(
+            eval_every=steps, export_every=0, log_every=1, init_count=0,
+            sh_degree=1, use_pallas=use_pallas,
+            export_path=str(tmp_path / f"{dev}_{{iter}}.ply"))
+        msgs = list(process.train_process(
+            str(tmp_path / "scene"), tcfg,
+            LoadConfig(max_resolution=32, eval_split_every=4), pcfg,
+            device=dev))
+        runs[dev] = (
+            [m.data["loss"] for m in msgs if m.kind == "step"],
+            [m.data["psnr"] for m in msgs if m.kind == "eval"],
+            ply.load_splat_ply(str(tmp_path / f"{dev}_{steps}.ply")))
+    (l_c, p_c, d_c), (l_g, p_g, d_g) = runs["cpu"], runs["cuda"]
+    assert len(l_g) == steps and np.isfinite(l_g).all()
+    np.testing.assert_allclose(l_g, l_c, rtol=1e-3)
+    assert abs(p_g[0] - p_c[0]) <= 0.05, (p_g, p_c)
+    t = TrainConfig()
+    for name, lr in (("means", t.lr_mean * 3.0), ("log_scales", t.lr_scale),
+                     ("rotations", t.lr_rotation),
+                     ("sh_coeffs", t.lr_coeffs_dc),
+                     ("raw_opacities", t.lr_opac)):
+        g, c = getattr(d_g, name), getattr(d_c, name)
+        assert np.abs(g - c).max() <= 2 * lr * steps + 1e-5, name
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_cuda_generator(tmp_path, cuda):
+    """The generator of a state on the card is saved and restored into a
+    generator on the card: the draws after a load are the draws the saved
+    generator makes next."""
+    from brush_tpu_torch.train import checkpoint
+    from brush_tpu_torch.train.trainer import init_train_state
+    splats = bench_splats(300, sh_degree=1, seed=3, device=cuda)
+    state = init_train_state(splats, 5)
+    assert state.rng.device.type == "cuda"
+    torch.rand(1000, generator=state.rng, device=cuda)
+    checkpoint.save_checkpoint(tmp_path / "ck", state, iteration=9)
+    restored = checkpoint.load_checkpoint(tmp_path / "ck",
+                                          init_train_state(splats, 0))
+    assert restored.rng.device.type == "cuda"
+    assert restored.splats.means.device.type == "cuda"
+    assert torch.equal(restored.rng.get_state(), state.rng.get_state())
+    assert torch.equal(torch.randn(64, generator=restored.rng, device=cuda),
+                       torch.randn(64, generator=state.rng, device=cuda))
+    for name, st in state.opt.items():
+        assert torch.equal(restored.opt[name].moment1, st.moment1), name
+    assert checkpoint.checkpoint_meta(tmp_path / "ck")["iteration"] == 9
+
+
+@pytest.mark.cuda
+def test_pinned_upload_keeps_each_array(cuda):
+    """`PinnedUpload` reuses its two staging buffers a shape: every upload
+    still arrives whole, behind queued work and while earlier ones are in
+    use."""
+    from brush_tpu_torch.process import PinnedUpload
+    up = PinnedUpload(cuda)
+    rng = np.random.default_rng(0)
+    arrays = [rng.integers(-2**31, 2**31 - 1, (1080, 1920), dtype=np.int32)
+              for _ in range(5)] + [rng.normal(size=23).astype(np.float32)]
+    got = []
+    for a in arrays:
+        torch.cuda._sleep(20_000_000)
+        got.append(up(a))
+    for a, g in zip(arrays, got):
+        assert g.device.type == "cuda" and g.dtype == torch.from_numpy(a).dtype
+        assert torch.equal(g.cpu(), torch.from_numpy(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_batched_step_on_the_card_matches_the_cpu(use_pallas, cuda):
+    """`train_step_impl(batched=True)` over two stacked views on the card
+    against the same step on the CPU (noise off): loss within 1e-4
+    relative, the binning counts equal, every parameter within 2 * lr of
+    the CPU's (an Adam step moves it by about lr at most)."""
+    from brush_tpu_torch.ops.loss import pack_gt
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import (
+        SceneBatch, init_train_state, stack_batches, train_step_impl)
+    img = (96, 64)
+    tcfg = TrainConfig(background_noise_strength=0.0, mean_noise_weight=0.0)
+    cams = [Camera(position=np.array([x, 0.0, -18.0]),
+                   rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                   fov_x=1.0, fov_y=0.7) for x in (0.0, 0.8)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        truth = bench_splats(1500, sh_degree=1, seed=5, device=dev)
+        splats = bench_splats(1500, sh_degree=1, seed=6, device=dev)
+        rcfg = RenderConfig(img_size=img, sh_degree=1, isect_cap=1 << 14,
+                            use_pallas=use_pallas)
+        views = []
+        for cam in cams:
+            ci = camera_inputs(cam, img, device=dev)
+            with torch.no_grad():
+                gt, _ = render(*truth.params().values(), ci,
+                               torch.zeros(3, device=dev), rcfg)
+            views.append(SceneBatch(gt_packed=pack_gt(gt[..., :3]), cam=ci))
+        state = init_train_state(splats, 0)
+        new, stats, aux = train_step_impl(state, stack_batches(views), tcfg,
+                                          rcfg, batched=True)
+        out[dev] = (new, float(stats.loss), int(aux.num_isects))
+    (s_c, l_c, n_c), (s_g, l_g, n_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) <= 1e-4 * abs(l_c) and n_g == n_c
+    lrs = dict(means=tcfg.lr_mean * float(s_c.median_scale),
+               log_scales=tcfg.lr_scale, quats=tcfg.lr_rotation,
+               sh_coeffs=tcfg.lr_coeffs_dc, raw_opacities=tcfg.lr_opac)
+    for name, lr in lrs.items():
+        g = getattr(s_g.splats, name).cpu()
+        c = getattr(s_c.splats, name)
+        assert torch.isfinite(g).all(), name
+        assert (g - c).abs().max() <= 2 * lr + 1e-6, name
+    assert float(s_g.refine.visible_count.max()) == 1.0

@@ -1,16 +1,22 @@
 """The PyTorch port must stand alone: importing every module of
-`brush_tpu_torch` (and `chip_smoke.py`) loads no JAX, no Flax and nothing of
-the JAX package `brush_tpu`, and builds or loads no CUDA kernel."""
+`brush_tpu_torch` (and `chip_smoke.py`) loads no JAX, no Flax, no orbax
+and nothing of the JAX package `brush_tpu`, and builds or loads no CUDA
+kernel. Every module also imports where Pillow is missing (it is imported
+only inside the functions that decode or write images)."""
 
 import json
 import pathlib
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
+if "--no-pil" in sys.argv:
+    sys.modules["PIL"] = None       # `import PIL` raises ImportError
 import brush_tpu_torch
 mods = ["brush_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(brush_tpu_torch.__path__,
@@ -20,24 +26,53 @@ for m in mods:
 import chip_smoke
 from brush_tpu_torch.kernels import build
 bad = sorted(m for m in sys.modules
-             if m.startswith(("jax", "flax")) or m == "brush_tpu"
+             if m.startswith(("jax", "flax", "orbax")) or m == "brush_tpu"
              or m.startswith("brush_tpu."))
 print(json.dumps({"modules": mods, "bad": bad,
+                  "pil": sys.modules.get("PIL") is not None,
                   "kernels_loaded": build._lib is not None}))
 """
 
+MODULES = (
+    "render", "ops.rasterize_cuda", "train.trainer", "ops.loss",
+    "ops.expand_cuda", "utils.quat", "train.refine", "train.splat_init",
+    "train.eval", "train.lod", "process",
+    # the dataset-to-PLY run
+    "data.vfs", "data.scene", "data.colmap", "data.formats",
+    "data.dataloader", "io.ply", "train.checkpoint", "ops.rasterize_torch",
+    "utils.telemetry", "utils.report", "cli")
 
-def test_port_imports_no_jax_and_no_reference_package():
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+
+def _probe(*args) -> dict:
+    out = subprocess.run([sys.executable, "-c", _PROBE, *args], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "brush_tpu_torch.render" in res["modules"]
-    assert "brush_tpu_torch.ops.rasterize_cuda" in res["modules"]
-    assert "brush_tpu_torch.train.trainer" in res["modules"]
-    assert "brush_tpu_torch.ops.loss" in res["modules"]
-    for name in ("ops.expand_cuda", "utils.quat", "train.refine",
-                 "train.splat_init", "train.eval", "train.lod", "process"):
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    res = _probe()
+    for name in MODULES:
         assert f"brush_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == [], f"port pulled in {res['bad']}"
     assert res["kernels_loaded"] is False
+
+
+def test_port_imports_without_pillow():
+    res = _probe("--no-pil")
+    assert res["pil"] is False
+    for name in MODULES:
+        assert f"brush_tpu_torch.{name}" in res["modules"], name
+    assert res["bad"] == [] and res["kernels_loaded"] is False
+
+
+def test_image_decoding_names_pillow_when_it_is_missing(tmp_path,
+                                                        monkeypatch):
+    """Without Pillow, decoding an image raises ImportError (nothing falls
+    back silently)."""
+    from brush_tpu_torch.data.scene import load_image
+    from brush_tpu_torch.data.vfs import Vfs
+    (tmp_path / "a.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError):
+        load_image(Vfs(tmp_path), "a.png", 64)

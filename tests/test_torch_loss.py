@@ -17,6 +17,9 @@ the same numpy inputs.
     within 1e-3 of that step. With the JAX package's noise samples fed in,
     the noisy step matches too. The overflow no-op is bit-exact, and 12
     steps of the port reduce the loss.
+  * `train_step_impl(batched=True)` over two stacked views, and the
+    `use_pallas=False` step, against the JAX package's under the same
+    rules; LPIPS and `forward_only` are still refused.
 """
 
 import dataclasses
@@ -483,7 +486,7 @@ def test_train_step_reduces_loss():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    splats, _, tbatch = _setup()
+    splats, jbatch, tbatch = _setup()
     ttcfg = convert.train_config_from(JTrainConfig())
     state = ttrainer.init_train_state(
         convert.splats_from_arrays(splats, device=CPU), 0)
@@ -493,13 +496,86 @@ def test_train_step_refuses_what_is_not_ported():
     np.testing.assert_array_equal(state.bounds_center.numpy(),
                                   np.asarray(jstate.bounds_center))
     cfg = trender.RenderConfig(img_size=IMG, sh_degree=0, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ttrainer.train_step_impl(state, tbatch, ttcfg, cfg, batched=True)
     with pytest.raises(NotImplementedError, match="LPIPS"):
         ttrainer.train_step(state, tbatch, ttcfg, cfg, lpips_model=object())
     with pytest.raises(ValueError, match="forward_only=False"):
         ttrainer.train_step(state, tbatch, ttcfg,
                             dataclasses.replace(cfg, forward_only=True))
-    with pytest.raises(NotImplementedError, match="use_pallas=True"):
-        ttrainer.train_step(state, tbatch, ttcfg,
-                            dataclasses.replace(cfg, use_pallas=False))
+    # `batched=True` (here one stacked view) and `use_pallas=False` were
+    # refused too; they now run, each held to the JAX package's step with
+    # the noise off, under the rule of test_train_step_matches_jax_with_
+    # noise_off.
+    jtcfg = JTrainConfig(total_train_iters=100, background_noise_strength=0.0,
+                         mean_noise_weight=0.0,
+                         background_color=(0.1, 0.2, 0.3))
+    jstate, tstate = _both_states(splats, 0)
+    js2, jstats, _ = jax.jit(
+        lambda s, b: jtrainer.train_step(s, b, jtcfg, JRCFG))(jstate, jbatch)
+    lrs = dict(means=float(jstats.lr_mean), quats=jtcfg.lr_rotation,
+               log_scales=jtcfg.lr_scale, sh_coeffs=jtcfg.lr_coeffs_dc,
+               raw_opacities=jtcfg.lr_opac)
+    for batched, rcfg in ((True, convert.render_config_from(
+            JRCFG, use_pallas=True)), (False, convert.render_config_from(
+                JRCFG))):
+        assert rcfg.use_pallas is batched
+        batch = ttrainer.stack_batches([tbatch]) if batched else tbatch
+        ts2, tstats, _ = ttrainer.train_step_impl(
+            tstate, batch, convert.train_config_from(jtcfg), rcfg,
+            batched=batched)
+        assert abs(float(tstats.loss) - float(jstats.loss)) <= LOSS_RTOL * abs(
+            float(jstats.loss))
+        _assert_step_matches(js2, ts2, jstate, lrs)
+
+
+CAM2 = dict(position=np.array([0.4, -0.2, -3.8]),
+            rotation=np.array([0.9950042, 0.0, 0.0998334, 0.0]),
+            fov_x=0.9, fov_y=0.9)
+
+
+def test_train_step_batched_matches_jax():
+    """`train_step_impl(batched=True)` over two views (the loss the mean of
+    the two, the refine statistics those of one view a step) against the
+    JAX package's, noise off: loss within LOSS_RTOL, parameters, moments
+    and the refine record under `_assert_step_matches`."""
+    splats, jbatch0, tbatch0 = _setup()
+    y, x = np.mgrid[0:IMG[1], 0:IMG[0]]
+    gt = np.stack([0.5 + 0.3 * np.sin(x / 7.0), y / 64, x / 64], -1).astype(
+        np.float32)
+    packed = jloss.pack_gt(gt)
+    jbatch1 = jtrainer.SceneBatch(
+        gt_packed=jnp.asarray(packed),
+        cam=jrender.camera_inputs(JCamera(**CAM2), IMG))
+    tbatch1 = ttrainer.SceneBatch(
+        gt_packed=tloss.gt_tensor(packed, device=CPU),
+        cam=trender.camera_inputs(TCamera(**CAM2), IMG, device=CPU))
+    from brush_tpu.parallel.data_parallel import stack_batches as j_stack
+    jtcfg = JTrainConfig(total_train_iters=100, background_noise_strength=0.0,
+                         mean_noise_weight=0.0,
+                         background_color=(0.1, 0.2, 0.3))
+    jstate, tstate = _both_states(splats, 0)
+    js2, jstats, jaux = jax.jit(lambda s, b: jtrainer.train_step_impl(
+        s, b, jtcfg, JRCFG, batched=True))(jstate, j_stack([jbatch0,
+                                                           jbatch1]))
+    tbatch = ttrainer.stack_batches([tbatch0, tbatch1])
+    assert tbatch.gt_packed.shape == (2,) + IMG[::-1]
+    assert tbatch.cam.viewmat.shape == (2, 3, 4)
+    ts2, tstats, taux = ttrainer.train_step_impl(
+        tstate, tbatch, convert.train_config_from(jtcfg),
+        convert.render_config_from(JRCFG, use_pallas=True), batched=True)
+    assert abs(float(tstats.loss) - float(jstats.loss)) <= LOSS_RTOL * abs(
+        float(jstats.loss))
+    for name in ("num_visible", "num_isects", "max_isects_per_tile"):
+        assert int(getattr(taux, name)) == int(getattr(jaux, name)), name
+    lrs = dict(means=float(jstats.lr_mean), quats=jtcfg.lr_rotation,
+               log_scales=jtcfg.lr_scale, sh_coeffs=jtcfg.lr_coeffs_dc,
+               raw_opacities=jtcfg.lr_opac)
+    _assert_step_matches(js2, ts2, jstate, lrs)
+    # Visibility is a 0/1 mask over both views.
+    assert float(ts2.refine.visible_count.max()) == 1.0
+    # Not the first view's step alone.
+    ts1, _, _ = ttrainer.train_step(tstate, tbatch0,
+                                    convert.train_config_from(jtcfg),
+                                    convert.render_config_from(
+                                        JRCFG, use_pallas=True))
+    assert not torch.allclose(ts1.splats.raw_opacities,
+                              ts2.splats.raw_opacities)

@@ -245,15 +245,29 @@ def test_render_matches_gsplat_golden():
                                  dict()])
 def test_render_refuses_the_training_configurations(cfg):
     """The configurations of the JAX package's jnp rasterizer
-    (`use_pallas=False`) are not ported: the render goes through the CUDA
-    kernels' path or raises. (`use_pallas=True` alone, the training
-    configuration, renders: tests/test_torch_train.py.)"""
-    params, cam, img, deg, bg, _ = _basic_case()
+    (`use_pallas=False`), which the port once refused, now render through
+    its plain twin and match the JAX `render` of the same configuration:
+    the image under the rule of this file (p99.9 <= 1e-4, max <= 2/255),
+    the RenderAux counts and the exact visibility equal. (`forward_only`
+    does not apply to that rasterizer, in either package.)"""
+    params, cam, img, _, _, _ = _basic_case()
+    bg = np.array([0.1, 0.25, 0.4], np.float32)
     ci = trender.camera_inputs(TCamera(**cam), img, device=CPU)
-    with pytest.raises(NotImplementedError, match="use_pallas=True"):
-        trender.render(*(torch.from_numpy(p) for p in params), ci,
-                       torch.from_numpy(bg),
-                       trender.RenderConfig(img_size=img, **cfg))
+    got, aux_t = trender.render(*(torch.from_numpy(p) for p in params), ci,
+                                torch.from_numpy(bg),
+                                trender.RenderConfig(img_size=img, **cfg))
+    jcfg = jrender.RenderConfig(img_size=img, **cfg)
+    jci = jrender.camera_inputs(JCamera(**cam), img)
+    want, aux_j = jax.jit(lambda *p: jrender.render(
+        *p, jci, jnp.asarray(bg), jcfg))(*params)
+    diff = np.abs(got.detach().numpy() - np.asarray(want))
+    assert np.quantile(diff, 0.999) <= 1e-4, np.quantile(diff, 0.999)
+    assert diff.max() <= 2.0 / 255.0, diff.max()
+    for name in ("num_visible", "num_isects", "max_isects_per_tile"):
+        assert int(getattr(aux_t, name)) == int(getattr(aux_j, name)), name
+    np.testing.assert_array_equal(aux_t.visible.numpy(),
+                                  np.asarray(aux_j.visible))
+    assert aux_t.visible.sum() > 0
 
 
 # --------------------------------------------------------------------------
