@@ -6,17 +6,20 @@ package, with `_pallas` replaced by `_cuda` in kernel modules. Plain tensor
 code is PyTorch; every TPU kernel on the ported path is a CUDA C++ kernel
 under `csrc/`, built with nvcc at its first launch (`kernels/build.py`).
 
-Ported so far: the forward-only render (the viewer / serving path), the
-training step (differentiable render, fused L1 + SSIM loss, AdamScaled,
-the overflow no-op gate; single-view or `batched=True` on one device),
-refine, splat init, eval and the LOD bake, and the run from a dataset to a
-PLY: the dataset readers (COLMAP, Nerfstudio, RealityCapture), PLY I/O,
-full-state checkpoints, `process.train_process` and the CLI
-(`python -m brush_tpu_torch.cli <dataset>`). `RenderConfig(use_pallas=
+Ported so far: the forward-only render (the serving path), the
+training step (differentiable render, fused L1 + SSIM loss, the optional
+LPIPS term, AdamScaled, the overflow no-op gate; single-view or
+`batched=True` on one device), refine, splat init, eval and the LOD bake,
+the run from a dataset to a PLY: the dataset readers (COLMAP, Nerfstudio,
+RealityCapture), PLY I/O, full-state checkpoints, `process.train_process`
+and the CLI (`python -m brush_tpu_torch.cli <dataset>`); the web viewer
+(`viewer/`, `--view`, a live view of training), and the C ABI with its
+native COLMAP parser (`native/`, built with g++ by
+`python -m brush_tpu_torch.native.build`). `RenderConfig(use_pallas=
 False)` renders through the plain twin of the JAX package's jnp rasterizer
-(ops/rasterize_torch.py). Still to port: the viewer, the C ABI, LPIPS and
-multi-device training (each raises NotImplementedError where reached).
-Importing the package builds and loads nothing CUDA-specific.
+(ops/rasterize_torch.py). Still to port: multi-device training.
+Importing the package builds and loads nothing: no kernel, no native
+library.
 """
 
 __version__ = "0.1.0"

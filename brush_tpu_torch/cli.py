@@ -8,8 +8,11 @@ the same flag surface as the reference's clap config groups
 (SURVEY.md §5.6), plus an `args.txt` merge layer: a file named args.txt in
 the dataset directory is parsed as CLI args and merged *under* real CLI
 flags (brush-process/src/args_file.rs:14-49,114-138). The flags are the JAX
-package's, plus `--device`; `--view` (the web viewer) belongs to the
-viewer part of the port and raises NotImplementedError."""
+package's, plus `--device`.
+
+    python -m brush_tpu_torch.cli scene.ply --view   # serve a ply (or a zip
+                                                     # of plys) on :8080
+    python -m brush_tpu_torch.cli <dataset> --view   # train, viewed live"""
 
 from __future__ import annotations
 
@@ -96,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     v = p.add_argument_group("Viewer options")
     v.add_argument("--view", action="store_true",
-                   help="the web viewer (not ported yet)")
+                   help="serve the web viewer: of a ply / zip of plys, or "
+                        "live while training on a dataset")
     v.add_argument("--port", type=int, default=8080)
     return p
 
@@ -179,14 +183,49 @@ def configs_from_args(a) -> tuple[TrainConfig, LoadConfig, ProcessConfig]:
     return tcfg, lcfg, pcfg
 
 
+def _is_view_only_source(source: str) -> bool:
+    """Ply / zip-or-dir of plys with no dataset views = view, not train
+    (brush-process/src/lib.rs:144 detects this the same way)."""
+    if source.lower().endswith(".ply"):
+        return True
+    try:
+        from brush_tpu_torch.data.vfs import Vfs
+        vfs = Vfs(source)
+        names = vfs.names()
+        return (any(n.lower().endswith(".ply") for n in names)
+                and not any(
+                    n.lower().endswith((".json", ".bin", ".txt", ".csv"))
+                    for n in names))
+    except Exception:
+        return False
+
+
 def main(argv=None):
     argv = merge_args_file(argv if argv is not None else sys.argv[1:])
     a = build_parser().parse_args(argv)
 
     if a.view:
-        raise NotImplementedError(
-            "--view, the web viewer, belongs to the viewer part of the port "
-            "(ROADMAP.md queue 1, item 9)")
+        from brush_tpu_torch.viewer.service import serve
+        if _is_view_only_source(a.source):
+            serve(a.source, port=a.port, sh_degree=a.sh_degree,
+                  use_pallas=not a.no_pallas, device=a.device)
+            return 0
+        # Train with a live viewer: snapshots + /events stream while the
+        # training loop runs in this thread (the reference's GUI mode).
+        from brush_tpu_torch.viewer.slot import MessageBus, Slot
+        slot, bus = Slot(), MessageBus()
+        serve(slot=slot, port=a.port, sh_degree=a.sh_degree,
+              use_pallas=not a.no_pallas, blocking=False, bus=bus,
+              device=a.device)
+        print(f"viewer on http://0.0.0.0:{a.port} (training live)")
+        tcfg, lcfg, pcfg = configs_from_args(a)
+        for msg in train_process(
+                a.source, tcfg, lcfg, pcfg, slot=slot,
+                on_message=lambda m: bus.publish(
+                    {"kind": m.kind, "iter": m.iter, **m.data}),
+                device=a.device):
+            pass
+        return 0
 
     if a.source.lower().endswith(".ply"):
         from brush_tpu_torch.io.ply import load_splat_ply

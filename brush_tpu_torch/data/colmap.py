@@ -1,6 +1,9 @@
 """COLMAP reconstruction reader: cameras/images/points3D in .bin and .txt
-(port of `brush_tpu/data/colmap.py`: the Python readers only; the JAX
-package's optional C++ parser is not part of the port).
+(port of `brush_tpu/data/colmap.py`). `read_images_bin` and
+`read_points3d_bin` use the port's C++ parser (native/colmapio.cpp) once
+it is built (`python -m brush_tpu_torch.native.build`), as the JAX package
+uses its own, and the Python readers otherwise; the two give the same
+records.
 
 Pure-Python/numpy counterpart of crates/colmap-reader (binary/text parsers,
 lib.rs:602-833) + the dataset-side mapping of all 11 COLMAP camera models
@@ -84,7 +87,24 @@ def read_cameras_bin(f: BinaryIO) -> dict[int, ColmapCamera]:
     return out
 
 
+def _native():
+    """The C++ parser (native/colmapio.cpp) when built; else None."""
+    from brush_tpu_torch.native import build
+    return build.load_colmapio()
+
+
 def read_images_bin(f: BinaryIO) -> dict[int, ColmapImage]:
+    nat = _native()
+    if nat is not None:
+        out = {}
+        for img_id, q, t, cam_id, name in nat.parse_images(f.read()):
+            out[img_id] = ColmapImage(img_id, np.array(q), np.array(t),
+                                      cam_id, name)
+        return out
+    return _read_images_bin_py(f)
+
+
+def _read_images_bin_py(f: BinaryIO) -> dict[int, ColmapImage]:
     (num,) = _read("<Q", f)
     out = {}
     for _ in range(num):
@@ -105,6 +125,16 @@ def read_images_bin(f: BinaryIO) -> dict[int, ColmapImage]:
 
 
 def read_points3d_bin(f: BinaryIO) -> ColmapPoints:
+    nat = _native()
+    if nat is not None:
+        n, xyz_b, rgb_b = nat.parse_points3d(f.read())
+        xyz = np.frombuffer(xyz_b, np.float64).reshape(n, 3)
+        rgb = np.frombuffer(rgb_b, np.uint8).reshape(n, 3)
+        return ColmapPoints(xyz=xyz.copy(), rgb=rgb.copy())
+    return _read_points3d_bin_py(f)
+
+
+def _read_points3d_bin_py(f: BinaryIO) -> ColmapPoints:
     (num,) = _read("<Q", f)
     xyz = np.empty((num, 3), np.float64)
     rgb = np.empty((num, 3), np.uint8)

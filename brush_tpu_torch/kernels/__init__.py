@@ -6,6 +6,9 @@ can show which kernels the main path went through. While a `capture()`
 block is open, every launch also records a `Launch`: the wrapper's inputs
 and its module's own replay and compare functions, so the kernels can be
 held against their plain versions at the shapes the main path gave them.
+Both record the launches of every thread (autograd runs a CUDA backward
+on a thread of its own; the web viewer renders on its server's threads),
+so a capture must not overlap a viewer render it does not mean to record.
 
 Importing this package builds and loads nothing: `build.library()` does
 that at the first launch (see build.py).
@@ -14,6 +17,7 @@ that at the first launch (see build.py).
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, NamedTuple
 
 # `scan` is the int32 sum of the binning; `scan_f32` and `scan_max` are the
@@ -33,6 +37,7 @@ TRAIN_PATH = ("scan", "stack", "emit", "rasterize_fwd_train",
 STRESS_PATH = ("scan", "scan_f32", "stack", "expand", "fill")
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+_count_lock = threading.Lock()
 _captured: list | None = None
 
 
@@ -61,9 +66,10 @@ def note_launch(name: str, replay: Callable, compare: Callable,
                 *inputs) -> None:
     """Count one launch of kernel `name` (and record it while a capture is
     open)."""
-    LAUNCHES[name] += 1
-    if _captured is not None:
-        _captured.append(Launch(name, inputs, replay, compare))
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if _captured is not None:
+            _captured.append(Launch(name, inputs, replay, compare))
 
 
 @contextlib.contextmanager

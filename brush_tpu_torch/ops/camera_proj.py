@@ -7,12 +7,18 @@ Jacobian is forward-mode autodiff of the projection function,
 point `(clamp(x/z)*z, clamp(y/z)*z, z)` — the same rule the JAX package
 uses, which reproduces the reference's hand-derived clamped Jacobians.
 `torch.func.jacfwd` returns these Jacobians in float64 for float32 points,
-so the result is cast back to the input's dtype.
+so the result is cast back to the input's dtype. PyTorch keeps forward-mode
+AD levels process-wide, so two threads in `jacfwd` at once break each
+other's levels ("Trying to access a forward AD level with an invalid
+index"): the web viewer renders on its server's threads while a training
+run projects on its own, and `_JACFWD_LOCK` lets one thread in at a time.
 
 The model *type* is a Python value; its coefficients are Python floats.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -103,6 +109,9 @@ def project(mean_c: torch.Tensor, pinhole: torch.Tensor,
     raise TypeError(f"unknown camera model {model!r}")
 
 
+_JACFWD_LOCK = threading.Lock()
+
+
 def projection_jacobian(
     mean_c: torch.Tensor,
     pinhole: torch.Tensor,
@@ -123,5 +132,7 @@ def projection_jacobian(
     def proj_one(pt):
         return project(pt, pinhole, model)
 
-    jac = torch.func.vmap(torch.func.jacfwd(proj_one))(clamped.reshape(-1, 3))
+    with _JACFWD_LOCK:
+        jac = torch.func.vmap(torch.func.jacfwd(proj_one))(
+            clamped.reshape(-1, 3))
     return jac.to(mean_c.dtype).reshape(mean_c.shape[:-1] + (2, 3))

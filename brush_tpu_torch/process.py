@@ -20,8 +20,11 @@ host's policy between steps:
 * every `refine_every` steps, until 95 % of the run: the splat capacity
   doubles ahead of demand once it is 80 % full, then `refine_step`.
 
-The live viewer (`slot=`) belongs to the viewer part of the port and
-raises NotImplementedError.
+With a live viewer (`slot=`), the dataset's views and a lazy decode of
+their ground truth are attached to the slot, and the splats are published
+to it at every log step: the trainer's own tensors, which no later step or
+refine writes into. `tcfg.lpips_loss_weight > 0` with
+`pcfg.lpips_weights` adds the LPIPS term (models/lpips.py) to every step.
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ class ProcessConfig:
     ckpt_every: int = 0                  # full-state checkpoint cadence
     ckpt_dir: str = "./ckpt"
     resume_from: str | None = None       # checkpoint dir to resume from
-    lpips_weights: str | None = None     # VGG-LPIPS weights (not ported)
+    lpips_weights: str | None = None     # VGG-LPIPS weights (.npz)
     eval_save_to_disk: str | None = None  # dir for per-view eval PNGs
     views_per_batch: int = 1             # >1: batched multi-view steps
     init_isect_cap: int = 1 << 21        # starting capacities; grown on
@@ -133,13 +136,15 @@ def _grow_state(state: TrainState, new_cap: int) -> TrainState:
 
 
 def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
-               has_alpha: bool, alpha_is_mask: bool, batched: bool = False):
+               has_alpha: bool, alpha_is_mask: bool, batched: bool = False,
+               lpips_model=None):
     """The training step of a turn and the overflow check of the step
     before it: (LoopState, stats, ["overflow"] or [])."""
     rcfg = loop.rcfg
     state, stats, aux = train_step_impl(
         loop.state, batch, tcfg, rcfg, has_alpha=has_alpha,
-        alpha_is_mask=alpha_is_mask, batched=batched)
+        alpha_is_mask=alpha_is_mask, batched=batched,
+        lpips_model=lpips_model)
     it = loop.it + 1
     messages = []
 
@@ -241,6 +246,34 @@ def _export_splats(path: str, splats: Splats) -> None:
         Path(path).write_bytes(ply_io.splats_to_ply_bytes(folded))
 
 
+def _attach_scene_to_slot(slot, ds: Dataset) -> None:
+    """Expose dataset view poses + lazy GT decode to a live viewer
+    (nearest-view snapping / training-view compare, SURVEY Appendix F)."""
+    views = []
+    all_views = []
+    for split, scene in (("train", ds.train), ("eval", ds.eval)):
+        if scene is None:
+            continue
+        for v in scene.views:
+            views.append(dict(
+                name=v.image_path.rsplit("/", 1)[-1], split=split,
+                position=[float(x) for x in v.camera.position],
+                rotation=[float(x) for x in v.camera.rotation],
+                fov_x=float(v.camera.fov_x), fov_y=float(v.camera.fov_y)))
+            all_views.append((scene.vfs, v))
+
+    def gt_fn(i: int, max_dim: int = 640):
+        from brush_tpu_torch.data.scene import load_image
+        vfs, v = all_views[i]
+        arr, _ = load_image(vfs, v.image_path, min(max_dim, 4096),
+                            mask_path=v.mask_path)
+        return (np.clip(np.asarray(arr[..., :3], np.float32), 0, 1)
+                * 255).astype(np.uint8)
+
+    slot.scene_views = views
+    slot.gt_fn = gt_fn
+
+
 def init_splats_for_dataset(ds: Dataset, tcfg: TrainConfig,
                             pcfg: ProcessConfig, device="cuda") -> Splats:
     """ply init > point-cloud init > random init (train_stream.rs:102-143)."""
@@ -333,19 +366,11 @@ def train_process(
     device="cuda",
 ) -> Iterator[TrainMessage]:
     """Full training run as a message stream (train_stream.rs:34-503), on
-    `device`."""
-    if slot is not None:
-        raise NotImplementedError(
-            "train_process(slot=...), the live viewer, belongs to the viewer "
-            "part of the port (ROADMAP.md queue 1, item 9)")
+    `device`. `slot` (viewer.slot.Slot) receives live splat snapshots."""
     dev = resolve_device(device)
     tcfg = tcfg or TrainConfig()
     lcfg = lcfg or LoadConfig()
     pcfg = pcfg or ProcessConfig()
-    if tcfg.lpips_loss_weight > 0.0 and pcfg.lpips_weights:
-        raise NotImplementedError(
-            "the LPIPS term belongs to the LPIPS part of the port "
-            "(ROADMAP.md queue 1, item 11)")
     telem = None
     if telemetry_dir:
         from brush_tpu_torch.utils.telemetry import TelemetryLogger
@@ -361,6 +386,8 @@ def train_process(
     ds = load_dataset(source, lcfg)
     if telem:
         telem.log_scene(ds)
+    if slot is not None:
+        _attach_scene_to_slot(slot, ds)
     splats = init_splats_for_dataset(ds, tcfg, pcfg, device=dev)
     state = init_train_state(splats, pcfg.seed)
 
@@ -392,6 +419,10 @@ def train_process(
     upload = PinnedUpload(dev)
     centers, focals = view_camera_arrays(ds, lcfg.max_resolution, device=dev)
     eval_cache: dict = {}  # packed eval views, decoded once per run
+    lpips_model = None
+    if tcfg.lpips_loss_weight > 0.0 and pcfg.lpips_weights:
+        from brush_tpu_torch.models.lpips import load_lpips
+        lpips_model = load_lpips(pcfg.lpips_weights, device=dev)
     batched = pcfg.views_per_batch > 1
     alpha_is_mask = lcfg.alpha_mode == AlphaMode.MASKED
 
@@ -441,7 +472,7 @@ def train_process(
                 loop.rcfg, img_size=view.img_size))
             loop, stats, overflows = _step_turn(
                 loop, batch, tcfg, view.has_alpha, alpha_is_mask,
-                batched=batched)
+                batched=batched, lpips_model=lpips_model)
             it, state = loop.it, loop.state
             for msg in overflows:
                 yield emit(msg)
@@ -464,6 +495,8 @@ def train_process(
                     telem.log_scalars(it, **{
                         k: v for k, v in msg.data.items()
                         if isinstance(v, (int, float))})
+                if slot is not None:
+                    slot.set(0, state.splats)
                 yield emit(msg)
 
             loop, refined = _refine_turn(loop, tcfg, centers, focals)

@@ -23,9 +23,10 @@ untouched), as in the JAX package.
 `batched=True` takes views with a leading axis (`stack_batches`): the loss
 is the mean over the views, rendered one after another on one device, and
 the refine statistics are those of one view a step (the holder gradients
-times B, the render statistics max-combined). The multi-device mesh and
-the `lpips_model` term belong to later parts of the port and raise
-NotImplementedError.
+times B, the render statistics max-combined). With an `lpips_model`
+(models/lpips.py) and `tcfg.lpips_loss_weight > 0`, each view's loss gains
+`lpips_loss_weight * LPIPS(render, ground truth)` (train.rs:246-253). The
+multi-device mesh belongs to a later part of the port.
 """
 
 from __future__ import annotations
@@ -36,7 +37,11 @@ from typing import NamedTuple
 import torch
 
 from brush_tpu_torch.models.splats import Splats
-from brush_tpu_torch.ops.loss import ImageLossConfig, image_loss
+from brush_tpu_torch.ops.loss import (
+    ImageLossConfig,
+    image_loss,
+    unpack_gt_rgb,
+)
 from brush_tpu_torch.ops.projection import CameraInputs
 from brush_tpu_torch.ops.sh import num_sh_coeffs
 from brush_tpu_torch.render import RenderAux, RenderConfig, render_with_refine
@@ -239,9 +244,6 @@ def train_step_impl(
 ) -> tuple[TrainState, TrainStepStats, RenderAux]:
     """One training step. With `batched=True` the batch carries a leading
     view axis [B] (`stack_batches`) and the loss is the mean over views."""
-    if lpips_model is not None:
-        raise NotImplementedError(
-            "the LPIPS term belongs to the LPIPS part of the port")
     if rcfg.forward_only:
         raise ValueError("train_step needs a differentiable render: "
                          "RenderConfig(forward_only=False)")
@@ -287,6 +289,13 @@ def train_step_impl(
             loss = image_loss(pred, view.gt_packed, lcfg,
                               tcfg.match_alpha_weight,
                               bg_dyn=bg if composite else None)
+        if lpips_model is not None and tcfg.lpips_loss_weight > 0.0:
+            # Optional perceptual term (train.rs:246-253; weight 0 default).
+            with stage("lpips"):
+                gt_rgb = unpack_gt_rgb(view.gt_packed,
+                                       bg if composite else None)
+                loss = loss + tcfg.lpips_loss_weight * lpips_model(
+                    img[None, ..., :3], gt_rgb[None])
         return loss, aux
 
     if batched:

@@ -97,11 +97,41 @@ Phases, each of which must pass (any failure exits non-zero):
              checkpoint and LOD times, peak memory and the ground-truth
              upload's host time (pageable against pinned). Step 13's
              launches are kept for the kernel phase.
-13. kernels — each kernel against its plain PyTorch version, on the card,
+13. live   — on the process phase's dataset, `train_process(slot=...,
+             on_message=...)` for 6 steps while `serve(slot=..., bus=...)`
+             runs: /render fetched from another thread while training
+             runs, a `step` message read from /events, /views listing the
+             8 views, /gt?view=0 decoding. Counters zeroed before, read
+             after: the training kernels and the diet forward launched.
+14. ffi    — libbrush_tpu_torch_ffi.so built with g++ (Python.h must be
+             where sysconfig says), loaded with ctypes; `brush_train_and_save`
+             with {"device": "cuda"} for 2 steps of the process dataset at
+             960 px: `step` and `export` messages and the export written;
+             a second call cancelled from its first callback returns after
+             one message. Prints the run's wall time.
+15. viewer — the served scene written to a PLY and `serve(path)` on the
+             card: /info, then /render at 1920x1080 for the orbit pose, a
+             pose from q= and fovy=, and one with scale= and bg=: each JPEG
+             1920x1080, each `render_pose` frame equal bit for bit to a
+             direct `render` with the viewer's RenderConfig and its JPEG the
+             /render answer; /splats of 16 + 59 x 4 x 10^6 bytes; /brush.js.
+             Prints the request's and `render_pose`'s median ms and each
+             pose's `num_isects` against the viewer's fixed `isect_cap` of
+             2^20 (slots past it are dropped, as in the JAX viewer). One
+             /render's launches are kept for the kernel phase.
+16. lpips  — `random_lpips(0)` of two 256x256 images on the card within
+             `LPIPS_RTOL` of the CPU, where TF32 convolutions must miss that
+             bar; the weights written to an .npz and read with
+             `load_lpips(ProcessConfig.lpips_weights)`; 1 + 3 `train_step`s
+             of the train cell with `lpips_loss_weight=0.5`: finite losses
+             and parameters, step 1's loss above the train phase's (same
+             state, view and generator), step ms, peak MiB and a traced
+             step's stages. The first step's launches are kept.
+17. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
              calls, the stress run, two growth steps, two loop steps, an
-             evaluation view, a LOD scoring view and a process step gave it
-             (scan, stack, emit, expand
+             evaluation view, a LOD scoring view, a process step, a viewer
+             frame and an LPIPS step gave it (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
@@ -121,7 +151,7 @@ Phases, each of which must pass (any failure exits non-zero):
              per-slot reduce the backward used to need after it (an
              [11, S] zero-fill and `index_add_` of the plain per-slot
              gradients), timed at the same shapes beside the fused kernel.
-14. profile — frames, training steps, loop steps and refines (of the
+18. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
              time, its idle share and the top device ops.
@@ -180,6 +210,20 @@ GROW_CAPTURED_STEPS = (1, GROW_REFINE_EVERY + 1)
 PROCESS_VIEWS = 8
 PROCESS_STEPS = 24
 PROCESS_CAPTURED_STEP = 13
+# The live view: `train_process` steps over the process dataset while the
+# viewer serves; the C ABI's run; the LPIPS term's timed steps after its
+# captured first.
+LIVE_STEPS = 6
+FFI_STEPS = 2
+LPIPS_STEPS = 3
+# LPIPS of two 256x256 images on the card against the CPU: the value,
+# relative (about 9 float32 ulps of it), and each of the five VGG taps, max
+# |d| over the tap's largest entry (the JAX package computes them at
+# Precision.HIGHEST). On an H100 (80GB HBM3, 700 W) the float32 value read
+# 0 and the taps up to 4.7e-6 from the CPU's; with TF32 the value 4.7e-6 and
+# the taps up to 1.3e-3, so TF32 misses both bars.
+LPIPS_RTOL = 1e-6
+LPIPS_TAP_RTOL = 1e-4
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores.
@@ -1520,12 +1564,17 @@ def timed(torch, sink: list):
 
 def phase_process(torch, loop):
     """`train_process` from a COLMAP dataset the phase writes, at full
-    width: eval, checkpoint, export, the LOD bake, resume and the CLI."""
+    width: eval, checkpoint, export, the LOD bake, resume and the CLI; then
+    on the same dataset the live view and the C ABI. Returns the three
+    phases' results."""
     import shutil
     import tempfile
     work = tempfile.mkdtemp(prefix="brush_process_")
     try:
-        return _process_run(torch, loop, work)
+        proc = _process_run(torch, loop, work)
+        data = os.path.join(work, "scene")
+        return proc, _live_view_run(torch, data, work), _ffi_run(
+            torch, data, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1807,6 +1856,487 @@ def _process_run(torch, loop, work):
     return res
 
 
+def _http(port: int, path: str, timeout: float = 600) -> bytes:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        return r.read()
+
+
+def _jpeg(data: bytes) -> np.ndarray:
+    """A JPEG's pixels, [H, W, 3] uint8."""
+    import io
+
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _jpeg_bytes(frame: np.ndarray) -> bytes:
+    """`frame` encoded as the viewer encodes a /render answer."""
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, "JPEG", quality=88)
+    return buf.getvalue()
+
+
+def phase_viewer(torch):
+    """The web viewer as a user starts it: the served scene written to a
+    PLY and `serve(path)` on the card, then HTTP requests."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="brush_viewer_")
+    try:
+        return _viewer_run(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _viewer_run(torch, work):
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.render import camera_inputs, render
+    from brush_tpu_torch.utils.synthetic import bench_splats
+    from brush_tpu_torch.viewer.service import Slot, frame_u8, serve
+
+    path = os.path.join(work, "scene.ply")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(ply.splats_to_ply_bytes(
+            bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED)))
+    write_s = time.perf_counter() - t0
+    w, h = IMG_SIZE
+    slot = Slot()
+    t0 = time.perf_counter()
+    server = serve(path, slot=slot, host="127.0.0.1", port=0,
+                   sh_degree=SH_DEGREE, blocking=False, device="cuda")
+    load_s = time.perf_counter() - t0
+    state = server.viewer_state
+    try:
+        port = server.server_address[1]
+        info = json.loads(_http(port, "/info"))
+        check(info["n_splats"] == N_SPLATS and info["n_frames"] == 1,
+              f"/info {info}")
+        # The orbit pose from the bench camera's place; the second served
+        # view (yaw 0.3) as a quaternion with its fovy; a splat scale and a
+        # background from above the scene.
+        a = YAW / 2
+        poses = {
+            "orbit": ([0.0, 0.0, -18.0], {}),
+            "quat": ([-18.0 * np.sin(YAW), 0.0, -18.0 * np.cos(YAW)],
+                     dict(quat=(np.cos(a), 0.0, np.sin(a), 0.0),
+                          fov_y=0.62)),
+            "scale_bg": ([3.0, 4.0, -17.0],
+                         dict(splat_scale=0.5, bg=(0.2, 0.3, 0.4))),
+        }
+
+        def query(pos, kw):
+            q = f"px={pos[0]}&py={pos[1]}&pz={pos[2]}&w={w}&h={h}"
+            if "quat" in kw:
+                q += "&q=" + ",".join(str(x) for x in kw["quat"])
+            if "fov_y" in kw:
+                q += f"&fovy={kw['fov_y']}"
+            if "splat_scale" in kw:
+                q += f"&scale={kw['splat_scale']}"
+            if "bg" in kw:
+                q += "&bg=" + ",".join(str(x) for x in kw["bg"])
+            return "/render?" + q
+
+        splats = slot.get(0)
+        kernels.reset_launches()
+        n_frames = 0
+        isects = {}
+        for name, (pos, kw) in poses.items():
+            body = _http(port, query(pos, kw))
+            n_frames += 1
+            got = _jpeg(body)
+            check(got.shape == (h, w, 3), f"{name}: JPEG {got.shape}")
+            frame = state.render_pose(pos, 0.0, 0.0, w, h, 0, **kw)
+            n_frames += 1
+            # The same pose rendered directly with the viewer's config.
+            cam = state.pose_camera(pos, w, h, quat=kw.get("quat"),
+                                    fov_y=kw.get("fov_y"))
+            with torch.no_grad():
+                folded = splats.fold_min_scale()
+                log_scales = folded.log_scales
+                if "splat_scale" in kw:
+                    log_scales = log_scales + float(np.log(kw["splat_scale"]))
+                img, aux = render(
+                    folded.means, log_scales, folded.quats, folded.sh_coeffs,
+                    folded.raw_opacities, camera_inputs(cam, (w, h)),
+                    torch.tensor(kw.get("bg", (0.0, 0.0, 0.0)),
+                                 dtype=torch.float32, device="cuda"),
+                    state.render_config(w, h))
+                direct = frame_u8(img).cpu().numpy()
+            n_frames += 1
+            isects[name] = int(aux.num_isects)
+            check(np.array_equal(frame, direct),
+                  f"{name}: render_pose differs from the direct render at "
+                  f"{int((frame != direct).any(-1).sum())} pixels")
+            check(body == _jpeg_bytes(frame),
+                  f"{name}: /render's JPEG is not render_pose's frame")
+            check(frame.std() > 1.0, f"{name}: the frame is flat")
+        # Times: the request (render, host copy, JPEG, HTTP), and
+        # render_pose alone (render and host copy), median of 5 each.
+        pos, kw = poses["orbit"]
+        req_ms, pose_ms = [], []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            _http(port, query(pos, kw))
+            req_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            state.render_pose(pos, 0.0, 0.0, w, h, 0)
+            pose_ms.append((time.perf_counter() - t1) * 1e3)
+        n_frames += 10
+        # One /render's launches for the kernel phase (the server's thread
+        # launches them; nothing else runs meanwhile).
+        with kernels.capture() as cap_list:
+            _http(port, query(pos, kw))
+        n_frames += 1
+        captured = list(cap_list)
+        launches = dict(kernels.LAUNCHES)
+        for name in kernels.SERVE_PATH:
+            check(launches[name] > 0, f"kernel {name} was not launched")
+        check(sorted({c.name for c in captured}) == sorted(kernels.SERVE_PATH),
+              f"captured {[c.name for c in captured]}")
+        t1 = time.perf_counter()
+        raw = _http(port, "/splats")
+        splats_s = time.perf_counter() - t1
+        check(len(raw) == 16 + 59 * 4 * N_SPLATS,
+              f"/splats has {len(raw)} bytes")
+        check(b"class BrushClient" in _http(port, "/brush.js"), "/brush.js")
+        del raw
+    finally:
+        server.shutdown()
+        server.server_close()
+    res = dict(request_ms=statistics.median(req_ms),
+               request_ms_all=req_ms,
+               render_pose_ms=statistics.median(pose_ms),
+               render_pose_ms_all=pose_ms, num_isects=isects,
+               isect_cap=state.isect_cap, ply_write_s=write_s,
+               load_s=load_s, splats_s=splats_s, frames=n_frames,
+               launches=launches, captured=captured)
+    log(f"[viewer] {N_SPLATS} splats sh{SH_DEGREE} from a PLY ({write_s:.3f}"
+        f" s to write, {load_s:.3f} s to load progressively and serve) at "
+        f"{w}x{h}: request_median_ms={res['request_ms']:.4f} (render, host "
+        f"copy, JPEG, HTTP; {[round(x, 3) for x in req_ms]}) "
+        f"render_pose_median_ms={res['render_pose_ms']:.4f} "
+        f"({[round(x, 3) for x in pose_ms]}); /splats "
+        f"{16 + 59 * 4 * N_SPLATS} bytes in {splats_s:.3f} s")
+    log(f"[viewer] num_isects by pose against the fixed isect_cap "
+        f"{state.isect_cap}: {json.dumps(isects)} (slots past the cap are "
+        f"dropped, as in the JAX viewer); every pose's frame equals a "
+        f"direct render bit for bit and its /render JPEG; launches over "
+        f"{n_frames} frames {json.dumps(launches)}")
+    return res
+
+
+def _live_view_run(torch, data: str, work: str):
+    """`train_process` with a live viewer, as `cli --view` runs it: a
+    few steps over the process phase's dataset while `serve(slot=...,
+    bus=...)` answers /render from another thread and streams /events."""
+    import threading
+
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.process import ProcessConfig, train_process
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.viewer.service import serve
+    from brush_tpu_torch.viewer.slot import MessageBus, Slot
+
+    w, h = IMG_SIZE
+    slot, bus = Slot(), MessageBus()
+    server = serve(slot=slot, bus=bus, host="127.0.0.1", port=0,
+                   sh_degree=SH_DEGREE, blocking=False, device="cuda")
+    port = server.server_address[1]
+    training = threading.Event()
+    done = threading.Event()
+    heard, frames, errors = [], [], []
+
+    def events():
+        import urllib.request
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/events",
+                                        timeout=600) as r:
+                while not (heard and heard[-1]["kind"] == "step"):
+                    line = r.readline()
+                    if not line:
+                        break
+                    if line.startswith(b"data:"):
+                        heard.append(json.loads(line[5:]))
+        except Exception as e:     # reported by the gate below
+            errors.append(f"/events: {e!r}")
+
+    def fetch():
+        try:
+            while not done.is_set():
+                if slot.get(0) is None:
+                    time.sleep(0.005)
+                    continue
+                t = time.perf_counter()
+                body = _http(port, f"/render?px=0&py=0&pz=-18&w={w}&h={h}")
+                frames.append((t, time.perf_counter(), _jpeg(body).shape))
+        except Exception as e:
+            errors.append(f"/render: {e!r}")
+
+    listener = threading.Thread(target=events, daemon=True)
+    listener.start()
+    # Until the stream is subscribed, a published message reaches no one.
+    while not heard and listener.is_alive():
+        bus.publish({"kind": "hello", "iter": 0})
+        time.sleep(0.01)
+    fetcher = threading.Thread(target=fetch, daemon=True)
+    fetcher.start()
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        msgs = list(train_process(
+            data, TrainConfig(total_train_iters=LIVE_STEPS, lod_levels=0),
+            LoadConfig(max_resolution=w, eval_split_every=4),
+            ProcessConfig(eval_every=0, export_every=0, log_every=1,
+                          sh_degree=SH_DEGREE, seed=SEED,
+                          export_path=os.path.join(work, "live",
+                                                   "live_{iter}.ply")),
+            slot=slot, device="cuda",
+            on_message=lambda m: bus.publish(
+                {"kind": m.kind, "iter": m.iter, **m.data})))
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        done.set()
+        fetcher.join(timeout=600)
+        listener.join(timeout=60)
+        launches = dict(kernels.LAUNCHES)
+        views = json.loads(_http(port, "/views"))
+        gt = _jpeg(_http(port, "/gt?view=0"))
+    finally:
+        done.set()
+        server.shutdown()
+        server.server_close()
+    check(not errors, f"live view: {errors}")
+    steps = [m for m in msgs if m.kind == "step"]
+    check([m.iter for m in steps] == list(range(1, LIVE_STEPS + 1))
+          and all(np.isfinite(m.data["loss"]) for m in steps),
+          f"live steps {[(m.iter, m.data.get('loss')) for m in steps]}")
+    check(slot.version == LIVE_STEPS, f"{slot.version} snapshots")
+    check(any(m["kind"] == "step" for m in heard),
+          f"no step message on /events: {heard}")
+    during = [f for f in frames if f[0] < t_end]
+    check(during and all(f[2] == (h, w, 3) for f in frames),
+          f"/render during training: {len(during)} of {len(frames)} "
+          f"frames, shapes {sorted({f[2] for f in frames})}")
+    check(len(views) == PROCESS_VIEWS
+          and {v["split"] for v in views} == {"train", "eval"},
+          f"/views lists {[(v['name'], v['split']) for v in views]}")
+    check(gt.shape == (360, 640, 3), f"/gt?view=0 decodes to {gt.shape}")
+    for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    frame_ms = [(b - a) * 1e3 for a, b, _ in frames]
+    res = dict(steps=LIVE_STEPS, run_s=t_end - t0,
+               frames=len(frames), frames_during_training=len(during),
+               frame_ms_median=statistics.median(frame_ms),
+               losses=[m.data["loss"] for m in steps],
+               events=[m["kind"] for m in heard], launches=launches)
+    log(f"[live] train_process {LIVE_STEPS} steps with serve(slot, bus) "
+        f"running: {res['run_s']:.3f} s; {len(frames)} /render frames of "
+        f"{w}x{h} fetched ({len(during)} while training), request median "
+        f"{res['frame_ms_median']:.3f} ms; /events gave "
+        f"{res['events']}; /views {len(views)} views; /gt?view=0 "
+        f"{gt.shape}; launches {json.dumps(launches)}")
+    return res
+
+
+def _ffi_run(torch, data: str, work: str):
+    """The C ABI: build libbrush_tpu_torch_ffi.so with g++, load it with
+    ctypes and train through `brush_train_and_save` on the card."""
+    import ctypes
+    import sysconfig
+
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.native import build as native
+
+    include = sysconfig.get_paths()["include"]
+    check(os.path.isfile(os.path.join(include, "Python.h")),
+          f"Python.h is not in {include}, where sysconfig says")
+    t0 = time.perf_counter()
+    path = native.build_ffi(verbose=False)
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(path))
+    cb_type = ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_char_p,
+                               ctypes.c_void_p)
+    lib.brush_train_and_save.restype = ctypes.c_int32
+    lib.brush_train_and_save.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                         cb_type, ctypes.c_void_p]
+    lib.brush_last_error.restype = ctypes.c_char_p
+    lib.brush_abi_version.restype = ctypes.c_int32
+    check(lib.brush_abi_version() == 1, "ABI version")
+
+    def run(iters: int, cancel: bool):
+        msgs = []
+
+        @cb_type
+        def cb(payload, user_data):
+            msgs.append(json.loads(payload.decode()))
+            return 1 if cancel else 0
+
+        export = os.path.join(work, "ffi", f"{iters}_{{iter}}.ply")
+        opts = dict(device="cuda", total_train_iters=iters,
+                    max_resolution=960, eval_every=0, export_every=0,
+                    log_every=1, lod_levels=0, export_path=export)
+        t1 = time.perf_counter()
+        rc = lib.brush_train_and_save(data.encode(),
+                                      json.dumps(opts).encode(), cb, None)
+        secs = time.perf_counter() - t1
+        check(rc == 0, f"brush_train_and_save returned {rc}: "
+              f"{lib.brush_last_error().decode()}")
+        return msgs, export.format(iter=iters), secs
+
+    kernels.reset_launches()
+    msgs, export, run_s = run(FFI_STEPS, cancel=False)
+    launches = dict(kernels.LAUNCHES)
+    kinds = [m["kind"] for m in msgs]
+    check("step" in kinds and "export" in kinds and os.path.exists(export),
+          f"C ABI run: messages {kinds}, export {os.path.exists(export)}")
+    check(all(np.isfinite(m["loss"]) for m in msgs if m["kind"] == "step"),
+          "C ABI run: loss not finite")
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    cancelled, c_export, cancel_s = run(50, cancel=True)
+    check(len(cancelled) == 1 and cancelled[0]["iter"] == 1
+          and not os.path.exists(c_export),
+          f"the cancelled call went on: {[m['kind'] for m in cancelled]}")
+    res = dict(build_s=build_s, run_s=run_s, cancel_s=cancel_s,
+               kinds=kinds, launches=launches,
+               losses=[m["loss"] for m in msgs if m["kind"] == "step"])
+    log(f"[ffi] libbrush_tpu_torch_ffi.so built in {build_s:.3f} s; "
+        f"brush_train_and_save {FFI_STEPS} steps at 960 px on cuda in "
+        f"{run_s:.3f} s wall (messages {kinds}); a call cancelled from its "
+        f"first callback returned after {cancel_s:.3f} s with 1 message; "
+        f"launches {json.dumps(launches)}")
+    return res
+
+
+def phase_lpips(torch, serve, train):
+    """The LPIPS term: its value on the card against the CPU (and what
+    TF32 would make of it), then training steps of the train cell's scene
+    with `lpips_loss_weight=0.5`, the weights read from an .npz by the
+    loader `train_process` uses."""
+    import shutil
+    import tempfile
+
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.models.lpips import (
+        load_lpips, random_lpips, random_lpips_arrays, save_lpips_npz)
+    from brush_tpu_torch.process import ProcessConfig
+    from brush_tpu_torch.render import RenderConfig
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import init_train_state, train_step
+    from brush_tpu_torch.utils.tracing import record_stages, stage_ms
+
+    # --- the value at 256x256: card against CPU, and under TF32 ---
+    rng = np.random.default_rng(SEED)
+    a, b = (rng.uniform(0, 1, (1, 256, 256, 3)).astype(np.float32)
+            for _ in range(2))
+    readings = {}
+    with torch.no_grad():
+        cpu = random_lpips(0, device="cpu")
+        want = float(cpu(torch.from_numpy(a), torch.from_numpy(b)))
+        want_taps = cpu.features(torch.from_numpy(a))
+        model = random_lpips(0, device="cuda")
+        ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        for tf32 in (False, True):
+            model.allow_tf32 = tf32
+            value = float(model(ta, tb))
+            taps = [float((x.cpu() - y).abs().max() / y.abs().max())
+                    for x, y in zip(model.features(ta), want_taps)]
+            readings[tf32] = (value, abs(value - want) / want, max(taps))
+        model.allow_tf32 = False
+    (got, err, tap_err), (tf32, tf32_err, tf32_tap_err) = (readings[False],
+                                                           readings[True])
+    log(f"[lpips] 256x256 random_lpips(0): cpu {want:.9g} cuda {got:.9g} "
+        f"(rel {err:.3g}, bar {LPIPS_RTOL}; taps {tap_err:.3g}, bar "
+        f"{LPIPS_TAP_RTOL}); with TF32 allowed {tf32:.9g} (rel "
+        f"{tf32_err:.3g}; taps {tf32_tap_err:.3g})")
+    check(err <= LPIPS_RTOL and tap_err <= LPIPS_TAP_RTOL,
+          f"LPIPS on the card {got} against the CPU's {want}: rel "
+          f"{err:.3g}, taps {tap_err:.3g}")
+    check(tf32_err > LPIPS_RTOL and tf32_tap_err > LPIPS_TAP_RTOL,
+          f"TF32 reads within a bar (value {tf32_err:.3g}, taps "
+          f"{tf32_tap_err:.3g}): it cannot tell float32 from TF32")
+    del model, cpu, ta, tb, want_taps
+
+    # --- the weights through the loader, as train_process reads them ---
+    work = tempfile.mkdtemp(prefix="brush_lpips_")
+    try:
+        path = os.path.join(work, "lpips.npz")
+        save_lpips_npz(random_lpips_arrays(0), path)
+        pcfg = ProcessConfig(lpips_weights=path)
+        model = load_lpips(pcfg.lpips_weights, device="cuda")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    _, _, serve_cfg = serve["plans"][0]
+    rcfg = RenderConfig(img_size=IMG_SIZE, sh_degree=SH_DEGREE,
+                        isect_cap=serve_cfg.isect_cap,
+                        expand_k0=serve_cfg.expand_k0, use_pallas=True)
+    tcfg = TrainConfig(lpips_loss_weight=0.5)
+    batch = train["batch"]
+    # The train phase's first step took the same state, batch, config and
+    # generator seed without the term.
+    state0 = init_train_state(serve["splats"], SEED)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    with kernels.capture() as cap_list:
+        state, stats, aux = train_step(state0, batch, tcfg, rcfg,
+                                       lpips_model=model)
+    captured = list(cap_list)
+    all_stats, events = [stats], []
+    for _ in range(LPIPS_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, stats, aux = train_step(state, batch, tcfg, rcfg,
+                                       lpips_model=model)
+        end.record()
+        events.append((start, end))
+        all_stats.append(stats)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(st.loss) for st in all_stats]
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(not any(bool(st.overflowed) for st in all_stats), "overflow")
+    term = losses[0] - train["losses"][0]
+    check(term > 0.0, f"the LPIPS term moved the first step's loss by "
+          f"{term} ({losses[0]} against {train['losses'][0]})")
+    for name, new in state.splats.params().items():
+        check(bool(torch.isfinite(new).all()), f"{name} not finite")
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    with record_stages() as recs:
+        train_step(state, batch, tcfg, rcfg, lpips_model=model)
+        torch.cuda.synchronize()
+        stages = stage_ms(recs)
+    res = dict(step_median_ms=statistics.median(ms), step_ms=ms,
+               peak_mib=peak_mb, base_mib=base_mb, losses=losses,
+               term_step1=term, stages=stages, value_cpu=want,
+               value_cuda=got, value_tf32=tf32, rel_err=err,
+               tf32_rel_err=tf32_err, tap_err=tap_err,
+               tf32_tap_err=tf32_tap_err, steps=1 + LPIPS_STEPS,
+               launches=launches, captured=captured)
+    log(f"[lpips] train_step with lpips_loss_weight=0.5 at {IMG_SIZE[0]}x"
+        f"{IMG_SIZE[1]}, {N_SPLATS} splats: step_median_ms="
+        f"{res['step_median_ms']:.4f} ({[round(x, 3) for x in ms]}), peak "
+        f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} over the {base_mb:.1f} "
+        f"held before); losses {[round(x, 6) for x in losses]}, the term "
+        f"added {term:.6f} to step 1's; stages of one traced step "
+        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    return res
+
+
 def _state_pairs(torch, a, b, path="state"):
     """(path, tensor of a, tensor or None of b) for every tensor of a
     TrainState `a`, by the same path in `b`."""
@@ -1926,13 +2456,15 @@ def slot_reduce_ms(torch, inputs, slot_grads) -> float:
 
 
 def phase_kernels(torch, serve, train, direct, stress, grow, loop,
-                  init_lod, proc):
+                  init_lod, proc, viewer, lpips):
     """Replay every launch of the first served frame, of the first training
     step, of the direct calls, of the stress run, of two growth steps (the
     overflowing first, and the first at the grown capacities), of two loop
     steps (the first, and the first after a refine), of one view of the
-    evaluation after the loop, of one view of the LOD scoring and of one
-    step of `train_process` (the first after its first evaluation): kernel
+    evaluation after the loop, of one view of the LOD scoring, of one
+    step of `train_process` (the first after its first evaluation), of one
+    /render of the web viewer and of the first training step with the
+    LPIPS term: kernel
     against plain version on the same inputs (each kernel module's own
     `compare` holds them), then the kernel's, the plain version's and the
     library call's times. A kernel is listed under the first of those paths
@@ -2054,7 +2586,11 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                  N_VIEWS),
         "init-lod": (init_lod["launches"], by_name(init_lod["captured"]), 1),
         "process": (proc["launches"], by_name(proc["captured"]),
-                    PROCESS_STEPS)}
+                    PROCESS_STEPS),
+        "viewer": (viewer["launches"], by_name(viewer["captured"]),
+                   viewer["frames"]),
+        "lpips": (lpips["launches"], by_name(lpips["captured"]),
+                  lpips["steps"])}
     counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
     for name in kernels.KERNEL_NAMES:
@@ -2248,9 +2784,11 @@ def main() -> int:
     grow = phase_grow(torch, serve, train)
     loop = phase_loop(torch, serve)
     init_lod = phase_init_lod(torch, loop)
-    proc = phase_process(torch, loop)
+    proc, live, ffi = phase_process(torch, loop)
+    viewer = phase_viewer(torch)
+    lpips = phase_lpips(torch, serve, train)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
-                                loop, init_lod, proc)
+                                loop, init_lod, proc, viewer, lpips)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],
@@ -2295,6 +2833,10 @@ def main() -> int:
                          for k, v in profiled_refine.items()}}))
     print(json.dumps({"process_" + k: v for k, v in proc.items()
                       if k not in ("launches", "captured")}))
+    for name, res in (("viewer", viewer), ("live", live), ("ffi", ffi),
+                      ("lpips", lpips)):
+        print(json.dumps({f"{name}_{k}": v for k, v in res.items()
+                          if k != "captured"}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

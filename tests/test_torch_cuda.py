@@ -36,7 +36,9 @@ splat, and a capacity whose second half is dead.
 
 `train_process` runs on the card over a 32x32 COLMAP scene, with the
 kernels and with the plain rasterizer, each held to the same run on the
-CPU; a checkpoint restores a CUDA generator on the card.
+CPU; a checkpoint restores a CUDA generator on the card. The web viewer's
+frame on the card is held to the CPU's, LPIPS on the card to the CPU's (a
+bar TF32 convolutions miss), and the C ABI trains 2 steps on the card.
 """
 
 import numpy as np
@@ -960,3 +962,137 @@ def test_batched_step_on_the_card_matches_the_cpu(use_pallas, cuda):
         assert torch.isfinite(g).all(), name
         assert (g - c).abs().max() <= 2 * lr + 1e-6, name
     assert float(s_g.refine.visible_count.max()) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_viewer_frame_on_the_card_matches_the_cpu(tmp_path, use_pallas,
+                                                  cuda):
+    """`ViewerState.render_pose` of one PLY on `cuda` (the kernels, or the
+    plain rasterizer) against the CPU's frame, for the orbit pose and a
+    quaternion pose with splat scale and background: the uint8 rule of
+    tests/test_torch_viewer.py (p99.9 of the level difference <= 1, max
+    <= 2). The HTTP server renders the same frame on the card."""
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.viewer.service import (
+        Slot, ViewerState, load_source_into_slot, serve)
+    (tmp_path / "scene.ply").write_bytes(ply.splats_to_ply_bytes(
+        bench_splats(3000, sh_degree=1, seed=9, device="cpu")))
+    poses = [([0.0, 1.0, -18.0], {}),
+             ([1.0, 0.0, -17.0], dict(quat=(0.9961947, 0.0, -0.0871557, 0.0),
+                                      fov_y=0.7, splat_scale=1.5,
+                                      bg=(0.2, 0.5, 0.9)))]
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        slot = Slot()
+        load_source_into_slot(str(tmp_path / "scene.ply"), slot,
+                              sh_degree=1, device=dev)
+        state = ViewerState(slot, 1, use_pallas=use_pallas, device=dev)
+        frames[dev] = [state.render_pose(p, 0.0, 0.0, 160, 96, 0, **kw)
+                       for p, kw in poses]
+    for name, got, want in zip(("orbit", "quat"), frames["cuda"],
+                               frames["cpu"]):
+        assert got.shape == want.shape == (96, 160, 3) and want.max() > 20
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        assert np.quantile(d, 0.999) <= 1 and d.max() <= 2, (name, d.max())
+    server = serve(str(tmp_path / "scene.ply"), host="127.0.0.1", port=0,
+                   sh_degree=1, use_pallas=use_pallas, blocking=False,
+                   device="cuda")
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{server.server_address[1]}/render?px=0&py=1"
+            f"&pz=-18&w=160&h=96", timeout=300).read()
+        frame = server.viewer_state.render_pose(poses[0][0], 0.0, 0.0, 160,
+                                                96, 0)
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, "JPEG", quality=88)
+        assert body == buf.getvalue()
+        np.testing.assert_array_equal(frame, frames["cuda"][0])
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+@pytest.mark.cuda
+def test_lpips_on_the_card_matches_the_cpu(cuda):
+    """LPIPS of two 128x128 images, its five VGG taps and its gradient
+    w.r.t. the first on the card against the CPU: the value within 1e-6
+    relative (about 9 float32 ulps), each tap and the gradient within 1e-4
+    of its largest entry.
+    The model's convolutions run in float32 whatever the global TF32
+    switch says; with TF32 allowed the taps miss their bar."""
+    from brush_tpu_torch.models.lpips import random_lpips
+    rng = np.random.default_rng(2)
+    a, b = (rng.uniform(0, 1, (1, 128, 128, 3)).astype(np.float32)
+            for _ in range(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = random_lpips(0, device=dev)
+        x = torch.from_numpy(a).to(dev).requires_grad_(True)
+        v = m(x, torch.from_numpy(b).to(dev))
+        (g,) = torch.autograd.grad(v, x)
+        with torch.no_grad():
+            taps = [t.cpu() for t in m.features(x)]
+        out[dev] = (float(v.detach()), g.cpu().numpy(), taps, m)
+    (v_c, g_c, t_c, _), (v_g, g_g, t_g, m) = out["cpu"], out["cuda"]
+
+    def tap_err(taps):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(taps, t_c))
+
+    assert abs(v_g - v_c) <= 1e-6 * v_c, (v_g, v_c)
+    assert tap_err(t_g) <= 1e-4
+    assert np.abs(g_g - g_c).max() <= 1e-4 * np.abs(g_c).max()
+    x = torch.from_numpy(a).cuda()
+    torch.backends.cudnn.allow_tf32 = True      # the global switch alone
+    try:
+        with torch.no_grad():
+            global_taps = [t.cpu() for t in m.features(x)]
+            m.allow_tf32 = True
+            tf32_taps = [t.cpu() for t in m.features(x)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        m.allow_tf32 = False
+    assert tap_err(global_taps) <= 1e-4
+    assert tap_err(tf32_taps) > 1e-4, tap_err(tf32_taps)
+
+
+@pytest.mark.cuda
+def test_c_abi_trains_on_the_card(tmp_path, cuda):
+    """`brush_train_and_save` with {"device": "cuda"} for 2 steps of a
+    32x32 scene: step and export messages, the export written."""
+    import ctypes
+    import json
+
+    from brush_tpu_torch.native import build as native
+    _card_scene(tmp_path / "scene")
+    lib = ctypes.CDLL(str(native.build_ffi(verbose=False)))
+    cb_type = ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_char_p,
+                               ctypes.c_void_p)
+    lib.brush_train_and_save.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                         cb_type, ctypes.c_void_p]
+    lib.brush_last_error.restype = ctypes.c_char_p
+    msgs = []
+
+    @cb_type
+    def cb(payload, user_data):
+        msgs.append(json.loads(payload.decode()))
+        return 0
+
+    opts = dict(device="cuda", total_train_iters=2, log_every=1,
+                eval_every=0, export_every=0, init_count=0, sh_degree=1,
+                max_resolution=32, export_path=str(tmp_path / "c_{iter}.ply"))
+    kernels.reset_launches()
+    rc = lib.brush_train_and_save(str(tmp_path / "scene").encode(),
+                                  json.dumps(opts).encode(), cb, None)
+    assert rc == 0, lib.brush_last_error().decode()
+    assert [m["iter"] for m in msgs if m["kind"] == "step"] == [1, 2]
+    assert "export" in {m["kind"] for m in msgs}
+    assert (tmp_path / "c_2.ply").exists()
+    for name in kernels.TRAIN_PATH:
+        assert kernels.LAUNCHES[name] > 0, name

@@ -1,8 +1,9 @@
 """The PyTorch port must stand alone: importing every module of
 `brush_tpu_torch` (and `chip_smoke.py`) loads no JAX, no Flax, no orbax
 and nothing of the JAX package `brush_tpu`, and builds or loads no CUDA
-kernel. Every module also imports where Pillow is missing (it is imported
-only inside the functions that decode or write images)."""
+kernel and no native library (the COLMAP parser, the C ABI). Every module
+also imports where Pillow is missing (it is imported only inside the
+functions that decode or write images)."""
 
 import json
 import pathlib
@@ -25,12 +26,19 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 from brush_tpu_torch.kernels import build
+from brush_tpu_torch.native import build as native
 bad = sorted(m for m in sys.modules
              if m.startswith(("jax", "flax", "orbax")) or m == "brush_tpu"
              or m.startswith("brush_tpu."))
+with open("/proc/self/maps") as f:
+    maps = f.read()
+native_loaded = (native.BUILT != [] or native._colmapio is not None
+                 or native.MODULE in sys.modules
+                 or native.FFI_LIB in maps or "_colmapio" in maps)
 print(json.dumps({"modules": mods, "bad": bad,
                   "pil": sys.modules.get("PIL") is not None,
-                  "kernels_loaded": build._lib is not None}))
+                  "kernels_loaded": build._lib is not None,
+                  "native_loaded": native_loaded}))
 """
 
 MODULES = (
@@ -40,7 +48,10 @@ MODULES = (
     # the dataset-to-PLY run
     "data.vfs", "data.scene", "data.colmap", "data.formats",
     "data.dataloader", "io.ply", "train.checkpoint", "ops.rasterize_torch",
-    "utils.telemetry", "utils.report", "cli")
+    "utils.telemetry", "utils.report", "cli",
+    # the viewer, LPIPS and the C ABI
+    "viewer.slot", "viewer.service", "models.lpips", "ffi_entry",
+    "native.build")
 
 
 def _probe(*args) -> dict:
@@ -56,6 +67,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert f"brush_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == [], f"port pulled in {res['bad']}"
     assert res["kernels_loaded"] is False
+    assert res["native_loaded"] is False
 
 
 def test_port_imports_without_pillow():
@@ -64,6 +76,7 @@ def test_port_imports_without_pillow():
     for name in MODULES:
         assert f"brush_tpu_torch.{name}" in res["modules"], name
     assert res["bad"] == [] and res["kernels_loaded"] is False
+    assert res["native_loaded"] is False
 
 
 def test_image_decoding_names_pillow_when_it_is_missing(tmp_path,

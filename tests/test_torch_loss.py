@@ -19,7 +19,7 @@ the same numpy inputs.
     steps of the port reduce the loss.
   * `train_step_impl(batched=True)` over two stacked views, and the
     `use_pallas=False` step, against the JAX package's under the same
-    rules; LPIPS and `forward_only` are still refused.
+    rules; `forward_only` is still refused.
 """
 
 import dataclasses
@@ -496,8 +496,18 @@ def test_train_step_refuses_what_is_not_ported():
     np.testing.assert_array_equal(state.bounds_center.numpy(),
                                   np.asarray(jstate.bounds_center))
     cfg = trender.RenderConfig(img_size=IMG, sh_degree=0, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        ttrainer.train_step(state, tbatch, ttcfg, cfg, lpips_model=object())
+    # An LPIPS model was refused too; the term is ported
+    # (tests/test_torch_lpips.py), and at the default weight 0 a model
+    # changes nothing.
+    from brush_tpu_torch.models.lpips import random_lpips
+    rng0 = state.rng.get_state()
+    plain_step = ttrainer.train_step(state, tbatch, ttcfg, cfg)
+    state.rng.set_state(rng0)
+    with_model = ttrainer.train_step(state, tbatch, ttcfg, cfg,
+                                     lpips_model=random_lpips(device=CPU))
+    assert ttcfg.lpips_loss_weight == 0.0
+    assert torch.equal(with_model[1].loss, plain_step[1].loss)
+    assert torch.equal(with_model[0].splats.means, plain_step[0].splats.means)
     with pytest.raises(ValueError, match="forward_only=False"):
         ttrainer.train_step(state, tbatch, ttcfg,
                             dataclasses.replace(cfg, forward_only=True))

@@ -210,15 +210,34 @@ def test_eval_cache_decodes_once(tmp_path, monkeypatch):
 
 
 def test_train_process_refuses_what_is_not_ported(tmp_path):
-    write_colmap_bin(tmp_path / "scene", n_views=2, w=32, h=32)
-    with pytest.raises(NotImplementedError, match="viewer"):
-        next(train_process(str(tmp_path / "scene"), slot=object(),
-                           device=CPU))
-    with pytest.raises(NotImplementedError, match="LPIPS"):
+    """A live viewer's slot and the LPIPS term were refused; both are
+    ported (tests/test_torch_viewer.py, tests/test_torch_lpips.py) and run
+    here together. What is refused now is an LPIPS weights file that is
+    not there, before the first step."""
+    from brush_tpu_torch.models.lpips import (
+        random_lpips_arrays,
+        save_lpips_npz,
+    )
+    from brush_tpu_torch.viewer.slot import Slot
+    write_colmap_bin(tmp_path / "scene", n_views=2, w=64, h=64)
+    with pytest.raises(FileNotFoundError):
         next(train_process(str(tmp_path / "scene"),
                            TrainConfig(lpips_loss_weight=0.1),
-                           pcfg=ProcessConfig(lpips_weights="w.npz"),
+                           pcfg=ProcessConfig(lpips_weights=str(
+                               tmp_path / "missing.npz")),
                            device=CPU))
+    save_lpips_npz(random_lpips_arrays(0), tmp_path / "w.npz")
+    slot = Slot()
+    msgs = _run(tmp_path / "scene", TrainConfig(total_train_iters=2,
+                                                lpips_loss_weight=0.1),
+                LoadConfig(),
+                ProcessConfig(lpips_weights=str(tmp_path / "w.npz"),
+                              log_every=1, eval_every=0, export_every=0,
+                              init_count=0, sh_degree=0,
+                              export_path=str(tmp_path / "o_{iter}.ply")),
+                slot=slot)
+    assert [m.iter for m in msgs if m.kind == "step"] == [1, 2]
+    assert slot.version == 2 and len(slot.scene_views) == 2
 
 
 # --------------------------------------------------------------------------
@@ -338,7 +357,7 @@ def test_defaults_serialize_empty():
     assert tcli.args_from_configs(*tcli.configs_from_args(a)) == []
 
 
-def test_cli_main_trains_and_inspects(tmp_path, capsys):
+def test_cli_main_trains_and_inspects(tmp_path, capsys, monkeypatch):
     write_colmap_bin(tmp_path / "scene", n_views=2, w=32, h=32)
     export = tmp_path / "cli_{iter}.ply"
     rc = tcli.main([str(tmp_path / "scene"), "--device", "cpu",
@@ -351,8 +370,16 @@ def test_cli_main_trains_and_inspects(tmp_path, capsys):
     assert tcli.main([str(tmp_path / "cli_2.ply")]) == 0
     # The COLMAP scene's 10 points seed the splats.
     assert "10 splats" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="viewer"):
-        tcli.main([str(tmp_path / "scene"), "--view"])
+    # `--view` was refused; it now serves the ply (tests/test_torch_viewer.py
+    # runs the server).
+    from brush_tpu_torch.viewer import service as tservice
+    served = []
+    monkeypatch.setattr(tservice, "serve",
+                        lambda *a, **k: served.append((a, k)))
+    assert tcli.main([str(tmp_path / "cli_2.ply"), "--view", "--device",
+                      "cpu"]) == 0
+    assert served == [((str(tmp_path / "cli_2.ply"),), dict(
+        port=8080, sh_degree=3, use_pallas=True, device="cpu"))]
 
 
 def test_report_from_telemetry_run(tmp_path, rng):
