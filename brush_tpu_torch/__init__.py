@@ -17,7 +17,10 @@ and the CLI (`python -m brush_tpu_torch.cli <dataset>`); the web viewer
 native COLMAP parser (`native/`, built with g++ by
 `python -m brush_tpu_torch.native.build`). `RenderConfig(use_pallas=
 False)` renders through the plain twin of the JAX package's jnp rasterizer
-(ops/rasterize_torch.py). Still to port: multi-device training.
+(ops/rasterize_torch.py). Multi-device training and rendering
+(`parallel/`) run over `torch.distributed`: views of a step shared among
+processes (`torchrun ... -m brush_tpu_torch.cli --views-per-batch B`),
+and an image rendered in strips.
 Importing the package builds and loads nothing: no kernel, no native
 library.
 """

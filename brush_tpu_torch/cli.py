@@ -12,17 +12,32 @@ package's, plus `--device`.
 
     python -m brush_tpu_torch.cli scene.ply --view   # serve a ply (or a zip
                                                      # of plys) on :8080
-    python -m brush_tpu_torch.cli <dataset> --view   # train, viewed live"""
+    python -m brush_tpu_torch.cli <dataset> --view   # train, viewed live
+
+Multi-device training: one process a device under torchrun, B views a
+step shared among the W processes (W must divide B):
+
+    torchrun --nproc-per-node N -m brush_tpu_torch.cli <dataset> \
+        --views-per-batch B
+
+Process r trains on cuda:LOCAL_RANK (or the CPU with `--device cpu`) over
+NCCL when each process has a card of its own, gloo on the CPU or when
+processes share a card (parallel/data_parallel.py). Only the first process
+prints and writes."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
+import torch.distributed as dist
+
 from brush_tpu_torch.data.formats import LoadConfig
 from brush_tpu_torch.data.scene import AlphaMode
+from brush_tpu_torch.parallel.data_parallel import view_group
 from brush_tpu_torch.process import ProcessConfig, train_process
 from brush_tpu_torch.train.config import TrainConfig
 
@@ -87,7 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume training from a checkpoint dir")
     pr.add_argument("--views-per-batch", type=int, default=1,
                     help="train on B views per step (loss = mean over "
-                         "views)")
+                         "views); shared among the processes of a "
+                         "torchrun launch")
     pr.add_argument("--eval-save-to-disk", type=str, default=None,
                     metavar="DIR", help="save per-view eval renders as PNGs")
     pr.add_argument("--lpips-weights", type=str, default=None,
@@ -205,6 +221,9 @@ def main(argv=None):
     a = build_parser().parse_args(argv)
 
     if a.view:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            build_parser().error("--view runs in one process, not under a "
+                                 "multi-process launch")
         from brush_tpu_torch.viewer.service import serve
         if _is_view_only_source(a.source):
             serve(a.source, port=a.port, sh_degree=a.sh_degree,
@@ -236,25 +255,42 @@ def main(argv=None):
         return 0
 
     tcfg, lcfg, pcfg = configs_from_args(a)
-    for msg in train_process(a.source, tcfg, lcfg, pcfg, device=a.device):
-        if msg.kind == "step":
-            d = msg.data
-            print(f"[{msg.iter:>6}] loss={d['loss']:.4f} "
-                  f"splats={d['splats']} vis={d['num_visible']} "
-                  f"{d['sps']:.2f} it/s", flush=True)
-        elif msg.kind == "refine":
-            d = msg.data
-            print(f"[{msg.iter:>6}] refine: +{d['added']} -{d['pruned']} "
-                  f"total={d['total']}", flush=True)
-        elif msg.kind == "eval":
-            print(f"[{msg.iter:>6}] eval: PSNR={msg.data['psnr']:.2f} "
-                  f"SSIM={msg.data['ssim']:.4f}", flush=True)
-        elif msg.kind == "export":
-            print(f"[{msg.iter:>6}] exported {msg.data['path']}", flush=True)
-        elif msg.kind == "checkpoint":
-            print(f"[{msg.iter:>6}] checkpoint -> {msg.data['path']}",
+    group, world, device = view_group(a.device)
+    try:
+        lead = group is None or dist.get_rank(group) == 0
+        if group is not None and lead:
+            print(f"{world} processes over {dist.get_backend(group)}, "
+                  f"{pcfg.views_per_batch // world} views each a step",
                   flush=True)
+        for msg in train_process(a.source, tcfg, lcfg, pcfg, device=device,
+                                 group=group):
+            if lead:
+                _print_message(msg)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
     return 0
+
+
+def _print_message(msg) -> None:
+    """One message of the run as the CLI prints it."""
+    if msg.kind == "step":
+        d = msg.data
+        print(f"[{msg.iter:>6}] loss={d['loss']:.4f} "
+              f"splats={d['splats']} vis={d['num_visible']} "
+              f"{d['sps']:.2f} it/s", flush=True)
+    elif msg.kind == "refine":
+        d = msg.data
+        print(f"[{msg.iter:>6}] refine: +{d['added']} -{d['pruned']} "
+              f"total={d['total']}", flush=True)
+    elif msg.kind == "eval":
+        print(f"[{msg.iter:>6}] eval: PSNR={msg.data['psnr']:.2f} "
+              f"SSIM={msg.data['ssim']:.4f}", flush=True)
+    elif msg.kind == "export":
+        print(f"[{msg.iter:>6}] exported {msg.data['path']}", flush=True)
+    elif msg.kind == "checkpoint":
+        print(f"[{msg.iter:>6}] checkpoint -> {msg.data['path']}",
+              flush=True)
 
 
 if __name__ == "__main__":

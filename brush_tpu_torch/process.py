@@ -25,6 +25,16 @@ their ground truth are attached to the slot, and the splats are published
 to it at every log step: the trainer's own tensors, which no later step or
 refine writes into. `tcfg.lpips_loss_weight > 0` with
 `pcfg.lpips_weights` adds the LPIPS term (models/lpips.py) to every step.
+
+With a process `group` of W processes (parallel/data_parallel.py), each
+batched step is shared: the first process runs the loader and picks the
+step's B views, broadcasts their indices over a gloo group of host
+integers (no wait on the card's stream), and every process loads, uploads
+and renders its own B / W of them. The gradients and statistics are
+combined inside the step, so every process holds the same state, grows
+the same capacities and refines alike. Only the first process evaluates,
+exports, checkpoints, logs telemetry and publishes to a viewer; the
+others yield their `step` and `refine` messages.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from brush_tpu_torch.camera import fov_to_focal
 from brush_tpu_torch.data.dataloader import SceneLoader
@@ -45,6 +56,7 @@ from brush_tpu_torch.data.scene import AlphaMode, image_dims
 from brush_tpu_torch.io import ply as ply_io
 from brush_tpu_torch.models.splats import Splats, grow_capacity
 from brush_tpu_torch.ops.sh import rgb_to_sh_dc
+from brush_tpu_torch.parallel.data_parallel import view_share
 from brush_tpu_torch.render import RenderAux, RenderConfig, camera_inputs
 from brush_tpu_torch.train.config import TrainConfig
 from brush_tpu_torch.train.refine import refine_step
@@ -56,6 +68,7 @@ from brush_tpu_torch.train.trainer import (
     SceneBatch,
     TrainState,
     TrainStepStats,
+    ViewShare,
     init_train_state,
     stack_batches,
     train_step,
@@ -137,14 +150,14 @@ def _grow_state(state: TrainState, new_cap: int) -> TrainState:
 
 def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
                has_alpha: bool, alpha_is_mask: bool, batched: bool = False,
-               lpips_model=None):
+               lpips_model=None, share: ViewShare | None = None):
     """The training step of a turn and the overflow check of the step
     before it: (LoopState, stats, ["overflow"] or [])."""
     rcfg = loop.rcfg
     state, stats, aux = train_step_impl(
         loop.state, batch, tcfg, rcfg, has_alpha=has_alpha,
         alpha_is_mask=alpha_is_mask, batched=batched,
-        lpips_model=lpips_model)
+        lpips_model=lpips_model, share=share)
     it = loop.it + 1
     messages = []
 
@@ -364,13 +377,27 @@ def train_process(
     slot=None,
     telemetry_dir: str | None = None,
     device="cuda",
+    group=None,
 ) -> Iterator[TrainMessage]:
     """Full training run as a message stream (train_stream.rs:34-503), on
-    `device`. `slot` (viewer.slot.Slot) receives live splat snapshots."""
+    `device`. `slot` (viewer.slot.Slot) receives live splat snapshots.
+    `group` (a torch.distributed process group, every process of the run
+    calling with its own device) shares each batched step among its
+    processes; W must divide `pcfg.views_per_batch`."""
     dev = resolve_device(device)
     tcfg = tcfg or TrainConfig()
     lcfg = lcfg or LoadConfig()
     pcfg = pcfg or ProcessConfig()
+    world = 1 if group is None else dist.get_world_size(group)
+    lead = group is None or dist.get_rank(group) == 0
+    if world > 1 and pcfg.views_per_batch % world:
+        raise ValueError(
+            f"views_per_batch B={pcfg.views_per_batch} is not a multiple of "
+            f"the world size W={world}: every process renders B / W views "
+            f"a step")
+    if not lead:
+        # The first process alone writes, logs and serves.
+        slot, telemetry_dir = None, None
     telem = None
     if telemetry_dir:
         from brush_tpu_torch.utils.telemetry import TelemetryLogger
@@ -416,6 +443,14 @@ def train_process(
 
     loader = SceneLoader(ds.train, seed=pcfg.seed,
                          alpha_mode=lcfg.alpha_mode)
+    host_group = None
+    if world > 1:
+        if not lead:
+            # The first process picks the views; the others load theirs
+            # by index (`load_view` and its cache need no thread).
+            loader.stop()
+        host_group = (group if dist.get_backend(group) == "gloo"
+                      else dist.new_group(backend="gloo"))
     upload = PinnedUpload(dev)
     centers, focals = view_camera_arrays(ds, lcfg.max_resolution, device=dev)
     eval_cache: dict = {}  # packed eval views, decoded once per run
@@ -440,11 +475,13 @@ def train_process(
     t_start = time.perf_counter()
     try:
         while loop.it < tcfg.total_train_iters:
-            view = next(loader)
-            if batched:
+            views = []
+            if lead:
+                views = [next(loader)]
+            if lead and batched:
                 # B same-sized views (datasets are near-uniform; odd sizes
                 # fall back to repeating until the batch fills).
-                views = [view]
+                view = views[0]
                 tries = 0
                 while (len(views) < pcfg.views_per_batch
                        and tries < 4 * pcfg.views_per_batch):
@@ -464,6 +501,12 @@ def train_process(
                                 f"the repeat")))
                 while len(views) < pcfg.views_per_batch:
                     views.append(views[0])
+            share = None
+            if world > 1:
+                share = view_share(group, pcfg.views_per_batch)
+                views = _my_views(views, share, world, loader, host_group)
+            view = views[0]
+            if batched:
                 batch = stack_batches([_scene_batch(v, upload)
                                        for v in views])
             else:
@@ -472,7 +515,7 @@ def train_process(
                 loop.rcfg, img_size=view.img_size))
             loop, stats, overflows = _step_turn(
                 loop, batch, tcfg, view.has_alpha, alpha_is_mask,
-                batched=batched, lpips_model=lpips_model)
+                batched=batched, lpips_model=lpips_model, share=share)
             it, state = loop.it, loop.state
             for msg in overflows:
                 yield emit(msg)
@@ -517,6 +560,8 @@ def train_process(
                     telem.log_memory(it)
                 yield emit(msg)
 
+            if not lead:
+                continue
             if pcfg.eval_every and it % pcfg.eval_every == 0 and ds.eval:
                 emsg = _run_eval(state, ds, lcfg, pcfg, it,
                                  loop.rcfg.isect_cap, cache=eval_cache)
@@ -536,7 +581,11 @@ def train_process(
                                    dict(path=pcfg.ckpt_dir))
     finally:
         loader.stop()
+        if host_group is not None and host_group is not group:
+            dist.destroy_process_group(host_group)
 
+    if not lead:
+        return
     it, state = loop.it, loop.state
     isect_cap, chunk_cap = loop.rcfg.isect_cap, loop.rcfg.chunk_cap
     # Final export.
@@ -560,6 +609,21 @@ def train_process(
             splats=int(state.splats.n_alive)))
     if telem:
         telem.close()
+
+
+def _my_views(views: list, share: ViewShare, world: int,
+              loader: SceneLoader, host_group) -> list:
+    """This process's views of a shared step: the first process's picks
+    (`views`, its own loaded) go to every process as indices over the host
+    group, and each loads its rows of them."""
+    idx = torch.tensor([v.view_index for v in views] if views
+                       else [0] * share.total, dtype=torch.int64)
+    dist.broadcast(idx, src=dist.get_global_rank(host_group, 0),
+                   group=host_group)
+    rows = range(share.first, share.first + share.total // world)
+    if views:
+        return [views[i] for i in rows]
+    return [loader.load_view(int(idx[i])) for i in rows]
 
 
 def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,

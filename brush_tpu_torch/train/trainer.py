@@ -25,14 +25,20 @@ is the mean over the views, rendered one after another on one device, and
 the refine statistics are those of one view a step (the holder gradients
 times B, the render statistics max-combined). With an `lpips_model`
 (models/lpips.py) and `tcfg.lpips_loss_weight > 0`, each view's loss gains
-`lpips_loss_weight * LPIPS(render, ground truth)` (train.rs:246-253). The
-multi-device mesh belongs to a later part of the port.
+`lpips_loss_weight * LPIPS(render, ground truth)` (train.rs:246-253).
+
+Several processes share one batched step through a `ViewShare`: each
+renders its own rows of the step's views, and the share's `reduce` sums
+the gradients and the loss and max-combines the render statistics across
+the processes before the optimizer (parallel/data_parallel.py). On one
+device the share covers every view and reduces nothing, so the one-device
+and the multi-device step are this one function.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -119,6 +125,23 @@ def _view_of(batch: SceneBatch, v: int) -> SceneBatch:
     return SceneBatch(gt_packed=batch.gt_packed[v], cam=CameraInputs(
         c.viewmat[v], c.pinhole[v], c.clamp_limits[v], c.cam_pos[v],
         c.half_max_render_fov[v]))
+
+
+def _local(grads, loss, aux):
+    """The reduction of a step that one process takes alone: none."""
+    return grads, loss, aux
+
+
+class ViewShare(NamedTuple):
+    """The views of one step that this process renders: rows [first,
+    first + n) of the step's `total` views, n the batch's leading size.
+    `reduce(grads, loss, aux) -> (grads, loss, aux)` sums the processes'
+    gradients (a list of tensors) and loss and max-combines their render
+    statistics; every process gets the same result."""
+
+    first: int
+    total: int
+    reduce: Callable = _local
 
 
 def _max_aux(auxs: list[RenderAux]) -> RenderAux:
@@ -241,23 +264,30 @@ def train_step_impl(
     alpha_is_mask: bool = False,
     batched: bool = False,
     lpips_model=None,
+    share: ViewShare | None = None,
 ) -> tuple[TrainState, TrainStepStats, RenderAux]:
     """One training step. With `batched=True` the batch carries a leading
-    view axis [B] (`stack_batches`) and the loss is the mean over views."""
+    view axis [B] (`stack_batches`) and the loss is the mean over views.
+    With a `share` (batched only), the batch holds this process's rows of
+    the step's `share.total` views and `share.reduce` combines the
+    processes' gradients, loss and statistics."""
     if rcfg.forward_only:
         raise ValueError("train_step needs a differentiable render: "
                          "RenderConfig(forward_only=False)")
     splats = state.splats
     dev = splats.means.device
-    n_views = batch.gt_packed.shape[0] if batched else 1
+    n_local = batch.gt_packed.shape[0] if batched else 1
+    share = share or ViewShare(first=0, total=n_local)
 
     # Background: base + uniform noise, clamped (config background_noise).
+    # Every process draws the rows of all the step's views from its copy
+    # of the generator and keeps its own, so the replicas stay equal.
     base_bg = torch.tensor(tcfg.background_color, dtype=torch.float32,
                            device=dev)
     bgs = torch.clamp(
         base_bg + sample_background_noise(
-            state.rng, n_views, tcfg.background_noise_strength, dev),
-        0.0, 1.0)
+            state.rng, share.total, tcfg.background_noise_strength, dev),
+        0.0, 1.0)[share.first:share.first + n_local]
 
     params = {k: v.detach().requires_grad_(True)
               for k, v in splats.params().items()}
@@ -299,9 +329,12 @@ def train_step_impl(
         return loss, aux
 
     if batched:
+        # This process's part of the mean over all the step's views: the
+        # parts' sum is the mean, so their gradients sum to its gradient.
         losses, auxs = zip(*(view_loss(_view_of(batch, v), bgs[v])
-                             for v in range(n_views)))
-        loss, aux = torch.stack(losses).mean(), _max_aux(list(auxs))
+                             for v in range(n_local)))
+        loss = torch.stack(losses).sum() / float(share.total)
+        aux = _max_aux(list(auxs))
     else:
         loss, aux = view_loss(batch, bgs[0])
     with stage("backward"):
@@ -309,16 +342,19 @@ def train_step_impl(
         grads = torch.autograd.grad(
             loss, [params[k] for k in names] + [refine_holder,
                                                 visible_holder])
+    # Sum the gradients and the loss, max the statistics, across the
+    # processes of the step, before anything reads them (the overflow
+    # gate included, so every process takes the same branch).
+    grads, loss, aux = share.reduce(list(grads), loss.detach(), aux)
     param_grads = dict(zip(names, grads[:len(names)]))
     refine_weight, visible_grad = grads[len(names):]
-    loss = loss.detach()
 
     with stage("adam"), torch.no_grad():
         # The batched loss is a mean over views: undo the 1/B factor so the
         # refine statistics accumulate as one view a step does.
-        if batched:
-            refine_weight = refine_weight * float(n_views)
-            visible_grad = visible_grad * float(n_views)
+        if share.total > 1:
+            refine_weight = refine_weight * float(share.total)
+            visible_grad = visible_grad * float(share.total)
         visible = torch.clamp(visible_grad, 0.0, 1.0)
 
         # --- Learning rates (train.rs:311-364) ---

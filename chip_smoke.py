@@ -127,11 +127,31 @@ Phases, each of which must pass (any failure exits non-zero):
              and parameters, step 1's loss above the train phase's (same
              state, view and generator), step ms, peak MiB and a traced
              step's stages. The first step's launches are kept.
-17. kernels — each kernel against its plain PyTorch version, on the card,
+17. space  — the strip-sharded render at the serve cell: view 0 in
+             `SPACE_STRIPS` strips from `strip_camera_inputs`, each with its
+             own `plan_caps`, assembled and held to the full frame (coverage
+             within `TIE_ALPHA_TOL`, the colour mean within
+             `TIE_RGB_MEAN_TOL`: tied depth keys may blend in another order
+             in a strip); strip ms against the frame's, each strip's
+             `num_isects` against its cap; strip 1's launches kept.
+18. dp     — view-sharded training at the train cell (B = 2 views):
+             (a) `make_dp_train_step` over a one-process NCCL group, 3 steps
+             held to `train_step_impl(batched=True)` from the same state
+             (every state tensor within rtol 1e-5, atol 1e-6; step 2's
+             launches kept); (b) 2 child processes of this script on the
+             card over gloo (`--child ranks`): bit-identical replicas after
+             every step, each held to (a)'s reference, a refine and one more
+             step, then `render_space_parallel` of the space phase's strips,
+             equal to the strips rendered here bit for bit; (c) a 2-process
+             `torch.distributed.run` launch of `cli.main` on the process
+             phase's dataset (`--child cli`, 6 steps, refine at 3): one
+             export, finite losses, no overflow after growth, equal final
+             states. Prints step ms, each process's peak MiB, wall times.
+19. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
              calls, the stress run, two growth steps, two loop steps, an
              evaluation view, a LOD scoring view, a process step, a viewer
-             frame and an LPIPS step gave it (scan, stack, emit, expand
+             frame, an LPIPS step, a DP step and a strip gave it (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
@@ -151,14 +171,15 @@ Phases, each of which must pass (any failure exits non-zero):
              per-slot reduce the backward used to need after it (an
              [11, S] zero-fill and `index_add_` of the plain per-slot
              gradients), timed at the same shapes beside the fused kernel.
-18. profile — frames, training steps, loop steps and refines (of the
+20. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
              time, its idle share and the top device ops.
 
 The last lines are the `kernels` JSON, the card's name and power limit
 from nvidia-smi, and the result JSON. No GPU, or no brush_tpu_torch next to
-this script: exit 2 with no result.
+this script: exit 2 with no result. `--child ranks|cli ...` runs one of the
+dp phase's own child processes.
 """
 
 from __future__ import annotations
@@ -216,6 +237,23 @@ PROCESS_CAPTURED_STEP = 13
 LIVE_STEPS = 6
 FFI_STEPS = 2
 LPIPS_STEPS = 3
+# The dp phase: B views a step, steps compared, the step whose launches
+# are kept, the processes of (b) and (c), and the CLI run's length.
+DP_VIEWS = 2
+DP_STEPS = 3
+DP_CAPTURED_STEP = 2
+DP_RANKS = 2
+DP_CLI_STEPS = 6
+DP_CLI_REFINE_EVERY = 3
+SPACE_STRIPS = 2
+# The strips against the full frame: tied depth keys may blend in another
+# order (phase_space), which moves coverage only through the T < 1e-4 stop
+# (7.1e-4 at most where every depth ties, tests/test_torch_parallel.py)
+# and colours at a few pixels.
+TIE_ALPHA_TOL = 1e-3
+TIE_RGB_MEAN_TOL = 1e-3
+GROUP_TIMEOUT_S = 120       # a collective that waits longer fails
+CHILD_TIMEOUT_S = 300       # a launch of child processes, start to exit
 # LPIPS of two 256x256 images on the card against the CPU: the value,
 # relative (about 9 float32 ulps of it), and each of the five VGG taps, max
 # |d| over the tap's largest entry (the JAX package computes them at
@@ -1562,21 +1600,16 @@ def timed(torch, sink: list):
     return wrap
 
 
-def phase_process(torch, loop):
-    """`train_process` from a COLMAP dataset the phase writes, at full
-    width: eval, checkpoint, export, the LOD bake, resume and the CLI; then
-    on the same dataset the live view and the C ABI. Returns the three
-    phases' results."""
-    import shutil
-    import tempfile
-    work = tempfile.mkdtemp(prefix="brush_process_")
-    try:
-        proc = _process_run(torch, loop, work)
-        data = os.path.join(work, "scene")
-        return proc, _live_view_run(torch, data, work), _ffi_run(
-            torch, data, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+def phase_process(torch, loop, work: str):
+    """`train_process` from a COLMAP dataset the phase writes to
+    work/scene, at full width: eval, checkpoint, export, the LOD bake,
+    resume and the CLI; then on the same dataset the live view and the C
+    ABI. Returns the three phases' results (the dp phase trains on the
+    dataset too)."""
+    proc = _process_run(torch, loop, work)
+    data = os.path.join(work, "scene")
+    return proc, _live_view_run(torch, data, work), _ffi_run(
+        torch, data, work)
 
 
 def _process_run(torch, loop, work):
@@ -2337,24 +2370,6 @@ def phase_lpips(torch, serve, train):
     return res
 
 
-def _state_pairs(torch, a, b, path="state"):
-    """(path, tensor of a, tensor or None of b) for every tensor of a
-    TrainState `a`, by the same path in `b`."""
-    if torch.is_tensor(a):
-        yield path, a, b if torch.is_tensor(b) else None
-        return
-    if isinstance(a, dict):
-        items = a.items()
-        get = b.get
-    elif dataclasses.is_dataclass(a):
-        items = ((f.name, getattr(a, f.name)) for f in dataclasses.fields(a))
-        get = lambda k: getattr(b, k, None)        # noqa: E731
-    else:
-        return
-    for k, v in items:
-        yield from _state_pairs(torch, v, get(k), f"{path}.{k}")
-
-
 def plain_counted(launch, plain):
     """The plain version's result on a launch's inputs, from one run, with
     what `kernel_work` counts from that run: for the rasterizers the
@@ -2455,16 +2470,564 @@ def slot_reduce_ms(torch, inputs, slot_grads) -> float:
     return device_time(torch, reduce, ITERS)["ms"]
 
 
+def _state_pairs(torch, a, b, path="state"):
+    """(path, tensor of a, tensor or None of b) for every tensor of a
+    TrainState `a`, by the same path in `b`."""
+    if torch.is_tensor(a):
+        yield path, a, b if torch.is_tensor(b) else None
+        return
+    if isinstance(a, dict):
+        items = a.items()
+        get = b.get
+    elif dataclasses.is_dataclass(a):
+        items = ((f.name, getattr(a, f.name)) for f in dataclasses.fields(a))
+        get = lambda k: getattr(b, k, None)        # noqa: E731
+    else:
+        return
+    for k, v in items:
+        yield from _state_pairs(torch, v, get(k), f"{path}.{k}")
+
+
+def state_digest(torch, state) -> dict:
+    """sha256 of every tensor of a TrainState (the generator's state too),
+    by path: equal digests are bit-identical replicas."""
+    import hashlib
+
+    def sha(t):
+        return hashlib.sha256(t.detach().contiguous().reshape(-1).cpu().view(
+            torch.uint8).numpy()).hexdigest()
+
+    out = {path: sha(t) for path, t, _ in _state_pairs(torch, state, state)}
+    out["state.rng"] = sha(state.rng.get_state())
+    return out
+
+
+def hold_state(torch, got, want, lrs: dict) -> dict:
+    """`got` against `want` (TrainStates) under the rule of the CPU tests
+    (tests/test_torch_parallel.py): every tensor within rtol 1e-5, atol
+    1e-6. Returns per tensor path the entries outside it, the largest
+    difference, and for a parameter array the largest difference in
+    learning rates and the largest reference first moment among the
+    entries outside, against the array's largest."""
+    out = {}
+    for path, w, g in _state_pairs(torch, want, got):
+        check(g is not None and g.shape == w.shape and g.dtype == w.dtype,
+              f"{path}: {None if g is None else tuple(g.shape)} against "
+              f"{tuple(w.shape)}")
+        if not w.is_floating_point():
+            out[path] = dict(bad=int((g != w).sum()), max_abs=0.0)
+            continue
+        d = (g - w).abs()
+        bad = d > 1e-6 + 1e-5 * w.abs()
+        r = dict(bad=int(bad.sum()), max_abs=float(d.max()) if d.numel()
+                 else 0.0)
+        name = path.split(".")[-1]
+        if path.startswith("state.splats.") and name in lrs:
+            r["max_lrs"] = r["max_abs"] / lrs[name]
+            m1 = want.opt[name].moment1
+            if r["bad"]:
+                r["bad_m1_rel"] = float(m1[bad].abs().max()
+                                        / m1.abs().max())
+        out[path] = r
+    return out
+
+
+def _twin(torch, state):
+    """`state` with a generator of its own in the same state."""
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    return dataclasses.replace(state, rng=rng)
+
+
+def run_children(torch, mode: str, args: list, world: int, work: str,
+                 timeout: float = CHILD_TIMEOUT_S, torchrun: bool = False):
+    """`world` processes of this script in `--child mode`, started at once
+    (under torchrun when asked); each writes its log to work/rank<r>.log.
+    Fails the phase if one exits non-zero or outlives `timeout` (then
+    every one is killed)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    if torchrun:
+        cmds = [[sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(world),
+                 os.path.abspath(__file__), "--child", mode] + args]
+    else:
+        cmds = [[sys.executable, os.path.abspath(__file__), "--child", mode,
+                 str(r), str(world)] + args for r in range(world)]
+    logs = [open(os.path.join(work, f"{mode}{i}.log"), "w")
+            for i in range(len(cmds))]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT, env=env,
+                              cwd=REPO) for c, f in zip(cmds, logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(t0 + timeout - time.perf_counter(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    for i in range(len(cmds)):
+        with open(os.path.join(work, f"{mode}{i}.log")) as f:
+            text = f.read()
+        for line in text.splitlines()[-40 if codes != [0] * len(cmds)
+                                      else -12:]:
+            log(f"[{mode} {i}] {line}")
+    check(codes == [0] * len(cmds), f"{mode} processes exited {codes} "
+          f"after {secs:.1f} s (a negative code is a kill, at the "
+          f"{timeout} s limit)")
+    return secs
+
+
+def phase_space(torch, serve):
+    """The strip-sharded render at the serve cell: view 0 of the served
+    scene in `SPACE_STRIPS` strips, each rendered here from
+    `strip_camera_inputs` with its own planned capacity (strip 1's launches
+    kept), assembled and held to the full render; the child processes of
+    the dp phase render the same strips over gloo."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.ops.capacity import plan_caps
+    from brush_tpu_torch.ops.projection import CameraInputs
+    from brush_tpu_torch.parallel.tile_parallel import strip_camera_inputs
+    from brush_tpu_torch.render import RenderConfig, render
+
+    t_phase = time.perf_counter()
+    w, h = IMG_SIZE
+    s = serve["splats"].fold_min_scale()
+    params = (s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)
+    angle, ci, cfg = serve["plans"][0]
+    cam = views(N_VIEWS, YAW)[0][1]
+    bg = torch.zeros(3, dtype=torch.float32, device="cuda")
+    stack, h_strip = strip_camera_inputs(cam, IMG_SIZE, SPACE_STRIPS)
+    strips = [CameraInputs(*(x[i] for x in stack))
+              for i in range(SPACE_STRIPS)]
+    plans = [plan_caps(s.means, s.log_scales, s.quats, s.raw_opacities,
+                       c, (w, h_strip)) for c in strips]
+    # One RenderConfig for every strip (a strip process takes the one it
+    # is given): the widest dense expansion and the largest capacity.
+    rcfg = RenderConfig(img_size=IMG_SIZE, sh_degree=SH_DEGREE,
+                        isect_cap=max(c for _, c in plans),
+                        expand_k0=max(k for k, _ in plans), use_pallas=True,
+                        forward_only=True)
+    scfg = dataclasses.replace(rcfg, img_size=(w, h_strip))
+    kernels.reset_launches()
+    imgs, isects, captured = [], [], []
+    for i, c in enumerate(strips):
+        with (kernels.capture() if i == 1
+              else contextlib.nullcontext([])) as cap_list:
+            img, aux = render(*params, c, bg, scfg)
+        captured.extend(cap_list)
+        imgs.append(img)
+        isects.append(int(aux.num_isects))
+        check(isects[-1] <= scfg.isect_cap, f"strip {i} overflowed: "
+              f"{isects[-1]} > {scfg.isect_cap}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in kernels.SERVE_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    frame = torch.cat(imgs)[:h]
+    full, _ = render(*params, ci, bg, cfg)
+    # A strip equals the full frame up to the blend order of slots whose
+    # depth keys tie: the key keeps 32 - bit_length(num_tiles) depth bits
+    # (a strip of half the tiles one more) and tied slots keep their
+    # emission order, which a strip's clipped bounding boxes change
+    # (tests/test_torch_parallel.py shows it in both packages). The order
+    # moves colours, and coverage only through the T < 1e-4 stop.
+    d_rgb = (frame[..., :3] - full[..., :3]).abs().flatten()
+    d_alpha = float((frame[..., 3] - full[..., 3]).abs().max())
+    quant = {q: float(torch.quantile(d_rgb, q)) for q in (0.5, 0.99, 0.999)}
+    mean_rgb = float(d_rgb.mean())
+    over = {t: float((d_rgb > t).float().mean()) for t in (1e-4, 2.0 / 255)}
+    check(d_alpha <= TIE_ALPHA_TOL and mean_rgb <= TIE_RGB_MEAN_TOL,
+          f"strips against the full render: alpha max {d_alpha} (bar "
+          f"{TIE_ALPHA_TOL}), rgb mean {mean_rgb} (bar {TIE_RGB_MEAN_TOL})")
+
+    strip_ms = [time_ms(torch, lambda c=c: render(*params, c, bg, scfg),
+                        FRAMES) for c in strips]
+    frame_ms = time_ms(torch, lambda: render(*params, ci, bg, cfg), FRAMES)
+    res = dict(h_strip=h_strip, isect_cap=scfg.isect_cap,
+               expand_k0=scfg.expand_k0, strip_isects=isects,
+               strip_planned_caps=[c for _, c in plans], strip_ms=strip_ms,
+               full_frame_ms=frame_ms, rgb_quantiles=quant,
+               rgb_mean=mean_rgb, rgb_max=float(d_rgb.max()),
+               rgb_share_over=over, alpha_max=d_alpha,
+               launches=launches, captured=captured, strips=SPACE_STRIPS,
+               # + 0.0: the all_reduce's sum with zeros turns -0 into +0
+               frame=(frame + 0.0).cpu(),
+               job=dict(splats=s, cam=cam, bg=bg.cpu(), rcfg=rcfg),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[space] view yaw={angle:+.2f} in {SPACE_STRIPS} strips of "
+        f"{w}x{h_strip}: num_isects {isects} against the cap "
+        f"{scfg.isect_cap} (planned a strip {res['strip_planned_caps']}, "
+        f"expand_k0 {scfg.expand_k0}); strip ms "
+        f"{[round(x, 4) for x in strip_ms]} (CUDA events, {FRAMES} "
+        f"renders each) against the full frame's {frame_ms:.4f}; assembled "
+        f"against the full render: alpha max {d_alpha:.3g}, rgb mean "
+        f"{mean_rgb:.3g} quantiles {json.dumps(quant)} max "
+        f"{float(d_rgb.max()):.3g}, share of rgb values off by more than "
+        f"1e-4 / 2/255 {json.dumps(over)}; launches {json.dumps(launches)}")
+    return res
+
+
+def phase_dp(torch, serve, train, space, data: str, work: str):
+    """View-sharded training at the train cell: (a) `make_dp_train_step`
+    over a one-process NCCL group against the one-device batched step;
+    (b) two gloo processes sharing the card, which also render the space
+    phase's strips; (c) a 2-process torchrun launch of the CLI on the
+    process phase's dataset."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.camera import fov_to_focal
+    from brush_tpu_torch.ops import loss as loss_mod
+    from brush_tpu_torch.ops.capacity import plan_caps
+    from brush_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from brush_tpu_torch.render import RenderConfig, render
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import (
+        SceneBatch, init_train_state, stack_batches, train_step_impl)
+    from brush_tpu_torch.utils.synthetic import bench_splats
+
+    t_phase = time.perf_counter()
+    img = IMG_SIZE
+    plans = serve["plans"][:DP_VIEWS]
+    # Ground truth of every view: the train phase's for view 0, the second
+    # scene rendered for the others.
+    other = bench_splats(N_SPLATS, sh_degree=SH_DEGREE,
+                         seed=SEED + 1).fold_min_scale()
+    views_ = [train["batch"]]
+    for _, ci, _ in plans[1:]:
+        k0, cap = plan_caps(other.means, other.log_scales, other.quats,
+                            other.raw_opacities, ci, img)
+        gt, _ = render(other.means, other.log_scales, other.quats,
+                       other.sh_coeffs, other.raw_opacities, ci,
+                       torch.zeros(3, device="cuda"),
+                       RenderConfig(img_size=img, sh_degree=SH_DEGREE,
+                                    isect_cap=cap, expand_k0=k0,
+                                    use_pallas=True, forward_only=True))
+        views_.append(SceneBatch(gt_packed=loss_mod.pack_gt(gt[..., :3]),
+                                 cam=ci))
+    del other
+    batch = stack_batches(views_)
+    tcfg = TrainConfig()
+    rcfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE,
+                        isect_cap=max(c.isect_cap for _, _, c in plans),
+                        expand_k0=max(c.expand_k0 for _, _, c in plans),
+                        use_pallas=True)
+    state0 = init_train_state(serve["splats"], SEED)
+
+    # --- (a): the reference, then a one-process NCCL group ---
+    ref, ref_losses = _twin(torch, state0), []
+    for _ in range(DP_STEPS):
+        ref, stats, aux = train_step_impl(ref, batch, tcfg, rcfg,
+                                          batched=True)
+        check(not bool(stats.overflowed), "the batched step overflowed")
+        ref_losses.append(float(stats.loss))
+    lrs = dict(means=float(stats.lr_mean), log_scales=tcfg.lr_scale,
+               quats=tcfg.lr_rotation, sh_coeffs=tcfg.lr_coeffs_dc,
+               raw_opacities=tcfg.lr_opac)
+    repeat = _twin(torch, state0)
+    for _ in range(DP_STEPS):
+        repeat, _, _ = train_step_impl(repeat, batch, tcfg, rcfg,
+                                       batched=True)
+    torch.cuda.synchronize()
+    self_report = hold_state(torch, repeat, ref, lrs)
+    del repeat
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(work, "nccl_store"),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        step = make_dp_train_step(dist.group.WORLD, tcfg, rcfg)
+        state, losses, events, captured = _twin(torch, state0), [], [], []
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1, DP_STEPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with (kernels.capture() if i == DP_CAPTURED_STEP
+                  else contextlib.nullcontext([])) as cap_list:
+                state, stats, _ = step(state, batch)
+            end.record()
+            captured.extend(cap_list)
+            events.append((start, end))
+            losses.append(float(stats.loss))
+            check(not bool(stats.overflowed), f"dp step {i} overflowed")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        dist.destroy_process_group()
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
+    ms = [a.elapsed_time(b) for a, b in events]
+    report = hold_state(torch, state, ref, lrs)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    bad = {p: r for p, r in report.items() if r["bad"]}
+    log(f"[dp] (a) one-process NCCL group, B={DP_VIEWS} views at {img[0]}x"
+        f"{img[1]}, {N_SPLATS} splats sh{SH_DEGREE}: step ms "
+        f"{[round(x, 3) for x in ms]} (median {statistics.median(ms):.4f}; "
+        f"the first sets up NCCL), peak {peak_mb:.1f} MiB; losses {losses} "
+        f"against the batched step's {ref_losses} (rel {loss_rel}); tensors "
+        f"outside rtol 1e-5 atol 1e-6: {json.dumps(bad)}; the batched step "
+        f"against its own repeat: "
+        f"{json.dumps({p: r for p, r in self_report.items() if r['bad']})}")
+    check(max(loss_rel) <= 1e-5, f"dp losses {losses} against {ref_losses}")
+    check(not bad, "the dp step differs from the batched step")
+    del state
+
+    # --- (b): two gloo processes on the card, and the space strips ---
+    cams = [cam for _, cam in views(N_VIEWS, YAW)][:DP_VIEWS]
+    centers = torch.tensor(np.stack([c.position for c in cams]),
+                           dtype=torch.float32, device="cuda")
+    focals = torch.tensor([fov_to_focal(c.fov_x, img[0], c.model)
+                           for c in cams], dtype=torch.float32,
+                          device="cuda")
+    job = dict(
+        state=dataclasses.replace(state0, rng=None),
+        rng=state0.rng.get_state(), batch=batch, tcfg=tcfg, rcfg=rcfg,
+        ref=dataclasses.replace(ref, rng=None), ref_losses=ref_losses,
+        lrs=lrs, refine=(centers, focals), space=space["job"])
+    job_path = os.path.join(work, "dp_job.pt")
+    torch.save(job, job_path)
+    del job, ref
+    torch.cuda.empty_cache()
+    child_secs = run_children(torch, "ranks", [
+        job_path, "file://" + os.path.join(work, "gloo_store"), work],
+        DP_RANKS, work)
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for r, res in enumerate(ranks):
+        check(res["digests"] == ranks[0]["digests"],
+              f"rank {r}'s state differs from rank 0's after a step")
+        check(res["refined_digest"] == ranks[0]["refined_digest"]
+              and res["after"] == ranks[0]["after"],
+              f"rank {r} differs from rank 0 after the refine")
+        rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                   ref_losses)]
+        bad = {p: v for p, v in res["report"].items() if v["bad"]}
+        after = {k: v for k, v in res["after"].items() if k != "digest"}
+        log(f"[dp] (b) rank {r} of {DP_RANKS} (gloo, one card): step ms "
+            f"{[round(x, 3) for x in res['ms']]} (the cost of the "
+            f"collective path on a shared card, not a scaling figure), peak "
+            f"{res['peak_mib']:.1f} MiB; losses {res['losses']} (rel "
+            f"{rel}); tensors outside rtol 1e-5 atol 1e-6 against (a)'s "
+            f"reference: {json.dumps(bad)}; after a refine and a step "
+            f"{json.dumps(after)}")
+        check(max(rel) <= 1e-5, f"rank {r} losses {res['losses']}")
+        check(not bad, f"rank {r} differs from the batched step")
+        check(res["after"]["finite"] and res["after"]["n_alive"] > 0
+              and np.isfinite(res["after"]["loss"]),
+              f"rank {r} after the refine: {res['after']}")
+        frame = torch.load(os.path.join(work, f"frame{r}.pt"))
+        check(torch.equal(frame.view(torch.int32),
+                          space["frame"].view(torch.int32)),
+              f"rank {r}'s assembled strips differ from the strips "
+              f"rendered here")
+    log(f"[space] render_space_parallel over {DP_RANKS} gloo processes on "
+        f"one card: every process's frame equals the strips rendered here "
+        f"bit for bit; strip render ms by rank "
+        f"{[round(x['space_ms'], 4) for x in ranks]}")
+
+    # --- (c): the CLI under torchrun ---
+    out = os.path.join(work, "dp_cli")
+    os.makedirs(out)
+    export = os.path.join(out, "dp_{iter}.ply")
+    cli_secs = run_children(torch, "cli", [out, data, "--views-per-batch",
+                                           str(DP_VIEWS),
+                                           "--total-train-iters",
+                                           str(DP_CLI_STEPS),
+                                           "--refine-every",
+                                           str(DP_CLI_REFINE_EVERY),
+                                           "--eval-every", "0",
+                                           "--log-every", "1",
+                                           "--export-path", export],
+                            DP_RANKS, work, torchrun=True)
+    cli = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f"cli{r}.json")) as f:
+            cli.append(json.load(f))
+    check(cli[0]["exports"] == [export.format(iter=DP_CLI_STEPS)]
+          and all(c["exports"] == [] for c in cli[1:])
+          and os.path.isfile(export.format(iter=DP_CLI_STEPS)),
+          f"exports by rank {[c['exports'] for c in cli]}")
+    for r, c in enumerate(cli):
+        check(c["rc"] == 0 and len(c["losses"]) == DP_CLI_STEPS
+              and all(np.isfinite(c["losses"])),
+              f"rank {r}: rc {c['rc']} losses {c['losses']}")
+        settled = max([i + 1 for i in c["overflow_iters"]], default=0)
+        check(not any(c["overflowed"][settled:]),
+              f"rank {r}: a step overflowed after the capacities grew: "
+              f"{c['overflowed']}, grown after {c['overflow_iters']}")
+        check(c["digest"] == cli[0]["digest"],
+              f"rank {r}'s final state differs from rank 0's")
+        check(c["refines"] == cli[0]["refines"] and len(c["refines"]) == 1,
+              f"refines {c['refines']}")
+    log(f"[dp] (c) torchrun --nproc-per-node {DP_RANKS} of the CLI "
+        f"({cli[0]['backend']}, {DP_CLI_STEPS} steps of {DP_VIEWS} views at "
+        f"{img[0]}x{img[1]}, refine every {DP_CLI_REFINE_EVERY}): "
+        f"{cli_secs:.1f} s; losses {cli[0]['losses']}; refine "
+        f"{cli[0]['refines']}; overflowed {cli[0]['overflowed']}; peak MiB "
+        f"by rank {[round(c['peak_mib'], 1) for c in cli]}; one export, "
+        f"final states equal")
+    res = dict(step_median_ms=statistics.median(ms), step_ms=ms,
+               peak_mib=peak_mb, losses=losses, ref_losses=ref_losses,
+               steps=DP_STEPS, launches=launches, captured=captured,
+               ranks_step_ms=[x["ms"] for x in ranks],
+               ranks_step_median_ms=[statistics.median(x["ms"])
+                                     for x in ranks],
+               ranks_peak_mib=[x["peak_mib"] for x in ranks],
+               ranks_seconds=child_secs, cli_seconds=cli_secs,
+               cli_losses=cli[0]["losses"],
+               cli_peak_mib=[c["peak_mib"] for c in cli],
+               cli_backend=cli[0]["backend"],
+               seconds=time.perf_counter() - t_phase)
+    log(f"[dp] phase wall time {res['seconds']:.1f} s (children "
+        f"{child_secs:.1f} s, torchrun {cli_secs:.1f} s)")
+    return res
+
+
+def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
+                work: str) -> int:
+    """A process of the dp phase's (b): joins the gloo group, runs the DP
+    steps from the job's state, a refine and one more step, and the space
+    phase's strips; writes work/rank<r>.json and frame<r>.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from brush_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from brush_tpu_torch.parallel.tile_parallel import render_space_parallel
+    from brush_tpu_torch.train.refine import refine_step
+
+    job = torch.load(job_path, map_location="cuda", weights_only=False)
+    rng = torch.Generator(device="cuda")
+    rng.set_state(job["rng"].cpu())   # map_location moved it to the card
+    state = dataclasses.replace(job["state"], rng=rng)
+    dist.init_process_group(
+        "gloo", init_method=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        group = dist.group.WORLD
+        step = make_dp_train_step(group, job["tcfg"], job["rcfg"])
+        torch.cuda.reset_peak_memory_stats()
+        out = dict(losses=[], digests=[], ms=[])
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            state, stats, _ = step(state, job["batch"])
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(float(stats.loss))
+            out["digests"].append(state_digest(torch, state))
+        out["report"] = hold_state(torch, state, job["ref"], job["lrs"])
+        del job["ref"]
+        state, _ = refine_step(state, job["tcfg"], *job["refine"])
+        out["refined_digest"] = state_digest(torch, state)
+        state, stats, _ = step(state, job["batch"])
+        out["after"] = dict(
+            loss=float(stats.loss), n_alive=int(state.splats.n_alive),
+            finite=all(bool(torch.isfinite(v).all())
+                       for v in state.splats.params().values()),
+            digest=state_digest(torch, state))
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        del state
+        sp = job["space"]
+        with torch.no_grad():
+            frame = render_space_parallel(sp["splats"], sp["cam"], sp["bg"],
+                                          sp["rcfg"], group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render_space_parallel(sp["splats"], sp["cam"], sp["bg"],
+                                  sp["rcfg"], group)
+            torch.cuda.synchronize()
+        out["space_ms"] = (time.perf_counter() - t0) * 1e3
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(frame.cpu(), os.path.join(work, f"frame{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"rank {rank}: losses {out['losses']} step ms {out['ms']}",
+          flush=True)
+    return 0
+
+
+def child_cli(torch, out: str, argv: list) -> int:
+    """A process of the dp phase's (c), started by torchrun: `cli.main`
+    with the process functions wrapped to record what each process
+    exported, each step's overflow flag, the refines and the final state's
+    digest; writes out/cli<rank>.json."""
+    import torch.distributed as dist
+
+    from brush_tpu_torch import cli, process
+
+    rank = int(os.environ["RANK"])
+    rec = dict(exports=[], overflowed=[], overflow_iters=[], refines=[],
+               losses=[])
+    last = {}
+
+    def step_turn(real):
+        def run(loop, *a, **k):
+            res = real(loop, *a, **k)
+            rec["overflowed"].append(bool(res[1].overflowed))
+            rec["losses"].append(float(res[1].loss))
+            rec["overflow_iters"] += [m.iter for m in res[2]]
+            return res
+        return run
+
+    def refine_turn(real):
+        def run(loop, *a, **k):
+            loop, msgs = real(loop, *a, **k)
+            rec["refines"] += [m.iter for m in msgs]
+            last["state"] = loop.state
+            if dist.is_initialized():
+                rec["backend"] = dist.get_backend()
+            return loop, msgs
+        return run
+
+    def export(real):
+        def run(path, splats):
+            rec["exports"].append(path)
+            return real(path, splats)
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for name, wrap in (("_step_turn", step_turn),
+                           ("_refine_turn", refine_turn),
+                           ("_export_splats", export)):
+            stack.enter_context(wrapped(process, name, wrap))
+        rec["rc"] = cli.main(argv)
+    rec["digest"] = state_digest(torch, last["state"])
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    with open(os.path.join(out, f"cli{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec["rc"]
+
+
 def phase_kernels(torch, serve, train, direct, stress, grow, loop,
-                  init_lod, proc, viewer, lpips):
+                  init_lod, proc, viewer, lpips, dp, space):
     """Replay every launch of the first served frame, of the first training
     step, of the direct calls, of the stress run, of two growth steps (the
     overflowing first, and the first at the grown capacities), of two loop
     steps (the first, and the first after a refine), of one view of the
     evaluation after the loop, of one view of the LOD scoring, of one
     step of `train_process` (the first after its first evaluation), of one
-    /render of the web viewer and of the first training step with the
-    LPIPS term: kernel
+    /render of the web viewer, of the first training step with the
+    LPIPS term, of the second step of the dp phase's one-process group and
+    of the second strip of the space phase: kernel
     against plain version on the same inputs (each kernel module's own
     `compare` holds them), then the kernel's, the plain version's and the
     library call's times. A kernel is listed under the first of those paths
@@ -2590,7 +3153,10 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         "viewer": (viewer["launches"], by_name(viewer["captured"]),
                    viewer["frames"]),
         "lpips": (lpips["launches"], by_name(lpips["captured"]),
-                  lpips["steps"])}
+                  lpips["steps"]),
+        "dp_step": (dp["launches"], by_name(dp["captured"]), dp["steps"]),
+        "space_strip": (space["launches"], by_name(space["captured"]),
+                        space["strips"])}
     counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
     for name in kernels.KERNEL_NAMES:
@@ -2755,7 +3321,8 @@ def gpu_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script runs on "
@@ -2769,10 +3336,25 @@ def main() -> int:
     # Float32 stays float32: no TF32 in any matmul or convolution.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:2] == ["--child", "ranks"]:
+        rank, world, job, store, work = argv[2:]
+        return child_ranks(torch, int(rank), int(world), job, store, work)
+    if argv[:2] == ["--child", "cli"]:
+        return child_cli(torch, argv[2], argv[3:])
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()} tf32 off")
 
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="brush_smoke_")
+    try:
+        return _run_phases(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _run_phases(torch, work: str) -> int:
     t_all = time.perf_counter()
     phase_build()
     serve = phase_serve(torch)
@@ -2784,11 +3366,15 @@ def main() -> int:
     grow = phase_grow(torch, serve, train)
     loop = phase_loop(torch, serve)
     init_lod = phase_init_lod(torch, loop)
-    proc, live, ffi = phase_process(torch, loop)
+    proc, live, ffi = phase_process(torch, loop, work)
     viewer = phase_viewer(torch)
     lpips = phase_lpips(torch, serve, train)
+    space = phase_space(torch, serve)
+    dp = phase_dp(torch, serve, train, space, os.path.join(work, "scene"),
+                  work)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
-                                loop, init_lod, proc, viewer, lpips)
+                                loop, init_lod, proc, viewer, lpips, dp,
+                                space)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],
@@ -2834,9 +3420,9 @@ def main() -> int:
     print(json.dumps({"process_" + k: v for k, v in proc.items()
                       if k not in ("launches", "captured")}))
     for name, res in (("viewer", viewer), ("live", live), ("ffi", ffi),
-                      ("lpips", lpips)):
+                      ("lpips", lpips), ("dp", dp), ("space", space)):
         print(json.dumps({f"{name}_{k}": v for k, v in res.items()
-                          if k != "captured"}))
+                          if k not in ("captured", "frame", "job")}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,9 @@ kernels and with the plain rasterizer, each held to the same run on the
 CPU; a checkpoint restores a CUDA generator on the card. The web viewer's
 frame on the card is held to the CPU's, LPIPS on the card to the CPU's (a
 bar TF32 convolutions miss), and the C ABI trains 2 steps on the card.
+The DP step over a one-process NCCL group is held to the batched step,
+and the strip render of two gloo processes sharing the card to the full
+render.
 """
 
 import numpy as np
@@ -1096,3 +1099,122 @@ def test_c_abi_trains_on_the_card(tmp_path, cuda):
     assert (tmp_path / "c_2.ply").exists()
     for name in kernels.TRAIN_PATH:
         assert kernels.LAUNCHES[name] > 0, name
+
+
+def _dp_card_scene(dev, n_views=2, img=(96, 64)):
+    """Two views of a 1,500-splat scene on `dev`, ground truth rendered
+    from a second scene: (state, stacked batch, RenderConfig)."""
+    from brush_tpu_torch.ops.loss import pack_gt
+    from brush_tpu_torch.train.trainer import (
+        SceneBatch, init_train_state, stack_batches)
+    truth = bench_splats(1500, sh_degree=1, seed=5, device=dev)
+    splats = bench_splats(1500, sh_degree=1, seed=6, device=dev)
+    rcfg = RenderConfig(img_size=img, sh_degree=1, isect_cap=1 << 14,
+                        use_pallas=True)
+    views = []
+    for x in np.linspace(0.0, 0.8, n_views):
+        ci = camera_inputs(Camera(position=np.array([x, 0.0, -18.0]),
+                                  rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                                  fov_x=1.0, fov_y=0.7), img, device=dev)
+        with torch.no_grad():
+            gt, _ = render(*truth.params().values(), ci,
+                           torch.zeros(3, device=dev), rcfg)
+        views.append(SceneBatch(gt_packed=pack_gt(gt[..., :3]), cam=ci))
+    return init_train_state(splats, 0), stack_batches(views), rcfg
+
+
+@pytest.mark.cuda
+def test_dp_step_over_a_world_1_nccl_group_matches_the_batched_step(
+        tmp_path, cuda):
+    """`make_dp_train_step` over a one-process NCCL group (its all_reduces
+    run on the card) against `train_step_impl(batched=True)` from the same
+    state and generator: loss within 1e-5 relative; first moments within
+    1e-5 of each array's largest, second moments within 2e-5 (the
+    backward's per-splat sums are not bit-repeatable on the card,
+    `BWD_RTOL`); every parameter within 2 * lr (an Adam step moves it by
+    about lr at most); the refine record within 1e-5 of its largest."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from brush_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import train_step_impl
+    state, batch, rcfg = _dp_card_scene(cuda)
+    tcfg = TrainConfig()
+    rng = torch.Generator(device=cuda)
+    rng.set_state(state.rng.get_state())
+    twin = dataclasses.replace(state, rng=rng)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        got, g_stats, _ = make_dp_train_step(dist.group.WORLD, tcfg,
+                                             rcfg)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    want, w_stats, _ = train_step_impl(twin, batch, tcfg, rcfg,
+                                       batched=True)
+    assert abs(float(g_stats.loss) - float(w_stats.loss)) <= 1e-5 * abs(
+        float(w_stats.loss))
+    assert torch.equal(got.rng.get_state(), want.rng.get_state())
+    lrs = dict(means=float(w_stats.lr_mean), log_scales=tcfg.lr_scale,
+               quats=tcfg.lr_rotation, sh_coeffs=tcfg.lr_coeffs_dc,
+               raw_opacities=tcfg.lr_opac)
+    for name, lr in lrs.items():
+        g, w = getattr(got.splats, name), getattr(want.splats, name)
+        assert torch.isfinite(g).all(), name
+        assert float((g - w).abs().max()) <= 2 * lr + 1e-6, name
+        for which, rtol in (("moment1", 1e-5), ("moment2", 2e-5)):
+            a = getattr(got.opt[name], which)
+            b = getattr(want.opt[name], which)
+            assert float((a - b).abs().max()) <= rtol * float(
+                b.abs().max()), (name, which)
+    for name in ("refine_weight", "visible_count", "max_radius"):
+        a, b = getattr(got.refine, name), getattr(want.refine, name)
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_space_parallel_render_over_two_processes_on_one_card(tmp_path,
+                                                              cuda):
+    """`render_space_parallel` over two gloo processes sharing the card
+    (tests/torch_parallel_ranks.py), the strips assembled by an
+    all_reduce of CUDA tensors, against the full render on the card, by
+    the port's image rule (p99.9 <= 1e-4, max <= 2/255). The scene's
+    depths lie 0.01 apart, so no two depth keys tie: where they tie a
+    strip may blend them in another order (tests/test_torch_parallel.py)."""
+    # tests/ is on sys.path (pytest's import of this file puts it there).
+    from torch_parallel_ranks import run_ranks
+    rng = np.random.default_rng(0)
+    n = 3000
+    arrays = (np.stack([rng.uniform(-3, 3, n), rng.uniform(-3, 3, n),
+                        2.0 + 0.01 * rng.permutation(n)], -1).astype(
+                            np.float32),
+              np.full((n, 3), np.log(0.15), np.float32),
+              np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1)),
+              rng.uniform(0, 1, (n, 1, 3)).astype(np.float32),
+              np.full(n, 2.0, np.float32))
+    cam = Camera(position=np.zeros(3), rotation=np.array([1.0, 0, 0, 0]),
+                 fov_x=0.9, fov_y=0.9)
+    img = (256, 256)
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    rcfg = RenderConfig(img_size=img, sh_degree=0, isect_cap=1 << 16,
+                        use_pallas=True, forward_only=True)
+    ranks = run_ranks(tmp_path, 2, [dict(
+        kind="strip", device="cuda", splats=from_raw(*arrays, device="cpu"),
+        cam=cam, bg=bg, rcfg=rcfg)])
+    got = [r[0] for r in ranks]
+    assert torch.equal(got[0], got[1])
+    s = from_raw(*arrays, device=cuda)
+    with torch.no_grad():
+        want, aux = render(*s.params().values(),
+                           camera_inputs(cam, img, device=cuda),
+                           torch.from_numpy(bg).to(cuda), rcfg)
+    assert int(aux.num_isects) <= rcfg.isect_cap
+    d = (got[0] - want.cpu()).abs()
+    assert float(want[..., 3].mean()) > 0.5
+    assert float(torch.quantile(d.flatten(), 0.999)) <= 1e-4
+    assert float(d.max()) <= 2.0 / 255.0

@@ -51,7 +51,9 @@ MODULES = (
     "utils.telemetry", "utils.report", "cli",
     # the viewer, LPIPS and the C ABI
     "viewer.slot", "viewer.service", "models.lpips", "ffi_entry",
-    "native.build")
+    "native.build",
+    # multi-device training and rendering
+    "parallel.data_parallel", "parallel.tile_parallel")
 
 
 def _probe(*args) -> dict:
