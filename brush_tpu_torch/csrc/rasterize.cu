@@ -25,8 +25,13 @@
 // Design. The unit of work is one part of a tile: an 8x4 block of 32
 // pixels, one a lane of one warp. A persistent grid (as many blocks as fit
 // on the card) takes parts from an atomic counter, warp by warp, over the
-// tiles in the order `order` gives (descending span, so the longest tiles
-// start first), or in tile order where none is given. A warp stages its
+// tiles in the order `order` gives, or in tile order where none is given
+// (the wrappers give none. The training variant, medians of 3 turns, in
+// tile order against longest span first with the sort that forms the
+// order and without it: 0.43512 against 0.46835 and 0.43790 ms at the
+// train cell, 0.51622 against 0.52351 and 0.49203 at loop step 9, 0.52604
+// against 0.53040 and 0.50075 at loop step 23; the sort alone is 4 kernels
+// and 3 copies, 0.0248 ms; NVIDIA H100 80GB HBM3, 700 W). A warp stages its
 // next 32 slots itself in its own corner of shared memory (a lane loads one slot; the diet variant decodes its
 // f16 pairs there with __half2float on the raw 16 bits, bit-exact like the
 // JAX package's _f16_to_f32), so warps never wait on each other: a warp

@@ -52,8 +52,8 @@ SIGNATURES = {
     "brush_rasterize_fwd_diet": [_P, _L, _P, _P, _P, _P, _P, _I, _P],
     "brush_rasterize_fwd_train": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _P],
-    "brush_rasterize_bwd": [_P, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                            _L, _I, _I, _I, _I, _P],
+    "brush_rasterize_bwd": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _L,
+                            _I, _I, _I, _I, _P],
     "brush_expand_segments": [_P, _L, _I, _P, _P, _I, _L, _P, _P],
     "brush_fill_tile_items": [],
     "brush_fill_rows": [_P, _P, _I, _L, _P, _P, _L, _P],

@@ -71,7 +71,11 @@ class Splats:
         f2 = (self.min_scale ** 2)[:, None]
         new_s2 = s2 + f2
         new_log_scales = 0.5 * torch.log(new_s2)
-        comp = torch.sqrt(torch.prod(s2, dim=-1) / torch.prod(new_s2, dim=-1))
+        # The products written out: `torch.prod`'s backward reads a count of
+        # zeros back to the host, which stalls the stream and which a CUDA
+        # graph capture refuses (the same bits on the CPU).
+        comp = torch.sqrt((s2[:, 0] * s2[:, 1] * s2[:, 2])
+                          / (new_s2[:, 0] * new_s2[:, 1] * new_s2[:, 2]))
         sig = torch.sigmoid(self.raw_opacities) * comp
         sig = torch.clamp(sig, 1e-12, 1.0 - 1e-7)
         new_raw = torch.log(sig) - torch.log1p(-sig)

@@ -48,7 +48,7 @@ from brush_tpu_torch.constants import (
     SSIM_SIGMA,
     SSIM_WINDOW,
 )
-from brush_tpu_torch.utils.device import resolve_device
+from brush_tpu_torch.utils.device import device_constant, resolve_device
 
 
 def _gauss_taps() -> np.ndarray:
@@ -81,8 +81,7 @@ def unpack_gt_rgb(gt_packed: torch.Tensor, composite_bg=None) -> torch.Tensor:
     """f32 RGB ground truth (lib.rs unpack_gt_rgb:1126), LPIPS path only."""
     rgb, a = unpack_gt(gt_packed)
     if composite_bg is not None:
-        bg = torch.as_tensor(composite_bg, dtype=torch.float32,
-                             device=rgb.device)
+        bg = device_constant(composite_bg, rgb.device)
         rgb = rgb + (1.0 - a[..., None]) * bg
     return rgb
 
@@ -136,8 +135,7 @@ def _max0(x):
 
 def _loss_map(pred, gt_packed, cfg: ImageLossConfig, bg_dyn=None):
     gt_rgb, gt_a = unpack_gt(gt_packed)
-    bg = (torch.as_tensor(cfg.composite_bg, dtype=torch.float32,
-                          device=pred.device)
+    bg = (device_constant(cfg.composite_bg, pred.device)
           if cfg.composite_bg is not None else bg_dyn)
     if bg is not None:
         gt_rgb = gt_rgb + (1.0 - gt_a[..., None]) * bg

@@ -34,6 +34,7 @@ from brush_tpu_torch.constants import (
 )
 from brush_tpu_torch.ops import camera_proj
 from brush_tpu_torch.ops.sh import sh_to_color
+from brush_tpu_torch.utils.device import device_constant
 
 
 class CameraInputs(NamedTuple):
@@ -258,12 +259,11 @@ def project_splats(
     # Pass 2: the math on sanitized inputs. Culled splats become an inert
     # unit splat in front of the camera with ~zero opacity.
     okc = ok[:, None]
-    front = cam.cam_pos + torch.tensor([0.0, 0.0, 1.0], dtype=means.dtype,
-                                       device=means.device)
+    front = cam.cam_pos + device_constant((0.0, 0.0, 1.0), means.device,
+                                          means.dtype)
     means_s = torch.where(okc, means, front)
     ls_s = torch.where(okc, log_scales, torch.zeros_like(log_scales))
-    unit_q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=quats.dtype,
-                          device=quats.device)
+    unit_q = device_constant((1.0, 0.0, 0.0, 0.0), quats.device, quats.dtype)
     quats_s = torch.where(okc, quats, unit_q)
     # SH sanitized per coefficient: the gates don't check SH, so poisoned
     # coefficients on visible rows are kept out of the math too.

@@ -6,8 +6,8 @@ beside it (port of `brush_tpu/ops/rasterize_pallas.py`).
   (rasterize_pallas.py:152, entry `rasterize_forward_pallas` :356).
 * `rasterize_forward_train` — the training blend on the f32 SoA, which also
   returns each pixel's final transmittance and each tile's `useful_len`,
-  and the `TileSchedule` the backward kernel takes (the tile order and each
-  tile part's own useful length). The same kernel source, training
+  and the `TileSchedule` the backward kernel takes (each tile part's own
+  useful length). The same kernel source, training
   variant, replacing `_fwd_kernel` with fwd_only=False.
 * `rasterize_backward_splats` — per-splat gradients from the image
   cotangent. Kernel `csrc/rasterize_bwd.cu`, replacing `_bwd_kernel`
@@ -22,8 +22,8 @@ beside it (port of `brush_tpu/ops/rasterize_pallas.py`).
 The unit of work of the forward kernels is one part of a tile, an 8x4
 block of 32 pixels (`TILE_PARTS` of them a tile), one a lane of one warp;
 of the backward, two parts stacked. A persistent grid takes them from an
-atomic counter over the tiles, in the training kernels in descending order
-of their slot span (`tile_order`), so the longest tiles start first; a warp stages its own
+atomic counter over the tiles in tile order (a longest-first order, with
+the sort that forms it, read no faster); a warp stages its own
 batches of slots in shared memory and leaves its part once its pixels are
 done, and every pixel blends front to back with the sequential
 T *= (1 - alpha). The backward replays only its parts' useful slots and
@@ -218,22 +218,12 @@ def _by_part(x):
     return x.permute(0, 1, 3, 2, 4).reshape(t, TILE_PARTS, PART_W * PART_H)
 
 
-def tile_order(tile_ranges) -> torch.Tensor:
-    """The order the kernels hand tiles out in: descending slot span, ties
-    in tile order (a stable sort). int32 [T]."""
-    spans = tile_ranges[:, 1] - tile_ranges[:, 0]
-    return torch.sort(spans, descending=True, stable=True).indices.to(
-        torch.int32)
-
-
 class TileSchedule(NamedTuple):
-    """What the training forward hands the backward kernel: the tile order
-    (`tile_order`) and each tile part's useful length, int32 [T, 32] (part
-    q the 8x4 pixels at x = 8 (q % 4), y = 4 (q / 4)); the tile's
-    `useful_len` (row 5 of its forward tile) is the largest of its
-    parts'."""
+    """What the training forward hands the backward kernel: each tile
+    part's useful length, int32 [T, 32] (part q the 8x4 pixels at
+    x = 8 (q % 4), y = 4 (q / 4)); the tile's `useful_len` (row 5 of its
+    forward tile) is the largest of its parts'."""
 
-    order: torch.Tensor
     part_useful: torch.Tensor
 
 
@@ -328,7 +318,7 @@ def rasterize_forward_train_plain(soa, tile_ranges, bg, img_size,
     px, py = _pixel_centres(img_size, soa.device, absolute=True)
     tiles, part_useful, pairs = _blend_plain(_fetch_train(soa), tile_ranges,
                                              px, py, bg, True)
-    schedule = TileSchedule(tile_order(tile_ranges), part_useful)
+    schedule = TileSchedule(part_useful)
     return (tiles, schedule, pairs) if count_pairs else (tiles, schedule)
 
 
@@ -346,7 +336,6 @@ def rasterize_forward_train(soa, tile_ranges, bg, img_size):
     soa = soa.contiguous()
     tile_ranges = tile_ranges.contiguous()
     bg = bg.contiguous()
-    order = tile_order(tile_ranges)
     out = torch.empty((n_tiles, TRAIN_OUT_ROWS, TILE_PIX),
                       dtype=torch.float32, device=soa.device)
     # The part lengths, then the kernel's scratch: its work counter and a
@@ -355,14 +344,14 @@ def rasterize_forward_train(soa, tile_ranges, bg, img_size):
                         device=soa.device)
     part_useful = words[:n_tiles * TILE_PARTS].view(n_tiles, TILE_PARTS)
     err = build.library().brush_rasterize_fwd_train(
-        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(),
-        order.data_ptr(), bg.data_ptr(), out.data_ptr(), words.data_ptr(),
+        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(), None,
+        bg.data_ptr(), out.data_ptr(), words.data_ptr(),
         words[n_tiles * TILE_PARTS:].data_ptr(), n_tiles,
         _tile_grid(img_size)[0], build.stream_ptr(soa.device))
     build.check(err, "rasterize_forward_train")
     kernels.note_launch("rasterize_fwd_train", _replay_train, compare_train,
                         soa, tile_ranges, bg, img_size)
-    return out, TileSchedule(order, part_useful)
+    return out, TileSchedule(part_useful)
 
 
 def _replay_train(inputs):
@@ -372,8 +361,8 @@ def _replay_train(inputs):
 
 def compare_train(got, want) -> float:
     """Hold the training forward's (tiles, schedule) to the plain
-    version's: the tiles by `compare`, the tile order and every part's
-    useful length exactly."""
+    version's: the tiles by `compare`, every part's useful length
+    exactly."""
     err = compare(got[0], want[0])
     for name, g, w in zip(TileSchedule._fields, got[1], want[1]):
         if g.shape != w.shape or not torch.equal(g, w):
@@ -531,22 +520,19 @@ def rasterize_backward_splats(soa, tile_ranges, tiles, v_tiles, bg, img_size,
     if soa.device.type == "cpu":
         return rasterize_backward_splats_plain(
             soa, tile_ranges, tiles, v_tiles, bg, img_size, gid_from_isect, n)
-    order, part_useful = schedule
+    (part_useful,) = schedule
     kernels.require_cuda("rasterize_backward_splats", soa, tile_ranges,
-                         tiles, v_tiles, bg, gid_from_isect, order,
-                         part_useful)
-    if (order.dtype != torch.int32 or tuple(order.shape) != (n_tiles,)
-            or part_useful.dtype != torch.int32
+                         tiles, v_tiles, bg, gid_from_isect, part_useful)
+    if (part_useful.dtype != torch.int32
             or tuple(part_useful.shape) != (n_tiles, TILE_PARTS)):
         raise ValueError("rasterize_backward_splats: schedule must be int32 "
-                         f"[{n_tiles}] and [{n_tiles}, {TILE_PARTS}]")
+                         f"[{n_tiles}, {TILE_PARTS}]")
     soa = soa.contiguous()
     tile_ranges = tile_ranges.contiguous()
     tiles = tiles.contiguous()
     v_tiles = v_tiles.contiguous()
     bg = bg.contiguous()
     gid_from_isect = gid_from_isect.contiguous()
-    order = order.contiguous()
     part_useful = part_useful.contiguous()
     # The kernel's f64 sums and work counter (cleared by the C call), and
     # the [n, 12] f32 result its second launch rounds them into.
@@ -556,7 +542,7 @@ def rasterize_backward_splats(soa, tile_ranges, tiles, v_tiles, bg, img_size,
                       device=soa.device)
     err = build.library().brush_rasterize_bwd(
         soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(),
-        order.data_ptr(), part_useful.data_ptr(), gid_from_isect.data_ptr(),
+        part_useful.data_ptr(), gid_from_isect.data_ptr(),
         gid_from_isect.shape[0], tiles.data_ptr(), v_tiles.data_ptr(),
         bg.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, n_tiles,
         _tile_grid(img_size)[0], img_size[0], img_size[1],
@@ -564,7 +550,7 @@ def rasterize_backward_splats(soa, tile_ranges, tiles, v_tiles, bg, img_size,
     build.check(err, "rasterize_backward_splats")
     kernels.note_launch("rasterize_bwd", _replay_bwd, compare_bwd, soa,
                         tile_ranges, tiles, v_tiles, bg, img_size,
-                        gid_from_isect, n, TileSchedule(order, part_useful))
+                        gid_from_isect, n, TileSchedule(part_useful))
     return out[:, :GRAD_ROWS].T
 
 
@@ -634,24 +620,23 @@ class _RasterizeTrain(torch.autograd.Function):
     def forward(ctx, mean2d, conic, color, opac, refine_holder,
                 visible_holder, soa, tile_ranges, gid_from_isect, bg,
                 img_size):
-        tiles, (order, part_useful) = rasterize_forward_train(
+        tiles, schedule = rasterize_forward_train(
             soa, tile_ranges, bg, img_size)
         ctx.save_for_backward(soa, tiles, tile_ranges, gid_from_isect, bg,
-                              order, part_useful)
+                              schedule.part_useful)
         ctx.img_size = img_size
         ctx.n = mean2d.shape[0]
         return tiles_to_image(tiles, img_size)
 
     @staticmethod
     def backward(ctx, v_img):
-        (soa, tiles, tile_ranges, gid_from_isect, bg, order,
+        (soa, tiles, tile_ranges, gid_from_isect, bg,
          part_useful) = ctx.saved_tensors
         img_size = ctx.img_size
         with stage("rasterize_bwd"):
             per_splat = rasterize_backward_splats(
                 soa, tile_ranges, tiles, image_to_tiles(v_img, img_size), bg,
-                img_size, gid_from_isect, ctx.n,
-                TileSchedule(order, part_useful))
+                img_size, gid_from_isect, ctx.n, TileSchedule(part_useful))
         with stage("reduce"):
             v_refine = torch.clamp(
                 torch.nan_to_num(per_splat[9], nan=0.0), 0.0,

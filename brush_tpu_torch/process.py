@@ -11,7 +11,11 @@ messages come in the JAX package's order: `overflow`, `step`, `refine`,
 `eval`, `export`, `checkpoint`.
 
 `loop_step` is one turn of the training loop: a `train_step`, then the
-host's policy between steps:
+host's policy between steps. On the card, `train_process` takes the step
+from a `graphs.StepGraphs` cache (the JAX package's jitted, donated
+`step_cache`): one CUDA graph a key, replayed, the state the graph's own
+(a `LoopState` carries the cache; without one the step runs eagerly, as
+on the CPU and in a shared step):
 
 * the previous step's `num_isects` and `num_chunks` are read one step
   behind (so the read never stalls the queue of the step just enqueued)
@@ -21,9 +25,9 @@ host's policy between steps:
   doubles ahead of demand once it is 80 % full, then `refine_step`.
 
 With a live viewer (`slot=`), the dataset's views and a lazy decode of
-their ground truth are attached to the slot, and the splats are published
-to it at every log step: the trainer's own tensors, which no later step or
-refine writes into. `tcfg.lpips_loss_weight > 0` with
+their ground truth are attached to the slot, and a copy of the splats is
+published to it at every log step (a graphed step writes into the state's
+own tensors). `tcfg.lpips_loss_weight > 0` with
 `pcfg.lpips_weights` adds the LPIPS term (models/lpips.py) to every step.
 
 With a process `group` of W processes (parallel/data_parallel.py), each
@@ -53,11 +57,17 @@ from brush_tpu_torch.camera import fov_to_focal
 from brush_tpu_torch.data.dataloader import SceneLoader
 from brush_tpu_torch.data.formats import Dataset, LoadConfig, load_dataset
 from brush_tpu_torch.data.scene import AlphaMode, image_dims
+from brush_tpu_torch.graphs import StepGraphs, copy_out
 from brush_tpu_torch.io import ply as ply_io
 from brush_tpu_torch.models.splats import Splats, grow_capacity
 from brush_tpu_torch.ops.sh import rgb_to_sh_dc
 from brush_tpu_torch.parallel.data_parallel import view_share
-from brush_tpu_torch.render import RenderAux, RenderConfig, camera_inputs
+from brush_tpu_torch.render import (
+    RenderAux,
+    RenderConfig,
+    camera_arrays,
+    camera_inputs,
+)
 from brush_tpu_torch.train.config import TrainConfig
 from brush_tpu_torch.train.refine import refine_step
 from brush_tpu_torch.train.splat_init import (
@@ -124,6 +134,7 @@ class LoopState:
     rcfg: RenderConfig                   # isect_cap / chunk_cap grow here
     it: int = 0                          # steps taken (host side)
     prev_aux: RenderAux | None = None    # the last step's aux, still unread
+    graphs: StepGraphs | None = None     # the step's CUDA graphs, or eager
 
 
 def _next_pow2(n: int) -> int:
@@ -154,10 +165,15 @@ def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
     """The training step of a turn and the overflow check of the step
     before it: (LoopState, stats, ["overflow"] or [])."""
     rcfg = loop.rcfg
-    state, stats, aux = train_step_impl(
-        loop.state, batch, tcfg, rcfg, has_alpha=has_alpha,
-        alpha_is_mask=alpha_is_mask, batched=batched,
-        lpips_model=lpips_model, share=share)
+    if loop.graphs is not None:
+        state, stats, aux = loop.graphs(loop.state, batch, rcfg,
+                                        has_alpha=has_alpha,
+                                        alpha_is_mask=alpha_is_mask)
+    else:
+        state, stats, aux = train_step_impl(
+            loop.state, batch, tcfg, rcfg, has_alpha=has_alpha,
+            alpha_is_mask=alpha_is_mask, batched=batched,
+            lpips_model=lpips_model, share=share)
     it = loop.it + 1
     messages = []
 
@@ -178,8 +194,8 @@ def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
             messages.append(TrainMessage("overflow", it - 1, dict(
                 isects=p_isects, chunks=p_chunks, isect_cap=rcfg.isect_cap,
                 chunk_cap=rcfg.resolved_chunk_cap(state.splats.capacity))))
-    return (LoopState(state=state, rcfg=rcfg, it=it, prev_aux=aux), stats,
-            messages)
+    return (dataclasses.replace(loop, state=state, rcfg=rcfg, it=it,
+                                prev_aux=aux), stats, messages)
 
 
 def _memory_mb(dev: torch.device) -> dict:
@@ -361,11 +377,12 @@ class PinnedUpload:
 
 def _scene_batch(view, upload: PinnedUpload) -> SceneBatch:
     """A loaded view on the device (its packed ground truth as int32
-    words)."""
+    words), ground truth and camera through the pinned uploads."""
     words = np.ascontiguousarray(view.gt_packed, np.uint32).view(np.int32)
-    return SceneBatch(gt_packed=upload(words),
-                      cam=camera_inputs(view.camera, view.img_size,
-                                        device=upload.dev))
+    cam = camera_arrays(view.camera, view.img_size)
+    return SceneBatch(gt_packed=upload(words), cam=cam._replace(**{
+        f: upload(getattr(cam, f))
+        for f in ("viewmat", "pinhole", "clamp_limits", "cam_pos")}))
 
 
 def train_process(
@@ -465,8 +482,13 @@ def train_process(
     # (replaces the reference's exact-count readback, SURVEY.md §7). The
     # image size follows each view; the grown capacities carry over.
     first = ds.train.views[0]
+    # The JAX package's jitted, donated step: CUDA graphs on the card (the
+    # kernel path; a shared step stays eager, as on the CPU).
+    graphs = (StepGraphs(tcfg, batched=batched, lpips_model=lpips_model)
+              if dev.type == "cuda" and pcfg.use_pallas and group is None
+              else None)
     loop = LoopState(
-        state=state, it=pcfg.start_iter,
+        state=state, it=pcfg.start_iter, graphs=graphs,
         rcfg=RenderConfig(
             img_size=image_dims(ds.train.vfs, first.image_path,
                                 lcfg.max_resolution),
@@ -539,7 +561,7 @@ def train_process(
                         k: v for k, v in msg.data.items()
                         if isinstance(v, (int, float))})
                 if slot is not None:
-                    slot.set(0, state.splats)
+                    slot.set(0, copy_out(state.splats))
                 yield emit(msg)
 
             loop, refined = _refine_turn(loop, tcfg, centers, focals)
@@ -581,6 +603,8 @@ def train_process(
                                    dict(path=pcfg.ckpt_dir))
     finally:
         loader.stop()
+        if graphs is not None:
+            graphs.clear()
         if host_group is not None and host_group is not group:
             dist.destroy_process_group(host_group)
 

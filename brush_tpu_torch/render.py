@@ -100,22 +100,32 @@ class RenderAux:
     num_chunks: torch.Tensor | None = None  # [] int32
 
 
-def camera_inputs(cam: Camera, img_size: Tuple[int, int],
-                  device="cuda") -> CameraInputs:
-    """Host-side Camera -> per-view tensors on `device`."""
-    dev = resolve_device(device)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+def camera_arrays(cam: Camera, img_size: Tuple[int, int]) -> CameraInputs:
+    """Host-side Camera -> the per-view uniforms as float32 numpy arrays
+    (a `CameraInputs` of arrays), for a caller that uploads them itself."""
+    def a(x):
+        return np.ascontiguousarray(x, dtype=np.float32)
 
     return CameraInputs(
-        viewmat=t(cam.viewmat()),
-        pinhole=t(cam.pinhole_params(img_size)),
-        clamp_limits=t(cam.jacobian_clamp_limits(img_size)),
-        cam_pos=t(cam.position),
+        viewmat=a(cam.viewmat()),
+        pinhole=a(cam.pinhole_params(img_size)),
+        clamp_limits=a(cam.jacobian_clamp_limits(img_size)),
+        cam_pos=a(cam.position),
         half_max_render_fov=(cam.half_max_render_fov()
                              if is_fisheye(cam.model) else 0.0),
     )
+
+
+def camera_inputs(cam: Camera, img_size: Tuple[int, int],
+                  device="cuda") -> CameraInputs:
+    """Host-side Camera -> per-view tensors on `device` (copies from
+    pageable memory: on the card each waits for the work queued before
+    it, so it belongs outside a step or frame)."""
+    dev = resolve_device(device)
+    arrays = camera_arrays(cam, img_size)
+    return arrays._replace(**{
+        f: torch.as_tensor(getattr(arrays, f), device=dev)
+        for f in ("viewmat", "pinhole", "clamp_limits", "cam_pos")})
 
 
 def render(

@@ -58,6 +58,7 @@ from brush_tpu_torch.train.adam_scaled import (
     init_state,
 )
 from brush_tpu_torch.train.config import TrainConfig
+from brush_tpu_torch.utils.device import device_constant
 from brush_tpu_torch.utils.tracing import stage
 
 
@@ -114,9 +115,8 @@ def stack_batches(batches: list[SceneBatch]) -> SceneBatch:
         cam=CameraInputs(
             *(torch.stack([getattr(c, f) for c in cams])
               for f in ("viewmat", "pinhole", "clamp_limits", "cam_pos")),
-            half_max_render_fov=torch.tensor(
-                [float(c.half_max_render_fov) for c in cams],
-                dtype=torch.float32, device=dev)))
+            half_max_render_fov=device_constant(
+                [float(c.half_max_render_fov) for c in cams], dev)))
 
 
 def _view_of(batch: SceneBatch, v: int) -> SceneBatch:
@@ -282,8 +282,7 @@ def train_step_impl(
     # Background: base + uniform noise, clamped (config background_noise).
     # Every process draws the rows of all the step's views from its copy
     # of the generator and keeps its own, so the replicas stay equal.
-    base_bg = torch.tensor(tcfg.background_color, dtype=torch.float32,
-                           device=dev)
+    base_bg = device_constant(tcfg.background_color, dev)
     bgs = torch.clamp(
         base_bg + sample_background_noise(
             state.rng, share.total, tcfg.background_noise_strength, dev),

@@ -78,17 +78,16 @@ class TelemetryLogger:
 
     def log_memory(self, step: int) -> None:
         """Card memory snapshot (the reference logs GPU memory usage to
-        rerun on a coarse cadence, train_stream.rs:434-441), under the JAX
-        package's key names, from `torch.cuda.memory_stats()`. Nothing on
-        the CPU."""
-        if not torch.cuda.is_available():
-            return
-        s = torch.cuda.memory_stats()
-        self.log_scalars(
-            step, mem0_bytes_in_use=s.get("allocated_bytes.all.current", 0),
-            mem0_peak_bytes_in_use=s.get("allocated_bytes.all.peak", 0),
-            mem0_bytes_limit=torch.cuda.get_device_properties(
-                torch.cuda.current_device()).total_memory)
+        rerun on a coarse cadence, train_stream.rs:434-441): each card's
+        `utils.tracing.memory_stats()` as mem<i>_<key>. Nothing on the
+        CPU."""
+        from brush_tpu_torch.utils.tracing import memory_stats
+        flat = {}
+        for i, (_, s) in enumerate(sorted(memory_stats().items())):
+            for k, v in s.items():
+                flat[f"mem{i}_{k}"] = v
+        if flat:
+            self.log_scalars(step, **flat)
 
     def close(self):
         self._f.close()

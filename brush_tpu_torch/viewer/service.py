@@ -14,7 +14,10 @@ viewer's device, at the JAX viewer's fixed `isect_cap = 1 << 20`. As there,
 nothing reads `num_isects` back: a pose that needs more remainder slots
 than the cap (a million splats at 1920x1080 does) drops the slots past it
 silently. `ThreadingHTTPServer` serves each request on a thread of its own;
-`ViewerState.lock` serialises the renders.
+`ViewerState.lock` serialises the renders. On the card with the kernel
+path a frame is a replay of a CUDA graph (`graphs.RENDER_GRAPHS`, the
+counterpart of the JAX viewer's jitted `_jitted_render`), captured at the
+first frame of each size.
 """
 
 from __future__ import annotations
@@ -317,7 +320,9 @@ class ViewerState:
         orbit orientation — used by nearest-dataset-view snapping /
         training-view compare (SURVEY Appendix F). `yaw` and `pitch` are
         the client's and not used: `pos` places the orbit camera."""
+        from brush_tpu_torch.graphs import RENDER_GRAPHS
         from brush_tpu_torch.render import camera_inputs, render
+        from brush_tpu_torch.utils.device import device_constant
 
         splats = self.slot.get(frame)
         if splats is None:
@@ -330,10 +335,15 @@ class ViewerState:
             log_scales = folded.log_scales
             if splat_scale != 1.0:
                 log_scales = log_scales + math.log(max(splat_scale, 1e-6))
-            img, _ = render(
-                folded.means, log_scales, folded.quats, folded.sh_coeffs,
-                folded.raw_opacities, camera_inputs(cam, (w, h), device=dev),
-                torch.tensor(bg, dtype=torch.float32, device=dev), cfg)
+            args = (folded.means, log_scales, folded.quats,
+                    folded.sh_coeffs, folded.raw_opacities,
+                    camera_inputs(cam, (w, h), device=dev),
+                    device_constant(bg, dev))
+            if dev.type == "cuda" and cfg.use_pallas:
+                img, _ = RENDER_GRAPHS.get(render, cfg,
+                                           folded.capacity)(*args)
+            else:
+                img, _ = render(*args, cfg)
             return frame_u8(img).cpu().numpy()
 
 

@@ -6,10 +6,10 @@ publishes splat snapshots per frame index; a viewer reads the latest without
 blocking the producer. Animations are just multiple frame indices
 (brush-process/src/lib.rs:178-227).
 
-A snapshot is the trainer's `Splats` itself, not a copy: a training step,
-Adam and refine build new tensors and never write into the old ones, so a
-published snapshot stays as it was while training goes on
-(tests/test_torch_viewer.py holds that)."""
+A snapshot is a `Splats` the slot does not copy. `train_process` publishes
+a copy of its splats, since its graphed step on the card writes into the
+state's own tensors, so a published snapshot stays as it was while
+training goes on (tests/test_torch_viewer.py holds that)."""
 
 from __future__ import annotations
 

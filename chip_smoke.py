@@ -69,7 +69,8 @@ Phases, each of which must pass (any failure exits non-zero):
              are kept for the kernel phase.
 10. eval   — `eval_views` over the three views before and after the loop,
              and of the ground truth's own scene (PSNR above 60 dB, SSIM
-             within 1e-3 of 1).
+             within 1e-3 of 1); each evaluation renders through a
+             RenderGraph it captures at its first view.
 11. init-lod — `create_random_splats(10_000)` and `to_init_splats` of
              100,000 random points, each rendered once; `pup_scores` of the
              trained scene over 2 views x 2 probes and `decimate_to_count`
@@ -95,8 +96,9 @@ Phases, each of which must pass (any failure exits non-zero):
              steps at 960 px. Prints the turn's median wall time beside the
              loop phase's step, the time to first step, eval, export,
              checkpoint and LOD times, peak memory and the ground-truth
-             upload's host time (pageable against pinned). Step 13's
-             launches are kept for the kernel phase.
+             upload's host time (pageable against pinned). Every turn
+             must run on `StepGraphs`; the launches of the first capture
+             after the first refine are kept for the kernel phase.
 13. live   — on the process phase's dataset, `train_process(slot=...,
              on_message=...)` for 6 steps while `serve(slot=..., bus=...)`
              runs: /render fetched from another thread while training
@@ -117,8 +119,10 @@ Phases, each of which must pass (any failure exits non-zero):
              /render answer; /splats of 16 + 59 x 4 x 10^6 bytes; /brush.js.
              Prints the request's and `render_pose`'s median ms and each
              pose's `num_isects` against the viewer's fixed `isect_cap` of
-             2^20 (slots past it are dropped, as in the JAX viewer). One
-             /render's launches are kept for the kernel phase.
+             2^20 (slots past it are dropped, as in the JAX viewer). The
+             frames are replays of the RenderGraph the first /render
+             captures; that capture's launches are kept for the kernel
+             phase.
 16. lpips  — `random_lpips(0)` of two 256x256 images on the card within
              `LPIPS_RTOL` of the CPU, where TF32 convolutions must miss that
              bar; the weights written to an .npz and read with
@@ -147,11 +151,29 @@ Phases, each of which must pass (any failure exits non-zero):
              phase's dataset (`--child cli`, 6 steps, refine at 3): one
              export, finite losses, no overflow after growth, equal final
              states. Prints step ms, each process's peak MiB, wall times.
-19. kernels — each kernel against its plain PyTorch version, on the card,
+19. graph  — the JAX package's compiled, donated programs as CUDA graphs
+             (brush_tpu_torch/graphs.py). An eager serve frame, training
+             step and first loop turn under sync debug mode "error" (no
+             copy from the host, no read back); the serve cell's frame as
+             a RenderGraph, equal bit for bit to the eager frame for each
+             view, 12 timed replays (CUDA events, host ms a replay) and a
+             profiled replay (device ops, busy ms, each kernel's launches
+             by device name); the train cell's 1 + 5 steps on StepGraphs
+             against 1 + 5 eager steps from the same state (losses and
+             every state tensor within the backward's BWD_RTOL rule, the
+             generator equal), timed, and a profiled replay; the loop cell
+             (24 `loop_step` turns on StepGraphs in a capacity of 2^21,
+             refines at 8, 16, 24: finite after each, no overflow after
+             growth, eval PSNR within 0.05 dB of the eager loop's); the
+             process phase's turns on StepGraphs. Replays under sync debug
+             mode too. The frame's and the step's capture launches are
+             kept for the kernel phase.
+20. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
              calls, the stress run, two growth steps, two loop steps, an
              evaluation view, a LOD scoring view, a process step, a viewer
-             frame, an LPIPS step, a DP step and a strip gave it (scan, stack, emit, expand
+             frame, an LPIPS step, a DP step, a strip and the graph
+             frame's and step's captures gave it (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
@@ -160,7 +182,7 @@ Phases, each of which must pass (any failure exits non-zero):
              ops of the same calls under torch.profiler, `device_ms`: a
              call must run its own kernels (one, the backward two) and at
              most its memsets (none for the stack, emit and expand, one
-             for the others), the training forward at least one kernel; a
+             for the others); a
              trace that dropped them is taken again, and a reading of zero
              fails the phase), the plain
              version's time, a library call's where one computes the same
@@ -170,8 +192,10 @@ Phases, each of which must pass (any failure exits non-zero):
              and longest tile first; and, for each backward launch, the
              per-slot reduce the backward used to need after it (an
              [11, S] zero-fill and `index_add_` of the plain per-slot
-             gradients), timed at the same shapes beside the fused kernel.
-20. profile — frames, training steps, loop steps and refines (of the
+             gradients), timed at the same shapes beside the fused kernel;
+             the training forward in tile order against longest tile
+             first at the train cell and loop steps 9 and 23.
+21. profile — frames, training steps, loop steps and refines (of the
              state one step before the loop's last refine, so the refine
              selects and splits) under torch.profiler: the device's busy
              time, its idle share and the top device ops.
@@ -209,6 +233,7 @@ YAW = 0.3
 FRAMES = 12          # timed frames after the warm-up
 TRAIN_STEPS = 5      # timed training steps after the warm-up step
 ITERS = 20           # launches per kernel timing
+ORDER_ROUNDS = 3     # turns of the training rasterizers' tile-order timing
 STRESS_SLOTS = 30_000_000   # slots of the stress run (over N_SPLATS owners)
 LOOP_CAPACITY = 1 << 21     # splat capacity of the loop phase
 LOOP_STEPS = 24
@@ -226,11 +251,10 @@ GROW_REFINE_EVERY = 3
 # step at the grown capacities (2^21 splats, the grown tile-sort capacity).
 GROW_CAPTURED_STEPS = (1, GROW_REFINE_EVERY + 1)
 # The process phase: `train_process` over a COLMAP dataset of 8 views it
-# writes (2 held out for eval), 24 steps; the kernel phase replays the
-# launches of step 13, the first after the first evaluation.
+# writes (2 held out for eval), 24 steps on StepGraphs; the kernel phase
+# replays the launches of the first capture after the first refine.
 PROCESS_VIEWS = 8
 PROCESS_STEPS = 24
-PROCESS_CAPTURED_STEP = 13
 # The live view: `train_process` steps over the process dataset while the
 # viewer serves; the C ABI's run; the LPIPS term's timed steps after its
 # captured first.
@@ -286,14 +310,12 @@ BWD_BLEND_OPS_PER_PAIR = 54
 # Device ops a call of each kernel's wrapper may run: (its own launches, the
 # most memsets). The backward's two launches are its gradient kernel and
 # the launch that rounds its f64 sums to f32; the memsets clear a kernel's
-# scratch (look-back status words, work counters, the f64 sums). The
-# training forward still sorts its tile spans (other kernels, memsets and
-# copies), so it has no memset limit: its calls must run at least its one
-# kernel, as every entry's must. Every entry of `KERNEL_NAMES` needs a row.
+# scratch (look-back status words, work counters, the f64 sums). Every
+# entry of `KERNEL_NAMES` needs a row.
 OWN_LAUNCHES = {"scan": (1, 1), "scan_f32": (1, 1), "scan_max": (1, 1),
                 "stack": (1, 0), "emit": (1, 0), "expand": (1, 0),
                 "fill": (1, 1), "rasterize_fwd": (1, 1),
-                "rasterize_fwd_train": (1, None),
+                "rasterize_fwd_train": (1, 1),
                 "rasterize_bwd": (2, 1)}
 
 KERNEL_META = {
@@ -472,6 +494,15 @@ def scan_wrapper_us(torch, x, calls: int = 200, repeats: int = 5) -> dict:
     return us
 
 
+def tile_order(torch, tile_ranges):
+    """Longest span first: the tiles in descending slot span, ties in tile
+    order (a stable sort), int32 [T]. The rasterizer kernels take tiles in
+    tile order; this is the order they were timed against."""
+    spans = tile_ranges[:, 1] - tile_ranges[:, 0]
+    return torch.sort(spans, descending=True, stable=True).indices.to(
+        torch.int32)
+
+
 def diet_wrapper_us(torch, inputs, calls: int = 200,
                     repeats: int = 5) -> dict:
     """Host time, in microseconds a call, of the diet forward's wrapper
@@ -504,7 +535,7 @@ def diet_wrapper_us(torch, inputs, calls: int = 200,
             soa.data_ptr(), soa.shape[1], ranges.data_ptr(), None,
             bg.data_ptr(), words.data_ptr(), words[-1:].data_ptr(), n_tiles,
             stream),
-        "tile_order": lambda: rc.tile_order(ranges),
+        "tile_order": lambda: tile_order(torch, ranges),
     }
     us = host_us(torch, pieces, calls, repeats)
     us["rest"] = us["call"] - sum(us[k] for k in (
@@ -521,7 +552,7 @@ def diet_order_ms(torch, launch) -> dict:
 
     soa, ranges, bg, _ = launch.inputs
     n_tiles = ranges.shape[0]
-    order = rc.tile_order(ranges)
+    order = tile_order(torch, ranges)
     sorted_first = rc._launch_diet(soa, ranges, bg, n_tiles, order)
     launch.compare(sorted_first, rc.rasterize_forward_plain(*launch.inputs))
     del sorted_first
@@ -530,7 +561,7 @@ def diet_order_ms(torch, launch) -> dict:
         "longest_first": lambda: rc._launch_diet(soa, ranges, bg, n_tiles,
                                                  order),
         "longest_first_with_sort": lambda: rc._launch_diet(
-            soa, ranges, bg, n_tiles, rc.tile_order(ranges)),
+            soa, ranges, bg, n_tiles, tile_order(torch, ranges)),
     }
     return {k: device_time(torch, fn, ITERS)["ms"] for k, fn in ms.items()}
 
@@ -1225,18 +1256,22 @@ def _ground_truths(torch, scene, cams):
 
 def phase_eval(torch, what, splats, truths, rcfg, bar=None, keep=False):
     """`eval_views` of `splats` over the views of `truths`. With `bar`
-    (min PSNR dB, max |1 - SSIM|) the scene is held to it. With `keep` the
-    first view's launches are returned for the kernel phase."""
-    from brush_tpu_torch import kernels
+    (min PSNR dB, max |1 - SSIM|) the scene is held to it. The views render
+    through a RenderGraph, captured at the first view (the cache is emptied
+    first, so the counters count this evaluation's capture); with `keep`
+    the capture's launches are returned for the kernel phase."""
+    from brush_tpu_torch import graphs, kernels
     from brush_tpu_torch.train.eval import eval_views
+    graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
     t0 = time.perf_counter()
     with kernels.capture() as cap_list:
         stats = eval_views(splats, [(cam, gt) for cam, _, gt in truths], rcfg)
     secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    captured = first_run(cap_list, len(truths)) if keep else []
+    captured = list(cap_list) if keep else []
     del cap_list
+    check(not keep or captured, "the evaluation's capture recorded nothing")
     log(f"[eval] {what}: psnr={stats.psnr:.4f} dB ssim={stats.ssim:.6f} "
         f"per view psnr {[round(x, 4) for x in stats.per_view_psnr]} ssim "
         f"{[round(x, 6) for x in stats.per_view_ssim]} "
@@ -1316,6 +1351,9 @@ def phase_loop(torch, serve):
     # scene the refine has permuted and grown).
     captured_steps = (1, REFINE_EVERY + 1)
     captured = []
+    # The training forward's launch of the last step without a refine (the
+    # loop's deepest scene), for the kernel phase's tile-order timing.
+    late_step, late = LOOP_STEPS - 1, []
     with record_stages() as recs:
         for i in range(LOOP_STEPS):
             if (i + 1) % REFINE_EVERY == 0:
@@ -1327,11 +1365,14 @@ def phase_loop(torch, serve):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            with (kernels.capture() if i + 1 in captured_steps
+            with (kernels.capture() if i + 1 in captured_steps + (late_step,)
                   else contextlib.nullcontext([])) as cap_list:
                 loop, stats, msgs = loop_step(loop, batches[i % N_VIEWS],
                                               tcfg, centers, focals)
-            captured += cap_list
+            if i + 1 == late_step:
+                late = [c for c in cap_list if c.name == "rasterize_fwd_train"]
+            else:
+                captured += cap_list
             end.record()
             events.append((start, end))
             all_stats.append(stats)
@@ -1345,7 +1386,7 @@ def phase_loop(torch, serve):
         stages = stage_ms(recs)
     launches = dict(kernels.LAUNCHES)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    held_mb = held_mib(torch, captured)
+    held_mb = held_mib(torch, captured + late)
     ms = [a.elapsed_time(b) for a, b in events]
     state = loop.state
 
@@ -1398,7 +1439,7 @@ def phase_loop(torch, serve):
         f"{stages.get('refine', 0.0) / len(refines):.4f} (device time of "
         f"`refine_step`, mean of {len(refines)}) peak_memory_MiB="
         f"{peak_mb:.1f} (of it {held_mb:.1f} MiB are kernel inputs of steps "
-        f"{list(captured_steps)}, kept for the kernel phase) "
+        f"{list(captured_steps) + [late_step]}, kept for the kernel phase) "
         f"capacity={cap} live={n_alive} overflowed_steps="
         f"{[i + 1 for i, f in enumerate(flags) if f]} isect_cap="
         f"{loop.rcfg.isect_cap}")
@@ -1426,7 +1467,7 @@ def phase_loop(torch, serve):
                 refine_ms=stages.get("refine", 0.0) / len(refines),
                 refine_step_ms=[ms[i - 1] for i in refine_steps],
                 peak_mb=peak_mb, held_mb=held_mb,
-                launches=launches, captured=captured,
+                launches=launches, captured=captured, late_captured=late,
                 eval_launches=ev_after["launches"],
                 eval_captured=ev_after["captured"],
                 profiled_refine=profiled_refine,
@@ -1613,7 +1654,7 @@ def phase_process(torch, loop, work: str):
 
 
 def _process_run(torch, loop, work):
-    from brush_tpu_torch import cli, kernels, process
+    from brush_tpu_torch import cli, graphs, kernels, process
     from brush_tpu_torch.camera import Camera, Pinhole, focal_to_fov
     from brush_tpu_torch.data.formats import LoadConfig
     from brush_tpu_torch.io import ply
@@ -1697,16 +1738,22 @@ def _process_run(torch, loop, work):
                          export_path=os.path.join(out, "out_{iter}.ply"),
                          use_pallas=True, sh_degree=SH_DEGREE, seed=SEED)
     turns, flags, captured, final = [], [], [], {}
+    graphed = []      # (the turn ran on StepGraphs, its captures so far)
     secs = dict(eval=[], export=[], save=[], lod=[])
 
     def step_turn(real):
         def run(loop_state, *a, **k):
             turns.append(time.perf_counter())
             it = loop_state.it + 1
-            with (kernels.capture() if it == PROCESS_CAPTURED_STEP
+            # The launches of the first capture after the first refine
+            # (the layout its 3D filter floor makes is a new key).
+            with (kernels.capture() if it > REFINE_EVERY and not captured
                   else contextlib.nullcontext([])) as cap_list:
                 res = real(loop_state, *a, **k)
             captured.extend(cap_list)
+            steps = res[0].graphs
+            graphed.append((steps is not None,
+                            steps.captures if steps is not None else 0))
             flags.append(res[1].overflowed)
             if it == PROCESS_STEPS:
                 final.update(state=res[0].state,
@@ -1714,6 +1761,9 @@ def _process_run(torch, loop, work):
             return res
         return run
 
+    # No render graph carries over from an earlier phase: this run's
+    # frames capture their own, so the counters count them.
+    graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1764,6 +1814,7 @@ def _process_run(torch, loop, work):
     check(psnr[1] >= psnr[0] - 0.5, f"eval psnr fell: {psnr}")
     for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
         check(launches[name] > 0, f"kernel {name} was not launched")
+    check(captured, "no capture after the first refine recorded launches")
 
     # The checkpoint restores the state of step 24 bit for bit, generator
     # included, and the final export is its folded live rows.
@@ -1861,7 +1912,9 @@ def _process_run(torch, loop, work):
         resumed_losses=[m.data["loss"] for m in r_steps], psnr=psnr,
         ssim=ssim, refines=[m.data for m in refines],
         overflows=[m.data for m in overflows],
-        live=n, lod_live=lod.num_splats)
+        live=n, lod_live=lod.num_splats,
+        graphed_turns=sum(g for g, _ in graphed),
+        graph_captures=graphed[-1][1])
     log(f"[process] train_process {PROCESS_STEPS} steps in {run_secs:.3f} s: "
         f"step_median_ms={res['step_median_ms']:.4f} (host clock between "
         f"turns, {len(turn_ms)} turns without a refine or eval; min "
@@ -1877,7 +1930,8 @@ def _process_run(torch, loop, work):
         f"{ckpt_bytes} bytes; LOD bake {res['lod_bake_s']:.3f} s; peak "
         f"{peak_mb:.1f} MiB, {peak_mb - base_mb:.1f} over the {base_mb:.1f} "
         f"earlier phases held at its start (of it {held_mb:.1f} MiB kernel "
-        f"inputs of step {PROCESS_CAPTURED_STEP}); resume "
+        f"inputs of a capture); {res['graphed_turns']} turns on StepGraphs, "
+        f"{res['graph_captures']} captures; resume "
         f"{resume_secs:.3f} s; cli "
         f"{cli_secs:.3f} s")
     log(f"[process] losses {[round(x, 6) for x in losses]} resumed "
@@ -1927,7 +1981,7 @@ def phase_viewer(torch):
 
 
 def _viewer_run(torch, work):
-    from brush_tpu_torch import kernels
+    from brush_tpu_torch import graphs, kernels
     from brush_tpu_torch.io import ply
     from brush_tpu_torch.render import camera_inputs, render
     from brush_tpu_torch.utils.synthetic import bench_splats
@@ -1977,11 +2031,19 @@ def _viewer_run(torch, work):
             return "/render?" + q
 
         splats = slot.get(0)
+        graphs.RENDER_GRAPHS.clear()
         kernels.reset_launches()
         n_frames = 0
         isects = {}
+        captured = []
         for name, (pos, kw) in poses.items():
-            body = _http(port, query(pos, kw))
+            # The first /render captures the viewer's RenderGraph (the
+            # server's thread launches it; nothing else runs meanwhile):
+            # its launches are kept for the kernel phase.
+            with (kernels.capture() if not captured
+                  else contextlib.nullcontext([])) as cap_list:
+                body = _http(port, query(pos, kw))
+            captured += cap_list
             n_frames += 1
             got = _jpeg(body)
             check(got.shape == (h, w, 3), f"{name}: JPEG {got.shape}")
@@ -2022,12 +2084,6 @@ def _viewer_run(torch, work):
             state.render_pose(pos, 0.0, 0.0, w, h, 0)
             pose_ms.append((time.perf_counter() - t1) * 1e3)
         n_frames += 10
-        # One /render's launches for the kernel phase (the server's thread
-        # launches them; nothing else runs meanwhile).
-        with kernels.capture() as cap_list:
-            _http(port, query(pos, kw))
-        n_frames += 1
-        captured = list(cap_list)
         launches = dict(kernels.LAUNCHES)
         for name in kernels.SERVE_PATH:
             check(launches[name] > 0, f"kernel {name} was not launched")
@@ -2071,7 +2127,7 @@ def _live_view_run(torch, data: str, work: str):
     bus=...)` answers /render from another thread and streams /events."""
     import threading
 
-    from brush_tpu_torch import kernels
+    from brush_tpu_torch import graphs, kernels
     from brush_tpu_torch.data.formats import LoadConfig
     from brush_tpu_torch.process import ProcessConfig, train_process
     from brush_tpu_torch.train.config import TrainConfig
@@ -2121,6 +2177,9 @@ def _live_view_run(torch, data: str, work: str):
         time.sleep(0.01)
     fetcher = threading.Thread(target=fetch, daemon=True)
     fetcher.start()
+    # No render graph carries over from an earlier phase: this run's
+    # frames capture their own, so the counters count them.
+    graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
     try:
         t0 = time.perf_counter()
@@ -2440,14 +2499,14 @@ def kernel_work(launch, got, pairs):
                 int(pairs[0]) * RASTER_OPS_PER_PAIR,
                 [n_tiles, int(spans.sum()), int(spans.max())])
     # rasterize_bwd: reads the replayed slots' nine attributes and splat
-    # ids, the saved and cotangent tiles and the schedule (tile order, part
+    # ids, the saved and cotangent tiles and the schedule (the part
     # lengths); writes the [11, n] per-splat sums.
     replayed, blended = pairs
     useful = inputs[2][:, 5, 0].to(torch.int64)
     return (int(useful.sum()) * (rasterize_cuda.TRAIN_ROWS + 1) * 4
             + n_tiles * (8 + (rasterize_cuda.TRAIN_OUT_ROWS
                               + rasterize_cuda.V_ROWS) * tile_bytes) + 12
-            + n_tiles * (1 + rasterize_cuda.TILE_PARTS) * 4
+            + n_tiles * rasterize_cuda.TILE_PARTS * 4
             + got.numel() * 4,
             int(replayed) * BWD_REPLAY_OPS_PER_PAIR
             + int(blended) * BWD_BLEND_OPS_PER_PAIR,
@@ -3017,8 +3076,459 @@ def child_cli(torch, out: str, argv: list) -> int:
     return rec["rc"]
 
 
+# The device kernels of csrc/ by the names a profiler trace gives them: a
+# substring of the demangled name, with a second one where one template
+# serves several entries. The backward runs two (gradients, then rounding);
+# a launch of it counts once, by its first.
+KERNEL_SYMBOLS = (
+    ("scan", "scan_rows_kernel", "SumU32"),
+    ("scan_f32", "scan_rows_kernel", "SumF32"),
+    ("scan_max", "scan_rows_kernel", "MaxI32"),
+    ("stack", "stack_rows_kernel", ""),
+    ("emit", "emit_slots_kernel", ""),
+    ("rasterize_fwd", "rasterize_fwd_kernel<false>", ""),
+    ("rasterize_fwd_train", "rasterize_fwd_kernel<true>", ""),
+    ("rasterize_bwd", "rasterize_bwd_kernel", ""),
+    ("expand", "expand_segments_kernel", ""),
+    ("fill", "fill_rows_kernel", ""))
+
+
+def sync_free(torch, what: str, fn):
+    """`fn()` under `torch.cuda.set_sync_debug_mode("error")`: a copy from
+    pageable memory or a read back to the host inside it fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise PhaseError(f"{what} synchronised the stream: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[graph] {what}: no synchronisation (sync debug mode 'error')")
+
+
+def replay_profile(torch, what: str, fn, runs: int = 1) -> dict:
+    """Device ops, busy ms and the launches of each kernel of csrc/ (by
+    its device name) a run of `fn` (a graph's replay: launched as one
+    graph, so the wrappers' counters do not see them), from a
+    torch.profiler trace of `runs` runs; and the host's ms to launch a
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / runs
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    host = {e.name for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CUDA}
+    busy, n_ops = 0.0, 0
+    kernels_seen = {name: 0 for name, _, _ in KERNEL_SYMBOLS}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name in host):
+            continue
+        busy += e.time_range.elapsed_us() / 1e3
+        n_ops += 1
+        for name, sym, variant in KERNEL_SYMBOLS:
+            if sym in e.name and variant in e.name:
+                kernels_seen[name] += 1
+    res = dict(device_busy_ms=busy / runs, device_ops=n_ops / runs,
+               profiled_wall_ms=wall_ms, host_ms=host_ms,
+               kernels={k: v / runs for k, v in kernels_seen.items() if v})
+    log(f"[graph] {what}, profiled replay: {res['device_ops']:.1f} device "
+        f"ops, busy {res['device_busy_ms']:.4f} ms of "
+        f"{res['profiled_wall_ms']:.4f} ms (idle share "
+        f"{1.0 - res['device_busy_ms'] / res['profiled_wall_ms']:.4f}), "
+        f"host {res['host_ms']:.4f} ms to launch; kernels of csrc/ by "
+        f"device name " + json.dumps(res["kernels"]))
+    return res
+
+
+def hold_steps(torch, got, want, lrs: dict, steps: int,
+               rtol: float | None = None) -> dict:
+    """A TrainState `got` from `steps` graphed steps against `want` from
+    the same steps run eagerly on the card, under the rule of the
+    backward's non-repeatable f64 atomics (`rtol`, by default `BWD_RTOL`:
+    per-splat gradients within 1e-5 of each row's largest, the sums' last
+    rounding in atomic order): integer tensors equal; every float tensor
+    within rtol of its array's largest entry (+ BWD_ATOL), the Adam second
+    moments (square in the gradient) within twice that; a parameter array
+    also within 2 * lr * steps, Adam's step for an entry whose gradient is
+    rounding noise being lr * sign(noise). Returns the largest difference
+    by path; raises PhaseError outside the rule."""
+    from brush_tpu_torch.ops.rasterize_cuda import BWD_ATOL, BWD_RTOL
+    rtol = BWD_RTOL if rtol is None else rtol
+    out = {}
+    for path, w, g in _state_pairs(torch, want, got):
+        check(g is not None and g.shape == w.shape and g.dtype == w.dtype,
+              f"{path}: {None if g is None else tuple(g.shape)} against "
+              f"{tuple(w.shape)}")
+        if not w.is_floating_point():
+            check(torch.equal(g, w), f"{path}: {int((g != w).sum())} "
+                  f"entries differ")
+            out[path] = 0.0
+            continue
+        d = float((g - w).abs().max()) if w.numel() else 0.0
+        top = float(w.abs().max()) if w.numel() else 0.0
+        limit = (2.0 if path.endswith("moment2") else 1.0) * (
+            rtol * top + BWD_ATOL)
+        name = path.split(".")[-1]
+        if path.startswith("state.splats.") and name in lrs:
+            limit = max(limit, 2.0 * lrs[name] * steps)
+        check(d <= limit and np.isfinite(d),
+              f"{path}: graphed against eager max |d| {d:.3g} past "
+              f"{limit:.3g} (largest entry {top:.3g})")
+        out[path] = d
+    return out
+
+
+def phase_graph(torch, serve, train, loop, proc):
+    """The JAX package's compiled, donated programs on the card: the eager
+    frame, step and loop turn run under sync debug mode, then the graphed
+    serve, train and loop cells held to the eager ones, with their times
+    and one profiled replay each; `train_process` (the process phase) ran
+    through `StepGraphs`. The launches of the frame's and the step's
+    captures are kept for the kernel phase."""
+    from brush_tpu_torch import graphs, kernels
+    from brush_tpu_torch.ops.rasterize_cuda import BWD_RTOL
+    from brush_tpu_torch.process import LoopState, loop_step
+    from brush_tpu_torch.render import RenderConfig, render
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import SceneBatch, init_train_state
+    from brush_tpu_torch.train.trainer import train_step_impl
+    from brush_tpu_torch.utils.synthetic import bench_splats
+
+    t_phase = time.perf_counter()
+    img = IMG_SIZE
+    plans = serve["plans"]
+    serve_cfg = plans[0][2]
+    s = serve["splats"].fold_min_scale()
+    params = (s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)
+    bg = torch.zeros(3, dtype=torch.float32, device="cuda")
+    cams = [ci for _, ci, _ in plans]
+    # One graph a RenderConfig: the three views share the largest expansion
+    # width and remainder capacity they planned.
+    cfg = dataclasses.replace(
+        serve_cfg, expand_k0=max(p[2].expand_k0 for p in plans),
+        isect_cap=max(p[2].isect_cap for p in plans))
+    tcfg = TrainConfig()
+    rcfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE,
+                        isect_cap=serve_cfg.isect_cap,
+                        expand_k0=serve_cfg.expand_k0, use_pallas=True)
+    batch = train["batch"]
+    state0 = init_train_state(serve["splats"], SEED)
+    truths = loop["truths"]
+    centers = torch.tensor(np.stack([cam.position for cam, _, _ in truths]),
+                           dtype=torch.float32, device="cuda")
+    focals = torch.tensor([cam.focal(img)[0] for cam, _, _ in truths],
+                          dtype=torch.float32, device="cuda")
+    wants = [render(*params, ci, bg, cfg) for ci in cams]
+    torch.cuda.synchronize()
+
+    # --- the eager path holds no synchronisation ---
+    sync_free(torch, "eager serve frame",
+              lambda: render(*params, cams[0], bg, cfg))
+    sync_free(torch, "eager training step", lambda: train_step_impl(
+        _twin(torch, state0), batch, tcfg, rcfg))
+    floored = dataclasses.replace(state0, splats=dataclasses.replace(
+        state0.splats, min_scale=torch.full((N_SPLATS,), 0.01,
+                                            device="cuda")))
+    sync_free(torch, "eager training step with a 3D filter floor",
+              lambda: train_step_impl(_twin(torch, floored), batch, tcfg,
+                                      rcfg))
+    del floored
+    sync_free(torch, "eager loop turn (its first: the one-step-behind "
+              "overflow read comes a turn later)", lambda: loop_step(
+                  LoopState(state=_twin(torch, state0), rcfg=rcfg), batch,
+                  tcfg, centers, focals))
+
+    # --- serve cell: the frame as a RenderGraph ---
+    graphs.RENDER_GRAPHS.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with kernels.capture() as cap_frame:
+        graphs.RENDER_GRAPHS.get(render, cfg, N_SPLATS)(*params, cams[0], bg)
+    torch.cuda.synchronize()
+    frame_capture_s = time.perf_counter() - t0
+    frame_launches = dict(kernels.LAUNCHES)
+    frame = graphs.RENDER_GRAPHS.get(render, cfg, N_SPLATS)
+    for v, (ci, (want, w_aux)) in enumerate(zip(cams, wants)):
+        out, aux = frame(*params, ci, bg)
+        check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+              f"graph frame of view {v} differs from the eager frame at "
+              f"{int((out != want).any(-1).sum())} pixels")
+        check(int(aux.num_isects) == int(w_aux.num_isects),
+              f"view {v}: num_isects {int(aux.num_isects)} against "
+              f"{int(w_aux.num_isects)}")
+    events, host_ms = [], []
+    for f in range(FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        frame(*params, cams[f % len(cams)], bg)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    frame_ms = [a.elapsed_time(b) for a, b in events]
+    sync_free(torch, "graph frame replay", lambda: frame(*params, cams[1],
+                                                         bg))
+    frame_host_us = host_us(torch, {
+        "call": lambda: frame(*params, cams[0], bg),
+        "replay": lambda: frame._graph.replay(),
+    }, calls=3, repeats=3)
+    log("[graph] serve frame replay, host us a call: "
+        + json.dumps({k: round(v, 1) for k, v in frame_host_us.items()}))
+    frame_prof = replay_profile(torch, "serve frame",
+                                lambda: frame(*params, cams[0], bg))
+    for name in kernels.SERVE_PATH:
+        check(frame_prof["kernels"].get(name, 0) > 0,
+              f"the replayed frame launched no {name}")
+        check(any(c.name == name for c in cap_frame),
+              f"the frame's capture recorded no {name}")
+    res = dict(frame_median_ms=statistics.median(frame_ms),
+               frame_ms=frame_ms, frame_host_ms=statistics.median(host_ms),
+               frame_capture_s=frame_capture_s, frame_host_us=frame_host_us,
+               eager_frame_median_ms=serve["median_ms"],
+               eager_frame_host_ms=serve["host_ms"],
+               frame_replay=frame_prof, frame_launches=frame_launches,
+               frame_config=dict(expand_k0=cfg.expand_k0,
+                                 isect_cap=cfg.isect_cap))
+    log(f"[graph] serve cell: {len(cams)} views, each graph frame equal to "
+        f"the eager frame bit for bit (expand_k0={cfg.expand_k0} isect_cap="
+        f"{cfg.isect_cap}); capture {frame_capture_s:.3f} s; "
+        f"frame_median_ms={res['frame_median_ms']:.4f} over {FRAMES} "
+        f"replays (min {min(frame_ms):.4f} max {max(frame_ms):.4f}) "
+        f"host_ms_a_replay={res['frame_host_ms']:.4f}; eager frame "
+        f"{serve['median_ms']:.4f} ms, host {serve['host_ms']:.4f} ms")
+    del wants, frame
+    graphs.RENDER_GRAPHS.clear()
+
+    # --- train cell: 1 + TRAIN_STEPS steps, graphed against eager ---
+    eager, graphed = _twin(torch, state0), _twin(torch, state0)
+    steps = graphs.StepGraphs(tcfg)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with kernels.capture() as cap_step:
+        graphed, g_stats, _ = steps(graphed, batch, rcfg)
+    torch.cuda.synchronize()
+    step_capture_s = time.perf_counter() - t0
+    step_launches = dict(kernels.LAUNCHES)
+    eager, e_stats, _ = train_step_impl(eager, batch, tcfg, rcfg)
+    stats_by = {"graph": [g_stats], "eager": [e_stats]}
+    timing = {"graph": ([], []), "eager": ([], [])}
+    # The eager steps, then the replays, each run back to back as a
+    # training loop runs them.
+    for how in ("eager", "graph"):
+        for _ in range(TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            if how == "graph":
+                graphed, st, _ = steps(graphed, batch, rcfg)
+            else:
+                eager, st, _ = train_step_impl(eager, batch, tcfg, rcfg)
+            timing[how][1].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            timing[how][0].append((start, end))
+            stats_by[how].append(st)
+        torch.cuda.synchronize()
+    pairs = list(zip(stats_by["graph"], stats_by["eager"]))
+    losses = [(float(g.loss), float(e.loss)) for g, e in pairs]
+    for k, (g, e) in enumerate(losses, start=1):
+        check(np.isfinite(g) and abs(g - e) <= BWD_RTOL * abs(e),
+              f"step {k}: graphed loss {g} against eager {e}")
+    check(not any(bool(g.overflowed) for g, _ in pairs), "a step overflowed")
+    lrs = dict(means=tcfg.lr_mean * float(state0.median_scale),
+               log_scales=tcfg.lr_scale, quats=tcfg.lr_rotation,
+               sh_coeffs=tcfg.lr_coeffs_dc, raw_opacities=tcfg.lr_opac)
+    diffs = hold_steps(torch, graphed, eager, lrs, 1 + TRAIN_STEPS)
+    check(torch.equal(graphed.rng.get_state(), eager.rng.get_state()),
+          "the generator after the graphed steps differs from eager's")
+    check(steps.captures == 1, f"{steps.captures} captures for one key")
+    step_ms = {k: [a.elapsed_time(b) for a, b in ev]
+               for k, (ev, _) in timing.items()}
+    sync_free(torch, "graph step replay",
+              lambda: steps(graphed, batch, rcfg))
+    # Where the host's time of a graphed step goes: the cache key, the
+    # replay's launch and the copies out (3 calls back to back).
+    step_host_us = host_us(torch, {
+        "call": lambda: steps(graphed, batch, rcfg),
+        "key": lambda: graphs.step_key(graphed, rcfg, False, False),
+        "replay": lambda: steps.graph._graph.replay(),
+        "copy_out": lambda: graphs.copy_out(steps.graph._outs),
+    }, calls=3, repeats=3)
+    log("[graph] training step replay, host us a call: "
+        + json.dumps({k: round(v, 1) for k, v in step_host_us.items()}))
+    step_prof = replay_profile(torch, "training step",
+                               lambda: steps(graphed, batch, rcfg))
+    for name in kernels.TRAIN_PATH:
+        check(step_prof["kernels"].get(name, 0) > 0,
+              f"the replayed step launched no {name}")
+        check(any(c.name == name for c in cap_step),
+              f"the step's capture recorded no {name}")
+    res.update(
+        step_median_ms=statistics.median(step_ms["graph"]),
+        step_ms=step_ms["graph"],
+        step_host_ms=statistics.median(timing["graph"][1]),
+        eager_step_median_ms=statistics.median(step_ms["eager"]),
+        eager_step_host_ms=statistics.median(timing["eager"][1]),
+        step_capture_s=step_capture_s, step_losses=losses,
+        step_host_us=step_host_us,
+        step_max_abs_diff={k: v for k, v in diffs.items() if v},
+        step_replay=step_prof, step_launches=step_launches)
+    log(f"[graph] train cell: {1 + TRAIN_STEPS} steps graphed and eager "
+        f"from one state, losses {[(round(g, 7), round(e, 7)) for g, e in losses]}"
+        f", every state tensor within the rule (largest |d| by path "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in diffs.items() if v})
+        + f"), the generator equal; capture {step_capture_s:.3f} s; "
+        f"step_median_ms={res['step_median_ms']:.4f} host_ms_a_replay="
+        f"{res['step_host_ms']:.4f}; eager in the same run "
+        f"{res['eager_step_median_ms']:.4f} ms, host "
+        f"{res['eager_step_host_ms']:.4f} ms")
+    steps.clear()
+    del eager, graphed, pairs
+
+    # --- loop cell: LOOP_STEPS turns of loop_step on the graph ---
+    tcfg_loop = TrainConfig(refine_every=REFINE_EVERY)
+    student = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED,
+                           capacity=LOOP_CAPACITY)
+    batches = [SceneBatch(gt_packed=gt, cam=ci) for _, ci, gt in truths]
+    gl = LoopState(state=init_train_state(student, SEED), rcfg=rcfg,
+                   graphs=graphs.StepGraphs(tcfg_loop))
+    del student
+    events, flags, messages = [], [], []
+    for i in range(LOOP_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gl, stats, msgs = loop_step(gl, batches[i % N_VIEWS], tcfg_loop,
+                                    centers, focals)
+        end.record()
+        events.append((start, end))
+        flags.append(stats.overflowed)
+        messages += msgs
+        if any(m.kind == "refine" for m in msgs):
+            n_alive = int(gl.state.splats.n_alive)
+            for name, x in gl.state.splats.params().items():
+                check(bool(torch.isfinite(x[:n_alive]).all()),
+                      f"{name} not finite after the refine at {i + 1}")
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    refines = [m.iter for m in messages if m.kind == "refine"]
+    overflows = [m for m in messages if m.kind == "overflow"]
+    check(refines == list(range(REFINE_EVERY, LOOP_STEPS + 1, REFINE_EVERY)),
+          f"refines at {refines}")
+    flags = [bool(f) for f in flags]
+    settled = max([m.iter + 1 for m in overflows], default=0)
+    check(not any(flags[settled:]), f"a step overflowed after growth: "
+          f"{[i + 1 for i, f in enumerate(flags) if f]}")
+    captures = gl.graphs.captures
+    eval_cfg = dataclasses.replace(rcfg, isect_cap=gl.rcfg.isect_cap,
+                                   forward_only=True)
+    ev = phase_eval(torch, "student after the graphed loop", gl.state.splats,
+                    truths, eval_cfg)
+    gap = ev["psnr"] - loop["psnr"]["after"]
+    check(abs(gap) <= 0.05, f"eval psnr {ev['psnr']} after the graphed loop "
+          f"against {loop['psnr']['after']} after the eager loop")
+    plain = [t for i, t in enumerate(ms) if (i + 1) % REFINE_EVERY]
+    res.update(loop_step_median_ms=statistics.median(plain), loop_ms=ms,
+               loop_captures=captures, loop_psnr=ev["psnr"],
+               eager_loop_psnr=loop["psnr"]["after"],
+               eager_loop_step_median_ms=loop["step_median_ms"],
+               loop_overflows=[m.data for m in overflows])
+    log(f"[graph] loop cell: {LOOP_STEPS} turns of loop_step on StepGraphs "
+        f"({captures} captures: the first step, the layout the first refine "
+        f"makes, and each capacity or isect_cap growth), refines at "
+        f"{refines}, state finite after each, no overflow after growth; "
+        f"loop_step_median_ms={res['loop_step_median_ms']:.4f} (turns "
+        f"without a refine; eager loop {loop['step_median_ms']:.4f}); eval "
+        f"psnr {ev['psnr']:.4f} dB against the eager loop's "
+        f"{loop['psnr']['after']:.4f} (gap {gap:+.4f})")
+    gl.graphs.clear()
+    del gl
+    graphs.RENDER_GRAPHS.clear()
+
+    # --- train_process: the process phase's turns ran on StepGraphs ---
+    check(proc["graphed_turns"] == PROCESS_STEPS,
+          f"{proc['graphed_turns']} of {PROCESS_STEPS} train_process turns "
+          f"ran on StepGraphs")
+    res.update(process_turn_median_ms=proc["step_median_ms"],
+               process_captures=proc["graph_captures"])
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[graph] train_process: every turn on StepGraphs "
+        f"({proc['graph_captures']} captures), turn_median_ms="
+        f"{proc['step_median_ms']:.4f}; the graph phase took "
+        f"{res['seconds']:.3f} s")
+
+    def counted(captured):
+        return {name: sum(1 for c in captured if c.name == name)
+                for name in kernels.KERNEL_NAMES}
+
+    res.update(frame_captured=list(cap_frame), step_captured=list(cap_step),
+               frame_counts=counted(cap_frame), step_counts=counted(cap_step))
+    return res
+
+
+def train_order_ms(torch, launch) -> dict:
+    """Device ms a call of the training forward kernel on a launch's
+    inputs with its parts handed out in tile order (as the wrapper runs
+    it: no order, no sort) and longest tile first (`tile_order`), this with
+    and without the sort that forms the order, each in turn ORDER_ROUNDS
+    times over, the two orders' tiles equal bit for bit; and the sort's
+    own device ms and ops a call."""
+    from brush_tpu_torch.kernels import build
+    from brush_tpu_torch.ops import rasterize_cuda as rc
+
+    soa, ranges, bg, img_size = launch.inputs
+    n_tiles = ranges.shape[0]
+    out = torch.empty((n_tiles, rc.TRAIN_OUT_ROWS, rc.TILE_PIX),
+                      dtype=torch.float32, device=soa.device)
+    words = torch.empty(n_tiles * (rc.TILE_PARTS + 1) + 1, dtype=torch.int32,
+                        device=soa.device)
+    lib = build.library()
+    tbw = rc._tile_grid(img_size)[0]
+
+    def run(order):
+        err = lib.brush_rasterize_fwd_train(
+            soa.data_ptr(), soa.shape[1], ranges.data_ptr(),
+            None if order is None else order.data_ptr(), bg.data_ptr(),
+            out.data_ptr(), words.data_ptr(),
+            words[n_tiles * rc.TILE_PARTS:].data_ptr(), n_tiles, tbw,
+            build.stream_ptr(soa.device))
+        build.check(err, "rasterize_forward_train")
+        return out
+
+    order = tile_order(torch, ranges)
+    first = run(order).clone()
+    check(torch.equal(run(None).view(torch.int32), first.view(torch.int32)),
+          "the training forward in tile order differs from longest first")
+    del first
+    ms = {
+        "tile_order": lambda: run(None),
+        "longest_first": lambda: run(order),
+        "longest_first_with_sort": lambda: run(tile_order(torch, ranges)),
+    }
+    res = {k: [] for k in ms}
+    for _ in range(ORDER_ROUNDS):
+        for k, fn in ms.items():
+            res[k].append(device_time(torch, fn, ITERS)["ms"])
+    sort = device_time(torch, lambda: tile_order(torch, ranges), ITERS)
+    res["sort"] = {k: sort[k] for k in ("ms", "kernels", "memsets", "copies")}
+    return res
+
+
 def phase_kernels(torch, serve, train, direct, stress, grow, loop,
-                  init_lod, proc, viewer, lpips, dp, space):
+                  init_lod, proc, viewer, lpips, dp, space, graph):
     """Replay every launch of the first served frame, of the first training
     step, of the direct calls, of the stress run, of two growth steps (the
     overflowing first, and the first at the grown capacities), of two loop
@@ -3088,15 +3598,13 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
             check(dev["ms"] > 0.0 and dev["kernels"] >= own,
                   f"{name} {shape}: device_ms {dev['ms']} with (kernels, "
                   f"memsets, copies) a call by trace {dev['ops_by_trace']}")
-            if memsets is not None:
-                # The kernel's own launches a call and at most its memsets,
-                # nothing else, in some trace (a trace may drop ops, never
-                # add).
-                check(any(k == own and m <= memsets and c == 0
-                          for k, m, c in dev["ops_by_trace"]),
-                      f"{name} {shape}: (kernels, memsets, copies) a call "
-                      f"by trace {dev['ops_by_trace']}, expected {own} "
-                      f"kernels, at most {memsets} memsets, no copies")
+            # The kernel's own launches a call and at most its memsets,
+            # nothing else, in some trace (a trace may drop ops, never add).
+            check(any(k == own and m <= memsets and c == 0
+                      for k, m, c in dev["ops_by_trace"]),
+                  f"{name} {shape}: (kernels, memsets, copies) a call by "
+                  f"trace {dev['ops_by_trace']}, expected {own} kernels, at "
+                  f"most {memsets} memsets, no copies")
             lib = (library[name](launch.inputs) if name in library
                    else None)
             part = dict(
@@ -3156,7 +3664,14 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                   lpips["steps"]),
         "dp_step": (dp["launches"], by_name(dp["captured"]), dp["steps"]),
         "space_strip": (space["launches"], by_name(space["captured"]),
-                        space["strips"])}
+                        space["strips"]),
+        # The graphs' captures: a replay runs no wrapper, so these count
+        # the launches the capture recorded (the profiled replay's device
+        # kernels are in the graph phase's line).
+        "graph_frame": (graph["frame_counts"],
+                        by_name(graph["frame_captured"]), 1),
+        "graph_step": (graph["step_counts"], by_name(graph["step_captured"]),
+                       1)}
     counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
     for name in kernels.KERNEL_NAMES:
@@ -3270,6 +3785,18 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         + "; device ms a call by tile order: "
         + json.dumps({p: {k: round(v, 5) for k, v in o.items()}
                       for p, o in diet["order_device_ms"].items()}))
+    # The training forward in tile order against longest tile first, at the
+    # train cell and at loop steps 9 and 23.
+    fwd_train = next(e for e in line if e["name"] == "rasterize_fwd_train")
+    late = by_name(loop["late_captured"])
+    fwd_train["order_device_ms"] = {
+        p: train_order_ms(torch, c["rasterize_fwd_train"][i])
+        for p, c, i in (("train", paths["train"][1], 0),
+                        (f"loop_step_{REFINE_EVERY + 1}", paths["loop"][1], 1),
+                        (f"loop_step_{LOOP_STEPS - 1}", late, 0))}
+    log("[kernels] rasterize_fwd_train device ms a call by tile order, "
+        f"{ORDER_ROUNDS} rounds: "
+        + json.dumps(fwd_train["order_device_ms"]))
     return line
 
 
@@ -3372,9 +3899,10 @@ def _run_phases(torch, work: str) -> int:
     space = phase_space(torch, serve)
     dp = phase_dp(torch, serve, train, space, os.path.join(work, "scene"),
                   work)
+    graph = phase_graph(torch, serve, train, loop, proc)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
                                 loop, init_lod, proc, viewer, lpips, dp,
-                                space)
+                                space, graph)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],
@@ -3420,9 +3948,11 @@ def _run_phases(torch, work: str) -> int:
     print(json.dumps({"process_" + k: v for k, v in proc.items()
                       if k not in ("launches", "captured")}))
     for name, res in (("viewer", viewer), ("live", live), ("ffi", ffi),
-                      ("lpips", lpips), ("dp", dp), ("space", space)):
+                      ("lpips", lpips), ("dp", dp), ("space", space),
+                      ("graph", graph)):
         print(json.dumps({f"{name}_{k}": v for k, v in res.items()
-                          if k not in ("captured", "frame", "job")}))
+                          if k not in ("captured", "frame", "job",
+                                       "frame_captured", "step_captured")}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,16 @@ bar TF32 convolutions miss), and the C ABI trains 2 steps on the card.
 The DP step over a one-process NCCL group is held to the batched step,
 and the strip render of two gloo processes sharing the card to the full
 render.
+
+The compiled programs (`graphs.py`): a frame, a step and a loop turn run
+under sync debug mode "error"; a RenderGraph's frames equal eager ones bit
+for bit; StepGraphs steps (plain, with the LPIPS term, over two stacked
+views) and `train_process` on StepGraphs (with LPIPS weights, with two
+views a batch) are held to the eager ones; freeing graphs on one thread
+waits for a capture on another.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1218,3 +1227,272 @@ def test_space_parallel_render_over_two_processes_on_one_card(tmp_path,
     assert float(want[..., 3].mean()) > 0.5
     assert float(torch.quantile(d.flatten(), 0.999)) <= 1e-4
     assert float(d.max()) <= 2.0 / 255.0
+
+
+# --------------------------------------------------------------------------
+# the compiled, donated step and frame (graphs.py)
+# --------------------------------------------------------------------------
+
+
+def _graph_case(dev):
+    """1,500 splats at 96x64 over two views with a rendered ground truth:
+    (splat state seeded 3, [(CameraInputs, SceneBatch)], training and
+    forward-only RenderConfigs, the view centres and focals)."""
+    from brush_tpu_torch.ops.loss import pack_gt
+    from brush_tpu_torch.train.trainer import SceneBatch, init_train_state
+    img = (96, 64)
+    rcfg = RenderConfig(img_size=img, sh_degree=1, isect_cap=1 << 14,
+                        use_pallas=True)
+    fwd = RenderConfig(img_size=img, sh_degree=1, isect_cap=1 << 14,
+                       use_pallas=True, forward_only=True)
+    truth = bench_splats(1500, sh_degree=1, seed=5, device=dev)
+    cams = [Camera(position=np.array([x, 0.0, -18.0]),
+                   rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                   fov_x=1.0, fov_y=0.7) for x in (0.0, 0.8)]
+    views = []
+    for cam in cams:
+        ci = camera_inputs(cam, img, device=dev)
+        gt, _ = render(*truth.params().values(), ci,
+                       torch.zeros(3, device=dev), fwd)
+        views.append((ci, SceneBatch(gt_packed=pack_gt(gt[..., :3]),
+                                     cam=ci)))
+    state = init_train_state(bench_splats(1500, sh_degree=1, seed=6,
+                                          device=dev), 3)
+    centers = torch.tensor(np.stack([c.position for c in cams]),
+                           dtype=torch.float32, device=dev)
+    focals = torch.tensor([c.focal(img)[0] for c in cams],
+                          dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    return state, views, rcfg, fwd, centers, focals
+
+
+def _twin_state(state):
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    return dataclasses.replace(state, rng=rng)
+
+
+@pytest.mark.cuda
+def test_frame_step_and_loop_turn_do_not_synchronise(cuda):
+    """A warmed-up render (diet and training configurations), one
+    `train_step_impl` (also of splats with a 3D filter floor, which a
+    refine attaches) and one `loop_step` turn (its first: the overflow
+    read one step behind comes a turn later) under sync debug mode
+    "error": no copy from pageable memory, no read back."""
+    from brush_tpu_torch.process import LoopState, loop_step
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import train_step_impl
+    state, views, rcfg, fwd, centers, focals = _graph_case(cuda)
+    ci, batch = views[0]
+    args = (*state.splats.params().values(), ci, torch.zeros(3, device=cuda))
+    tcfg = TrainConfig()
+    floored = dataclasses.replace(state, splats=dataclasses.replace(
+        state.splats, min_scale=torch.full((state.splats.capacity,), 0.01,
+                                           device=cuda)))
+    render(*args, fwd)
+    render(*args, rcfg)
+    train_step_impl(_twin_state(state), batch, tcfg, rcfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render(*args, fwd)
+        render(*args, rcfg)
+        train_step_impl(_twin_state(state), batch, tcfg, rcfg)
+        train_step_impl(_twin_state(floored), batch, tcfg, rcfg)
+        loop_step(LoopState(state=_twin_state(state), rcfg=rcfg), batch,
+                  tcfg, centers, focals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_render_graph_frame_equals_the_eager_frame(cuda):
+    """A RenderGraph's frames of two views, twice each, equal eager
+    `render` bit for bit, and so do its aux counts; replays do not
+    synchronise."""
+    from brush_tpu_torch import graphs
+    state, views, _, fwd, _, _ = _graph_case(cuda)
+    params = tuple(state.splats.params().values())
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    graph = graphs.RenderGraph(fwd, params[0].shape[0])
+    for ci, _ in views * 2:
+        want, w_aux = render(*params, ci, bg, fwd)
+        got, aux = graph(*params, ci, bg)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert int(aux.num_isects) == int(w_aux.num_isects)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph(*params, views[1][0], bg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "lpips", "batched"])
+def test_step_graph_steps_match_eager_steps(kind, cuda):
+    """3 steps on StepGraphs (the warm-up step, then 2 replays) against 3
+    eager `train_step_impl` steps from the same state and generator, plain,
+    with the LPIPS term (weight 0.5, `random_lpips`) or over two stacked
+    views (`batched=True`): losses and every state tensor within the
+    backward's BWD_RTOL rule (`chip_smoke.hold_steps`), the generator's
+    state equal, one capture; the donated state is the graph's own, and
+    the copied-out aux of a step survives the next. With LPIPS the rule's
+    relative part is `LPIPS_TAP_RTOL` (1e-4), the rule of the card's LPIPS
+    image gradient against the CPU's: that gradient comes from cuDNN's
+    backward-data convolutions, which sum in an order of their own, and a
+    second eager run is held to the same rule."""
+    from chip_smoke import LPIPS_TAP_RTOL, hold_steps
+    from brush_tpu_torch import graphs
+    from brush_tpu_torch.models.lpips import random_lpips
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import stack_batches, train_step_impl
+    state, views, rcfg, _, _, _ = _graph_case(cuda)
+    tcfg, kw = TrainConfig(), {}
+    batches = [views[k % 2][1] for k in range(3)]
+    if kind == "lpips":
+        tcfg = TrainConfig(lpips_loss_weight=0.5)
+        kw = dict(lpips_model=random_lpips(0, device=cuda))
+    elif kind == "batched":
+        kw = dict(batched=True)
+        batches = [stack_batches([views[k % 2][1], views[(k + 1) % 2][1]])
+                   for k in range(3)]
+    rtol = LPIPS_TAP_RTOL if kind == "lpips" else rasterize_cuda.BWD_RTOL
+    steps = graphs.StepGraphs(tcfg, **kw)
+    eager, again, graphed = (_twin_state(state) for _ in range(3))
+    auxes = []
+    for batch in batches:
+        eager, e_stats, e_aux = train_step_impl(eager, batch, tcfg, rcfg,
+                                                **kw)
+        again, _, _ = train_step_impl(again, batch, tcfg, rcfg, **kw)
+        graphed, g_stats, g_aux = steps(graphed, batch, rcfg)
+        assert graphed is steps.graph.state
+        auxes.append((g_aux, e_aux))
+        assert abs(float(g_stats.loss) - float(e_stats.loss)) <= (
+            rtol * abs(float(e_stats.loss)))
+    for g_aux, e_aux in auxes:
+        assert int(g_aux.num_isects) == int(e_aux.num_isects)
+        assert torch.equal(g_aux.max_radius, e_aux.max_radius) or float(
+            (g_aux.max_radius - e_aux.max_radius).abs().max()) <= (
+                rtol * float(e_aux.max_radius.max()))
+    lrs = dict(means=tcfg.lr_mean * float(state.median_scale),
+               log_scales=tcfg.lr_scale, quats=tcfg.lr_rotation,
+               sh_coeffs=tcfg.lr_coeffs_dc, raw_opacities=tcfg.lr_opac)
+    for name, run in (("eager again", again), ("graphed", graphed)):
+        d = hold_steps(torch, run, eager, lrs, 3, rtol=rtol)
+        print(f"{kind}: {name} against eager, largest |d| by path:",
+              {k: v for k, v in d.items() if v})
+    assert torch.equal(graphed.rng.get_state(), eager.rng.get_state())
+    assert steps.captures == 1 and int(graphed.step) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lpips", "batched"])
+def test_train_process_with_lpips_or_batches_on_graphs_matches_eager(
+        tmp_path, monkeypatch, kind, cuda):
+    """`train_process` on the card with LPIPS weights (`pcfg.lpips_weights`,
+    weight 0.5) or with `views_per_batch=2`, its steps on StepGraphs (one
+    capture), against the same run with the steps eager (no StepGraphs),
+    noise and refine off, one loader thread: per-step losses within 1e-3
+    relative, eval PSNR within 0.05 dB, exported parameters within
+    2 * lr * steps + 1e-5 (the rule of the card run against the CPU's,
+    `test_train_process_on_the_card_matches_the_cpu`)."""
+    import functools
+
+    from brush_tpu_torch import graphs, process
+    from brush_tpu_torch.data import dataloader
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.models.lpips import (
+        random_lpips_arrays, save_lpips_npz)
+    from brush_tpu_torch.train.config import TrainConfig
+    _card_scene(tmp_path / "scene")
+    monkeypatch.setattr(process, "SceneLoader", functools.partial(
+        dataloader.SceneLoader, n_threads=1))
+    steps = 6
+    tcfg = TrainConfig(total_train_iters=steps, refine_every=1000,
+                       background_noise_strength=0.0, mean_noise_weight=0.0)
+    if kind == "lpips":
+        save_lpips_npz(random_lpips_arrays(0), tmp_path / "lpips.npz")
+        extra = dict(lpips_weights=str(tmp_path / "lpips.npz"))
+        tcfg = dataclasses.replace(tcfg, lpips_loss_weight=0.5)
+    else:
+        extra = dict(views_per_batch=2)
+    made = []
+
+    def spy(*args, **kw):
+        made.append(graphs.StepGraphs(*args, **kw))
+        return made[-1]
+
+    runs = {}
+    for mode in ("graphs", "eager"):
+        monkeypatch.setattr(process, "StepGraphs", spy if mode == "graphs"
+                            else lambda *args, **kw: None)
+        pcfg = process.ProcessConfig(
+            eval_every=steps, export_every=0, log_every=1, init_count=0,
+            sh_degree=1, use_pallas=True,
+            export_path=str(tmp_path / f"{mode}_{{iter}}.ply"), **extra)
+        msgs = list(process.train_process(
+            str(tmp_path / "scene"), tcfg,
+            LoadConfig(max_resolution=32, eval_split_every=4), pcfg,
+            device="cuda"))
+        runs[mode] = (
+            [m.data["loss"] for m in msgs if m.kind == "step"],
+            [m.data["psnr"] for m in msgs if m.kind == "eval"],
+            ply.load_splat_ply(str(tmp_path / f"{mode}_{steps}.ply")))
+    assert len(made) == 1 and made[0].captures == 1
+    assert made[0].batched == (kind == "batched")
+    assert (made[0].lpips_model is not None) == (kind == "lpips")
+    (l_g, p_g, d_g), (l_e, p_e, d_e) = runs["graphs"], runs["eager"]
+    assert len(l_g) == steps and np.isfinite(l_g).all()
+    np.testing.assert_allclose(l_g, l_e, rtol=1e-3)
+    assert abs(p_g[0] - p_e[0]) <= 0.05, (p_g, p_e)
+    t = TrainConfig()
+    for name, lr in (("means", t.lr_mean * 3.0), ("log_scales", t.lr_scale),
+                     ("rotations", t.lr_rotation),
+                     ("sh_coeffs", t.lr_coeffs_dc),
+                     ("raw_opacities", t.lr_opac)):
+        g, e = getattr(d_g, name), getattr(d_e, name)
+        assert np.abs(g - e).max() <= 2 * lr * steps + 1e-5, name
+
+
+@pytest.mark.cuda
+def test_freeing_graphs_waits_for_a_capture_on_another_thread(cuda):
+    """While this thread captures six RenderGraphs, another evicts graphs
+    from a cache of its own in a loop (each eviction frees pools, which
+    synchronises the device, something a capture refuses): every capture
+    succeeds and its frame equals the eager frame bit for bit."""
+    import threading
+
+    from brush_tpu_torch import graphs
+    state, views, _, fwd, _, _ = _graph_case(cuda)
+    params = tuple(state.splats.params().values())
+    n = params[0].shape[0]
+    bg = torch.zeros(3, device=cuda)
+    other = graphs.RenderGraphs(1)
+    keys = [fwd, dataclasses.replace(fwd, isect_cap=fwd.isect_cap * 2)]
+    stop, errors, evictions = threading.Event(), [], [0]
+
+    def evict():
+        try:
+            while not stop.is_set():
+                other.get(render, keys[evictions[0] % 2], n)
+                evictions[0] += 1
+        except BaseException as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+
+    thread = threading.Thread(target=evict)
+    thread.start()
+    try:
+        for k in range(6):
+            ci = views[k % 2][0]
+            got, _ = graphs.RenderGraph(fwd, n)(*params, ci, bg)
+            want, _ = render(*params, ci, bg, fwd)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors, errors
+    assert evictions[0] > 6

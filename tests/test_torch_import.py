@@ -53,7 +53,9 @@ MODULES = (
     "viewer.slot", "viewer.service", "models.lpips", "ffi_entry",
     "native.build",
     # multi-device training and rendering
-    "parallel.data_parallel", "parallel.tile_parallel")
+    "parallel.data_parallel", "parallel.tile_parallel",
+    # the compiled, donated steps
+    "graphs")
 
 
 def _probe(*args) -> dict:

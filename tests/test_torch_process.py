@@ -408,6 +408,49 @@ def test_report_from_telemetry_run(tmp_path, rng):
     assert "mem0" not in (tmp_path / "stats.jsonl").read_text()
 
 
+def test_tracing_helpers(tmp_path):
+    """`wall_timer` reports its block; `profile_trace` writes a Chrome
+    trace holding the block's stages; `stages_off` keeps stage events out
+    of a `record_stages` block; `memory_stats` is empty without a card."""
+    import re
+
+    from brush_tpu_torch.utils import tracing
+    lines = []
+    with tracing.wall_timer("block", sink=lines.append):
+        torch.ones(8).sum()
+    assert len(lines) == 1 and re.fullmatch(r"block: \d+\.\d\d ms", lines[0])
+    with tracing.profile_trace(str(tmp_path / "trace")) as prof:
+        with tracing.stage("project"):
+            torch.ones(64).cumsum(0)
+    assert prof is not None
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert any(e.get("name") == "project" for e in trace["traceEvents"])
+    with tracing.record_stages() as recs, tracing.stages_off():
+        with tracing.stage("off"):
+            pass
+    assert recs == []
+    assert tracing.memory_stats() == {}
+
+
+def test_log_memory_writes_memory_stats_under_the_jax_keys(tmp_path,
+                                                           monkeypatch):
+    from brush_tpu_torch.utils import tracing
+    from brush_tpu_torch.utils.telemetry import TelemetryLogger
+    monkeypatch.setattr(tracing, "memory_stats", lambda: {
+        "cuda:1": dict(bytes_in_use=2, peak_bytes_in_use=3, bytes_limit=4),
+        "cuda:0": dict(bytes_in_use=5, peak_bytes_in_use=7,
+                       bytes_limit=11)})
+    telem = TelemetryLogger(tmp_path)
+    telem.log_memory(3)
+    telem.close()
+    rec = json.loads((tmp_path / "stats.jsonl").read_text())
+    assert rec["step"] == 3
+    assert {k: v for k, v in rec.items() if k.startswith("mem")} == dict(
+        mem0_bytes_in_use=5.0, mem0_peak_bytes_in_use=7.0,
+        mem0_bytes_limit=11.0, mem1_bytes_in_use=2.0,
+        mem1_peak_bytes_in_use=3.0, mem1_bytes_limit=4.0)
+
+
 def test_report_empty_dir_and_corrupt_lines(tmp_path):
     from brush_tpu_torch.utils.report import write_report
     assert "brush_tpu" in write_report(tmp_path).read_text()
