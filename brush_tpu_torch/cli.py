@@ -15,7 +15,8 @@ package's, plus `--device`.
     python -m brush_tpu_torch.cli <dataset> --view   # train, viewed live
 
 Multi-device training: one process a device under torchrun, B views a
-step shared among the W processes (W must divide B):
+step shared among gcd(B, W) of the W processes (the JAX package's device
+count; the others add zeros):
 
     torchrun --nproc-per-node N -m brush_tpu_torch.cli <dataset> \
         --views-per-batch B
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import sys
 from pathlib import Path
@@ -259,8 +261,10 @@ def main(argv=None):
     try:
         lead = group is None or dist.get_rank(group) == 0
         if group is not None and lead:
+            sharing = math.gcd(pcfg.views_per_batch, world)
+            on = "" if sharing == world else f" on {sharing} of them"
             print(f"{world} processes over {dist.get_backend(group)}, "
-                  f"{pcfg.views_per_batch // world} views each a step",
+                  f"{pcfg.views_per_batch // sharing} views each{on} a step",
                   flush=True)
         for msg in train_process(a.source, tcfg, lcfg, pcfg, device=device,
                                  group=group):

@@ -3,48 +3,67 @@
 The JAX package never runs its main path op by op. `train_process` keeps a
 `step_cache` of `jax.jit(train_step_impl, donate_argnums=0)` keyed by
 (img_size, has_alpha, alpha_is_mask, isect_cap, chunk_cap, capacity)
-(brush_tpu/process.py:221-258); eval renders through `_eval_step_fn`
-(brush_tpu/train/eval.py:31) and the viewer through `_jitted_render`
-(brush_tpu/viewer/service.py:30), jitted renders cached by RenderConfig.
-PyTorch runs eagerly: a frame or a training step is a few thousand
-launches the host enqueues one by one. A CUDA graph captures them once and
-replays them with one launch.
+(brush_tpu/process.py:221-258), a multi-device step jitted over a mesh of
+gcd(B, devices) devices, a `refine_jit` made again after a capacity
+growth, and for the LOD bake a `lod_cache` of donated steps keyed by image
+size (:466-478); the PUP scoring jits `view_hessian` and `fd_col`
+(brush_tpu/train/lod.py:77, :54), the strip render its `run`
+(brush_tpu/parallel/tile_parallel.py:89), eval `_eval_step_fn`
+(brush_tpu/train/eval.py:31) and the viewer `_jitted_render`
+(brush_tpu/viewer/service.py:30). PyTorch runs eagerly: a frame or a
+training step is a few thousand launches the host enqueues one by one. A
+CUDA graph captures them once and replays them with one launch.
 
-* `StepGraph`: one `step_cache` entry. Its first call runs the step
-  eagerly on a side stream (the warm-up PyTorch asks for before a capture;
-  it is the real step, so its result is returned), then captures
-  `step_body`: `train_step_impl` followed by copies of the new state into
-  the graph's own state tensors, the counterpart of donation. After a
-  replay the caller's `TrainState` is the graph's. A state that is not the
-  graph's own (after a refine, a capacity growth or a checkpoint load) is
-  copied in first, tensor by tensor where the data pointers differ. The
-  step's statistics and render aux are copied out into fresh tensors after
-  each replay, since the next replay overwrites the graph's own (the
-  training loop reads one step's aux after the next step is queued). The
-  state's CUDA generator is registered with the graph, so each replay
-  draws the numbers the eager step would.
-* `RenderGraph`: `_jitted_render` and `_eval_step_fn`. It captures a
-  forward-only render (or eval's render, 8-bit round trip and metrics)
-  over its own copies of the splat arrays, camera tensors and background
-  (or ground truth); arrays that are not already those are copied in. Its
-  outputs are the graph's own tensors, valid until its next call.
+Every graph here follows one protocol (`_Graph`): its first call runs the
+body eagerly on a side stream (the warm-up PyTorch asks for before a
+capture; it is the call's real work, so its result is returned), then
+captures it; later calls replay it. The inputs are the graph's own
+tensors, and an input that is not already the graph's own is copied in
+(by data pointer, `load_into`). A generator the body draws from is
+registered with the graph, so each replay draws the numbers the eager
+body would. Nothing in a body copies from the host or reads a value back
+(constants are fills on the card, utils/device.device_constant).
+
+* `StepGraph`: one `step_cache` entry. It captures `step_body`:
+  `train_step_impl` followed by copies of the new state into the graph's
+  own state tensors, the counterpart of donation. After a replay the
+  caller's `TrainState` is the graph's; a state that is not the graph's
+  own (after a capacity growth or a checkpoint load) is copied in. The
+  step's statistics and render aux are copied out after each replay, since
+  the next replay overwrites the graph's own (the training loop reads one
+  step's aux after the next step is queued). A step shared among the
+  processes of a group (`ViewShare`) captures its NCCL collectives too.
+* `RefineGraph`: `refine_jit`. It captures `refine_body`: `refine_step`,
+  its new state written into the state's own tensors. The state a
+  RefineGraph is first called with is donated: its tensors become the
+  graph's, so the state that a StepGraph hands it (the step graph's own)
+  is refined in place and handed back with no copy. Its statistics, and
+  what the refine adds to the layout (the 3D filter floor), are copied
+  out.
+* `FnGraph`: a function of tensors (`view_hessian` and `fd_col`, the
+  strips' `run`). Its outputs are the graph's own tensors, valid until its
+  next call. `RenderGraph` is the FnGraph of a render without gradients:
+  `_jitted_render` and `_eval_step_fn`.
 
 The graphs run on the card only: called with CPU tensors they raise, and
-the CPU path is the plain eager functions (`train_step_impl`, `render`).
-They need the kernel path (`use_pallas=True`): the plain rasterizer reads
-its longest tile's length to the host, which a capture refuses. Nothing in
-a captured step or frame copies from the host or reads a value back (the
-constants are fills on the card, utils/device.device_constant).
+the CPU path is the plain eager functions. They need the kernel path
+(`use_pallas=True`): the plain rasterizer reads its longest tile's length
+to the host, which a capture refuses. A gloo group's collectives go
+through the host, which a capture cannot hold either: a step shared over
+gloo stays eager (`capturable` says which programs run as graphs).
 
 Caches. `StepGraphs` keeps one StepGraph, keyed as the JAX `step_cache`
-plus the rest of the RenderConfig and the state's layout (a refine attaches
-the 3D filter floor, which a jit retraces on too); `RENDER_GRAPHS` keeps two
-RenderGraphs, keyed by the body, the RenderConfig (the JAX caches' key) and
-the splat count (which a jit retraces on). The JAX caches hold up to eight
-entries (`lru_cache(maxsize=8)`), but a graph holds its private memory pool,
-every intermediate of its step or frame (gigabytes at 1M splats), for as
-long as it lives: so a key change (capacity growth, `isect_cap` growth
-after an overflow, a new image size) frees the old graph and its pool.
+plus the share of the step (rank, world, backend), the rest of the
+RenderConfig and the state's layout (a refine attaches the 3D filter
+floor, which a jit retraces on too); `RefineGraphs` one RefineGraph, keyed
+by the capacity and the layouts of the state and the views;
+`RENDER_GRAPHS` two RenderGraphs, keyed by the body, the RenderConfig (the
+JAX caches' key) and the splat count (which a jit retraces on). The JAX
+caches hold up to eight entries (`lru_cache(maxsize=8)`), but a graph
+holds its private memory pool, every intermediate of its body (gigabytes
+at 1M splats), for as long as it lives: so a key change (capacity growth,
+`isect_cap` growth after an overflow, a new image size) frees the old
+graph and its pool.
 
 Capture. One capture at a time in the process (a lock). The capture mode
 is `thread_local`: autograd runs the rasterizer's backward on a thread of
@@ -64,12 +83,19 @@ import threading
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from brush_tpu_torch import kernels
 from brush_tpu_torch.ops.projection import CameraInputs
 from brush_tpu_torch.render import RenderConfig, render
 from brush_tpu_torch.train.config import TrainConfig
-from brush_tpu_torch.train.trainer import SceneBatch, TrainState, train_step_impl
+from brush_tpu_torch.train.refine import refine_step
+from brush_tpu_torch.train.trainer import (
+    SceneBatch,
+    TrainState,
+    ViewShare,
+    train_step_impl,
+)
 from brush_tpu_torch.utils.tracing import stages_off
 
 _capture_lock = threading.Lock()
@@ -80,23 +106,33 @@ _capture_lock = threading.Lock()
 # --------------------------------------------------------------------------
 
 
-def _map(tree, fn):
-    """`tree` with every tensor replaced by fn(tensor): dataclasses, dicts,
-    NamedTuples and tuples are rebuilt, anything else (None, numbers, a
-    generator) is kept."""
+def _map_paths(tree, fn, path=""):
+    """`tree` with every tensor x replaced by fn(path, x): dataclasses,
+    dicts, NamedTuples and tuples are rebuilt, anything else (None,
+    numbers, a generator) is kept. Paths are those of `_leaves`."""
     if torch.is_tensor(tree):
-        return fn(tree)
+        return fn(path, tree)
+
+    def at(k):
+        return f"{path}.{k}" if path else str(k)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _map(getattr(tree, f.name), fn)
+            f.name: _map_paths(getattr(tree, f.name), fn, at(f.name))
             for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: _map_paths(v, fn, at(k)) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(v, fn) for v in tree))
+        return type(tree)(*(_map_paths(v, fn, at(k))
+                            for k, v in zip(tree._fields, tree)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(v, fn) for v in tree)
+        return type(tree)(_map_paths(v, fn, at(i))
+                          for i, v in enumerate(tree))
     return tree
+
+
+def _map(tree, fn):
+    """`tree` with every tensor replaced by fn(tensor)."""
+    return _map_paths(tree, lambda _, x: fn(x))
 
 
 def _leaves(tree, path="") -> list:
@@ -120,6 +156,10 @@ def _leaves(tree, path="") -> list:
     for k, v in items:
         out += _leaves(v, f"{path}.{k}" if path else str(k))
     return out
+
+
+def _tensors(tree) -> list:
+    return [x for _, x in _leaves(tree) if torch.is_tensor(x)]
 
 
 def layout(tree) -> tuple:
@@ -167,18 +207,40 @@ def load_into(own, src) -> int:
     return written
 
 
-def _static_batch(batch, device):
-    """The graph's own copy of a batch (or camera): every tensor cloned, a
-    float fisheye bound held as a 0-d tensor so each call can write it."""
+def _write_back(own, new):
+    """`new` with each tensor for which `own` holds one of the same shape
+    and dtype at the same place written into that one (where the two are
+    not one buffer) and replaced by it: a body's result in the graph's own
+    tensors. Every tensor of `new` must be computed before this runs."""
+    slots = {p: x for p, x in _leaves(own) if torch.is_tensor(x)}
+
+    def put(path, x):
+        dst = slots.get(path)
+        if dst is None or dst.shape != x.shape or dst.dtype != x.dtype:
+            return x
+        if dst.data_ptr() != x.data_ptr():
+            dst.copy_(x)
+        return dst
+    return _map_paths(new, put)
+
+
+def _static_batch(tree, device):
+    """The graph's own copy of its inputs (a batch, a camera, a tuple of
+    them): every tensor cloned, a camera's float fisheye bound held as a
+    0-d tensor so each call can write it."""
     def own(x):
-        return x.clone()
-    out = _map(batch, own)
-    cam = out.cam if isinstance(out, SceneBatch) else out
-    if isinstance(cam.half_max_render_fov, float):
-        cam = cam._replace(half_max_render_fov=torch.full(
-            (), cam.half_max_render_fov, dtype=torch.float32, device=device))
-        out = out._replace(cam=cam) if isinstance(out, SceneBatch) else cam
-    return out
+        if isinstance(x, SceneBatch):
+            return x._replace(gt_packed=x.gt_packed.clone(), cam=own(x.cam))
+        if isinstance(x, CameraInputs):
+            if isinstance(x.half_max_render_fov, float):
+                x = x._replace(half_max_render_fov=torch.full(
+                    (), x.half_max_render_fov, dtype=torch.float32,
+                    device=device))
+            return copy_out(x)
+        if isinstance(x, (tuple, list)) and not hasattr(x, "_fields"):
+            return type(x)(own(v) for v in x)
+        return copy_out(x)
+    return own(tree)
 
 
 def _require_cuda(what: str, tensors) -> torch.device:
@@ -187,7 +249,7 @@ def _require_cuda(what: str, tensors) -> torch.device:
         raise RuntimeError(
             f"{what} runs on the card only (got tensors on "
             f"{sorted(str(d) for d in devices)}); the CPU path is the plain "
-            f"eager functions, train_step_impl and render")
+            f"eager functions (train_step_impl, refine_step, render)")
     return next(iter(devices))
 
 
@@ -196,6 +258,29 @@ def _require_kernel_path(rcfg: RenderConfig, what: str) -> None:
         raise ValueError(f"{what} needs RenderConfig(use_pallas=True): the "
                          f"plain rasterizer reads its longest tile's length "
                          f"to the host, which a capture refuses")
+
+
+def capturable(device, use_pallas: bool, group=None) -> bool:
+    """Whether a program on `device` runs as a CUDA graph: on the card, on
+    the kernel path, and with no gloo group between the processes (gloo's
+    collectives go through the host, which a capture cannot hold)."""
+    return (torch.device(device).type == "cuda" and use_pallas
+            and (group is None or dist.get_backend(group) == "nccl"))
+
+
+def share_key(share: ViewShare | None) -> tuple:
+    """(rank, world, backend) of the processes that share a step: (0, 1,
+    None) for a step of one process."""
+    group = None if share is None else share.group
+    if group is None:
+        return 0, 1, None
+    return (dist.get_rank(group), dist.get_world_size(group),
+            dist.get_backend(group))
+
+
+# --------------------------------------------------------------------------
+# warm-up and capture, shared by every graph
+# --------------------------------------------------------------------------
 
 
 def _capture(graph, body, generator=None):
@@ -209,7 +294,7 @@ def _capture(graph, body, generator=None):
             return body()
 
 
-def _free_pools() -> None:
+def free_pools() -> None:
     """Return the pools of freed graphs to the card. The allocator
     synchronises the device to release cached blocks and refuses to while
     a capture runs, so this waits for a capture on another thread (the
@@ -230,6 +315,63 @@ def _warm_up(body):
     return out
 
 
+class _Graph:
+    """A body captured into a CUDA graph: `_run()` is the body's result
+    for this call, the eager warm-up's on the first call (which then
+    captures the body), a replay's after (the graph's own tensors)."""
+
+    def __init__(self):
+        self._graph = None
+        self._outs = None
+
+    def _body(self):
+        raise NotImplementedError
+
+    def _run(self, generator=None):
+        if self._graph is not None:
+            self._graph.replay()
+            return self._outs
+        out = _warm_up(self._body)
+        graph = torch.cuda.CUDAGraph()
+        self._outs = _capture(graph, self._body, generator)
+        self._graph = graph
+        return out
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+    def replay(self) -> None:
+        """Replay the captured body on the inputs the graph holds."""
+        self._graph.replay()
+
+
+class _Cache:
+    """One graph at a time, made for a key: a key change frees the old
+    graph and its pool first. `captures` counts the graphs made."""
+
+    def __init__(self):
+        self.key = None
+        self.graph = None
+        self.captures = 0
+
+    def _get(self, key, make):
+        if key != self.key:
+            self.clear()
+            self.graph = make()
+            self.key = key
+            self.captures += 1
+        return self.graph
+
+    def clear(self) -> None:
+        """Free the graph and its pool (a state it holds lives on in the
+        caller's)."""
+        had = self.graph is not None
+        self.graph, self.key = None, None
+        if had:
+            free_pools()
+
+
 # --------------------------------------------------------------------------
 # the training step
 # --------------------------------------------------------------------------
@@ -238,22 +380,25 @@ def _warm_up(body):
 def step_body(state: TrainState, batch: SceneBatch, tcfg: TrainConfig,
               rcfg: RenderConfig, has_alpha: bool = False,
               alpha_is_mask: bool = False, batched: bool = False,
-              lpips_model=None):
+              lpips_model=None, share: ViewShare | None = None):
     """What a StepGraph captures: `train_step_impl`, then the new state
     copied into `state`'s own tensors (donation). Returns (stats, aux), the
     step's own tensors. Runs eagerly on any device."""
     new, stats, aux = train_step_impl(
         state, batch, tcfg, rcfg, has_alpha=has_alpha,
-        alpha_is_mask=alpha_is_mask, batched=batched, lpips_model=lpips_model)
+        alpha_is_mask=alpha_is_mask, batched=batched, lpips_model=lpips_model,
+        share=share)
     load_into(dataclasses.replace(state, rng=None),
               dataclasses.replace(new, rng=None))
     return stats, aux
 
 
 class StepKey(NamedTuple):
-    """The JAX `step_cache` key (brush_tpu/process.py:232-233), then what
-    else a graph is fixed to: the rest of the RenderConfig and the state's
-    layout."""
+    """The JAX `step_cache` key (brush_tpu/process.py:232-233), the step's
+    share (the JAX key holds the mesh through `get_step`: rank, world and
+    backend of the processes sharing the step; 0, 1, None for one), then
+    what else a graph is fixed to: the rest of the RenderConfig and the
+    state's layout."""
 
     img_size: tuple
     has_alpha: bool
@@ -261,142 +406,220 @@ class StepKey(NamedTuple):
     isect_cap: int
     chunk_cap: int | None
     capacity: int
+    rank: int
+    world: int
+    backend: str | None
     rcfg: RenderConfig
     layout: tuple
 
 
 def step_key(state: TrainState, rcfg: RenderConfig, has_alpha: bool,
-             alpha_is_mask: bool) -> StepKey:
+             alpha_is_mask: bool, share: ViewShare | None = None) -> StepKey:
     return StepKey(tuple(rcfg.img_size), has_alpha, alpha_is_mask,
                    rcfg.isect_cap, rcfg.chunk_cap, state.splats.capacity,
-                   rcfg, layout(dataclasses.replace(state, rng=None)))
+                   *share_key(share), rcfg,
+                   layout(dataclasses.replace(state, rng=None)))
 
 
-class StepGraph:
+class StepGraph(_Graph):
     """`train_step_impl` captured into a CUDA graph, with donation: see the
-    module docstring. `graph(state, batch) -> (state, stats, aux)`."""
+    module docstring. `graph(state, batch) -> (state, stats, aux)`. With a
+    `share` over NCCL the step's all_reduces are in the graph; a share over
+    gloo is refused."""
 
     def __init__(self, tcfg: TrainConfig, rcfg: RenderConfig,
                  has_alpha: bool = False, alpha_is_mask: bool = False,
-                 batched: bool = False, lpips_model=None):
+                 batched: bool = False, lpips_model=None,
+                 share: ViewShare | None = None):
+        super().__init__()
         _require_kernel_path(rcfg, "StepGraph")
         if rcfg.forward_only:
             raise ValueError("StepGraph needs a differentiable render: "
                              "RenderConfig(forward_only=False)")
+        if share_key(share)[2] not in (None, "nccl"):
+            raise ValueError(
+                f"StepGraph of a step shared over {share_key(share)[2]}: "
+                f"its collectives go through the host, which a capture "
+                f"cannot hold; run the step eagerly")
         self.tcfg, self.rcfg = tcfg, rcfg
         self.kw = dict(has_alpha=has_alpha, alpha_is_mask=alpha_is_mask,
-                       batched=batched, lpips_model=lpips_model)
+                       batched=batched, lpips_model=lpips_model, share=share)
         self.state: TrainState | None = None   # the graph's own
         self._batch = None
-        self._outs = None
-        self._graph = None
 
     def _body(self):
         return step_body(self.state, self._batch, self.tcfg, self.rcfg,
                          **self.kw)
 
     def __call__(self, state: TrainState, batch: SceneBatch):
-        dev = _require_cuda("StepGraph", [
-            x for _, x in _leaves(dataclasses.replace(state, rng=None))
-            + _leaves(batch)])
+        dev = _require_cuda("StepGraph", _tensors(
+            (dataclasses.replace(state, rng=None), batch)))
         if self._graph is None:
             self.state = dataclasses.replace(
                 copy_out(dataclasses.replace(state, rng=None)), rng=state.rng)
             self._batch = _static_batch(batch, dev)
-            # The warm-up is this call's step: the graph's state then holds
-            # its result, which the first replay steps on from.
-            stats, aux = copy_out(_warm_up(self._body))
-            graph = torch.cuda.CUDAGraph()
-            self._outs = _capture(graph, self._body, generator=state.rng)
-            self._graph = graph
-            return self.state, stats, aux
-        load_into(dataclasses.replace(self.state, rng=None),
-                  dataclasses.replace(state, rng=None))
-        if state.rng is not self.state.rng:
-            self.state.rng.set_state(state.rng.get_state())
-        load_into(self._batch, batch)
-        self._graph.replay()
-        stats, aux = copy_out(self._outs)
+        else:
+            load_into(dataclasses.replace(self.state, rng=None),
+                      dataclasses.replace(state, rng=None))
+            if state.rng is not self.state.rng:
+                self.state.rng.set_state(state.rng.get_state())
+            load_into(self._batch, batch)
+        # The warm-up is the first call's step: the graph's state then
+        # holds its result, which the first replay steps on from.
+        stats, aux = copy_out(self._run(self.state.rng))
         return self.state, stats, aux
 
 
-class StepGraphs:
+class StepGraphs(_Cache):
     """`train_process`'s step cache on the card: one StepGraph, keyed by
-    `step_key`; a key change frees the old graph and its pool first.
-    `steps(state, batch, rcfg, has_alpha, alpha_is_mask)` takes one step."""
+    `step_key`. `steps(state, batch, rcfg, has_alpha, alpha_is_mask,
+    share)` takes one step."""
 
     def __init__(self, tcfg: TrainConfig, batched: bool = False,
                  lpips_model=None):
+        super().__init__()
         self.tcfg, self.batched, self.lpips_model = tcfg, batched, lpips_model
-        self.key: StepKey | None = None
-        self.graph: StepGraph | None = None
-        self.captures = 0
 
     def __call__(self, state, batch, rcfg, has_alpha=False,
-                 alpha_is_mask=False):
-        key = step_key(state, rcfg, has_alpha, alpha_is_mask)
-        if key != self.key:
-            self.clear()
-            self.graph = StepGraph(self.tcfg, rcfg, has_alpha, alpha_is_mask,
-                                   self.batched, self.lpips_model)
-            self.key = key
-            self.captures += 1
-        return self.graph(state, batch)
-
-    def clear(self) -> None:
-        """Free the graph and its pool (the state it holds lives on in the
-        caller's TrainState)."""
-        had = self.graph is not None
-        self.graph, self.key = None, None
-        if had:
-            _free_pools()
+                 alpha_is_mask=False, share: ViewShare | None = None):
+        graph = self._get(
+            step_key(state, rcfg, has_alpha, alpha_is_mask, share),
+            lambda: StepGraph(self.tcfg, rcfg, has_alpha, alpha_is_mask,
+                              self.batched, self.lpips_model, share))
+        return graph(state, batch)
 
 
 # --------------------------------------------------------------------------
-# renders
+# the refine
 # --------------------------------------------------------------------------
 
 
-class RenderGraph:
+def refine_body(state: TrainState, tcfg: TrainConfig,
+                view_centers: torch.Tensor, view_focals: torch.Tensor):
+    """What a RefineGraph captures: `refine_step`, its new state written
+    into `state`'s own tensors where `state` has one of that shape
+    (donation; the 3D filter floor a first refine attaches stays the
+    body's own). Returns (new state, stats). Runs eagerly on any device."""
+    new, stats = refine_step(state, tcfg, view_centers, view_focals)
+    new = _write_back(dataclasses.replace(state, rng=None),
+                      dataclasses.replace(new, rng=None))
+    return dataclasses.replace(new, rng=state.rng), stats
+
+
+def refine_key(state: TrainState, view_centers, view_focals) -> tuple:
+    """What a refine graph is fixed to: the capacity (the JAX `refine_jit`
+    retraces on it after a growth) and the layouts of the state and of the
+    views."""
+    return (state.splats.capacity,
+            layout(dataclasses.replace(state, rng=None)),
+            layout((view_centers, view_focals)))
+
+
+class RefineGraph(_Graph):
+    """`refine_step` captured into a CUDA graph. `graph(state, centers,
+    focals) -> (state, stats)`. The state of the first call is donated (its
+    tensors become the graph's and are refined in place); a later state
+    that is not the graph's own is copied in. The stats and what the refine
+    adds to the layout are copied out."""
+
+    def __init__(self, tcfg: TrainConfig):
+        super().__init__()
+        self.tcfg = tcfg
+        self.state: TrainState | None = None   # the graph's own
+        self._views = None
+
+    def _body(self):
+        return refine_body(self.state, self.tcfg, *self._views)
+
+    def __call__(self, state: TrainState, view_centers: torch.Tensor,
+                 view_focals: torch.Tensor):
+        dev = _require_cuda("RefineGraph", _tensors(
+            (dataclasses.replace(state, rng=None), view_centers,
+             view_focals)))
+        if self._graph is None:
+            self.state = state
+            self._views = _static_batch((view_centers, view_focals), dev)
+        else:
+            load_into(dataclasses.replace(self.state, rng=None),
+                      dataclasses.replace(state, rng=None))
+            if state.rng is not self.state.rng:
+                self.state.rng.set_state(state.rng.get_state())
+            load_into(self._views, (view_centers, view_focals))
+        new, stats = self._run(self.state.rng)
+        own = {x.data_ptr() for x in _tensors(
+            dataclasses.replace(self.state, rng=None))}
+        new = _map(new, lambda x: x if x.data_ptr() in own else x.clone())
+        return new, copy_out(stats)
+
+
+class RefineGraphs(_Cache):
+    """The loop's refine on the card: one RefineGraph, keyed by
+    `refine_key`. `refines(state, centers, focals) -> (state, stats)`."""
+
+    def __init__(self, tcfg: TrainConfig):
+        super().__init__()
+        self.tcfg = tcfg
+
+    def __call__(self, state, view_centers, view_focals):
+        graph = self._get(refine_key(state, view_centers, view_focals),
+                          lambda: RefineGraph(self.tcfg))
+        return graph(state, view_centers, view_focals)
+
+
+# --------------------------------------------------------------------------
+# functions of tensors: renders, scoring views, strips
+# --------------------------------------------------------------------------
+
+
+class FnGraph(_Graph):
+    """`fn(*inputs)` captured into a CUDA graph over the graph's own copies
+    of its inputs (tensors, batches, cameras); `graph(*inputs)` copies in
+    those that are not already the graph's and returns the outputs, the
+    graph's own tensors after the first call, valid until the next.
+    `generator`: the generator `fn` draws from; `grad`: autograd on in the
+    body (off by default)."""
+
+    def __init__(self, fn, generator=None, grad: bool = False,
+                 what: str = "FnGraph"):
+        super().__init__()
+        self.fn, self.generator, self.grad, self.what = (fn, generator, grad,
+                                                         what)
+        self._inputs = None
+
+    def _body(self):
+        with torch.set_grad_enabled(self.grad):
+            return self.fn(*self._inputs)
+
+    def __call__(self, *inputs):
+        dev = _require_cuda(self.what, _tensors(inputs))
+        if self._graph is None:
+            self._inputs = _static_batch(inputs, dev)
+        else:
+            load_into(self._inputs, inputs)
+        return self._run(self.generator)
+
+
+class RenderGraph(FnGraph):
     """A render without gradients captured into a CUDA graph: the counterpart
     of `_jitted_render` and `_eval_step_fn`. `fn(means, log_scales, quats,
     sh_coeffs, raw_opacities, cam, extra, rcfg)` is the body (`render`, with
     `extra` the background; or eval's step, with `extra` the ground truth);
     `graph(means, log_scales, quats, sh_coeffs, raw_opacities, cam, extra)`
-    returns its outputs, the graph's own tensors, valid until its next
-    call."""
+    returns its outputs, valid until its next call."""
 
     def __init__(self, rcfg: RenderConfig, n_splats: int, fn=render):
         _require_kernel_path(rcfg, "RenderGraph")
-        self.rcfg, self.n_splats, self.fn = rcfg, n_splats, fn
-        self._inputs = None
-        self._outs = None
-        self._graph = None
-
-    def _body(self):
-        with torch.no_grad():
-            return self.fn(*self._inputs, self.rcfg)
+        super().__init__(lambda *inputs: fn(*inputs, rcfg),
+                         what="RenderGraph")
+        self.rcfg, self.n_splats = rcfg, n_splats
 
     def __call__(self, means, log_scales, quats, sh_coeffs, raw_opacities,
                  cam: CameraInputs, extra):
-        inputs = (means, log_scales, quats, sh_coeffs, raw_opacities, cam,
-                  extra)
-        dev = _require_cuda("RenderGraph", [
-            x for _, x in _leaves(inputs)])
         if means.shape[0] != self.n_splats:
             raise ValueError(f"RenderGraph of {self.n_splats} splats given "
                              f"{means.shape[0]}")
-        if self._graph is None:
-            self._inputs = tuple(x.clone() for x in inputs[:5]) + (
-                _static_batch(cam, dev), extra.clone())
-            _warm_up(self._body)
-            graph = torch.cuda.CUDAGraph()
-            self._outs = _capture(graph, self._body)
-            self._graph = graph
-        else:
-            load_into(self._inputs, inputs)
-        self._graph.replay()
-        return self._outs
+        return super().__call__(means, log_scales, quats, sh_coeffs,
+                                raw_opacities, cam, extra)
 
 
 class RenderGraphs:
@@ -421,7 +644,7 @@ class RenderGraphs:
                     evicted = True
             self._graphs[key] = graph
         if evicted:
-            _free_pools()
+            free_pools()
         return graph
 
     def keys(self) -> list:
@@ -434,7 +657,7 @@ class RenderGraphs:
             had = bool(self._graphs)
             self._graphs.clear()
         if had:
-            _free_pools()
+            free_pools()
 
 
 RENDER_GRAPHS = RenderGraphs(2)

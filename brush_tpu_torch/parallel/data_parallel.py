@@ -18,10 +18,18 @@ here it is `torch.distributed`:
 
 The step is `train_step_impl` with a `ViewShare` (train/trainer.py): the
 one-device batched step is the same function with a share that covers
-every view and reduces nothing. Process r renders views
-[r * B / W, (r + 1) * B / W); W must divide B. (The JAX package trains on
-gcd(B, devices) devices instead; a process that torchrun started cannot
-sit a step out.)
+every view and reduces nothing. The views go to g = gcd(B, W) processes,
+as the JAX package trains on gcd(B, devices) devices: process r < g
+renders views [r * B / g, (r + 1) * B / g); the others render none, add
+zeros to the SUM and to the MAX (every statistic there is >= 0) and take
+the same update, so every process still holds the same state.
+
+On the card, over NCCL (or one process), the step runs as a CUDA graph
+(`graphs.StepGraphs`, the JAX package's jitted, donated step) with the
+collectives captured in it; NCCL builds its communicator at the first
+collective, which the graph's eager warm-up step makes. Over gloo the
+step stays eager: gloo's collectives go through the host, which a capture
+cannot hold. `step.graphs` is the graph cache, or None for an eager step.
 
 Usage, one process a device (`torchrun --nproc-per-node N`):
 
@@ -33,11 +41,13 @@ Usage, one process a device (`torchrun --nproc-per-node N`):
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
 import torch.distributed as dist
 
+from brush_tpu_torch import graphs
 from brush_tpu_torch.render import RenderAux, RenderConfig
 from brush_tpu_torch.train.config import TrainConfig
 from brush_tpu_torch.train.trainer import (  # noqa: F401  (re-exported)
@@ -87,15 +97,16 @@ def view_group(device="cuda"):
 
 def view_share(group, n_views: int) -> ViewShare:
     """This process's share of a step of `n_views` views: its rows and the
-    reduction across `group` (None: every view, no reduction)."""
+    reduction across `group` (None: every view, no reduction). The views
+    go to the first gcd(B, W) processes, B / gcd each; the rest render
+    none."""
     if group is None:
-        return ViewShare(first=0, total=n_views)
+        return ViewShare(first=0, total=n_views, count=n_views)
     world, rank = dist.get_world_size(group), dist.get_rank(group)
-    if n_views % world:
-        raise ValueError(
-            f"views per batch B={n_views} is not a multiple of the world "
-            f"size W={world}: every process renders B / W views a step")
-    return ViewShare(first=rank * (n_views // world), total=n_views,
+    sharing = math.gcd(n_views, world)
+    count = n_views // sharing if rank < sharing else 0
+    return ViewShare(first=min(rank * count, n_views), total=n_views,
+                     count=count, group=group,
                      reduce=lambda g, loss, aux: reduce_step(group, g, loss,
                                                              aux))
 
@@ -133,19 +144,27 @@ def make_dp_train_step(group, tcfg: TrainConfig, rcfg: RenderConfig,
     process). The returned `step(state, batch) -> (state, stats, aux)`
     takes every process's same state and the step's whole batch of B
     views (leading [B] axis, `stack_batches`); each process renders its
-    own B / W rows, and all return the same new state: that of
+    own rows (`view_share`), and all return the same new state: that of
     `train_step_impl(batched=True)` on one device, up to the order of the
-    cross-process sums."""
-    world = 1 if group is None else dist.get_world_size(group)
+    cross-process sums. On the card over NCCL the step is a graph's
+    replay and the state it returns the graph's own (donation)."""
+    steps = None
+    if graphs.capturable("cuda", rcfg.use_pallas, group):
+        steps = graphs.StepGraphs(tcfg, batched=True,
+                                  lpips_model=lpips_model)
 
     def step(state: TrainState, batch: SceneBatch):
         share = view_share(group, batch.gt_packed.shape[0])
-        rows = slice(share.first, share.first + share.total // world)
+        rows = slice(share.first, share.first + share.count)
         c = batch.cam
         mine = SceneBatch(gt_packed=batch.gt_packed[rows], cam=type(c)(
             *(x[rows] for x in c)))
+        if steps is not None and state.splats.means.is_cuda:
+            return steps(state, mine, rcfg, has_alpha=has_alpha,
+                         alpha_is_mask=alpha_is_mask, share=share)
         return train_step_impl(state, mine, tcfg, rcfg, has_alpha=has_alpha,
                                alpha_is_mask=alpha_is_mask, batched=True,
                                lpips_model=lpips_model, share=share)
 
+    step.graphs = steps
     return step

@@ -13,6 +13,11 @@ The strips are assembled with one SUM `all_reduce` of a zero frame into
 which each process writes its own rows (adding zeros is exact), which
 gloo and NCCL both take for CPU and CUDA tensors alike (gloo's
 `all_gather` takes CPU tensors only).
+
+On the card (the kernel path) `run` is a CUDA graph, the JAX package's
+`@jax.jit run`: captured at its first call, replayed after. Over NCCL the
+frame's `all_reduce` is in the graph; over gloo the render is captured and
+the `all_reduce` (through the host) runs eagerly on the graph's frame.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from brush_tpu_torch import graphs
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.ops.projection import CameraInputs
@@ -61,24 +67,43 @@ def make_space_parallel_render(group, rcfg: RenderConfig):
     """`run(means, log_scales, quats, sh, opac, cam_stack, bg) -> [H, W, 4]`
     on every process of `group` (None: one process renders every strip's
     rows as one). `rcfg.img_size` is the FULL image; `rcfg.isect_cap` is
-    a strip's capacity. Process r renders strip r of `cam_stack`."""
+    a strip's capacity. Process r renders strip r of `cam_stack`. On the
+    card the frame `run` returns is the graph's own, valid until its next
+    call."""
     w, h = rcfg.img_size
     n = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
     h_strip = strip_height(h, n)
     rcfg_strip = dataclasses.replace(rcfg, img_size=(w, h_strip))
+    # The frame's all_reduce runs in the graph over NCCL, eagerly over gloo.
+    in_graph = graphs.capturable("cuda", True, group)
 
-    def run(means, log_scales, quats, sh, opac, cam_stack, bg):
+    def strips(means, log_scales, quats, sh, opac, cam_stack, bg,
+               reduce=True):
         cam = CameraInputs(*(x[rank] for x in cam_stack))
         img, _ = render(means, log_scales, quats, sh, opac, cam, bg,
                         rcfg_strip)
         if group is None:
-            return img[:h]
+            return img
         frame = img.new_zeros((n * h_strip, w, img.shape[-1]))
         frame[rank * h_strip:(rank + 1) * h_strip] = img
-        dist.all_reduce(frame, op=dist.ReduceOp.SUM, group=group)
+        if reduce:
+            dist.all_reduce(frame, op=dist.ReduceOp.SUM, group=group)
+        return frame
+
+    graph = graphs.FnGraph(lambda *a: strips(*a, reduce=in_graph),
+                           what="strip render")
+
+    def run(means, log_scales, quats, sh, opac, cam_stack, bg):
+        args = (means, log_scales, quats, sh, opac, cam_stack, bg)
+        if not graphs.capturable(means.device, rcfg.use_pallas):
+            return strips(*args)[:h]
+        frame = graph(*args)
+        if group is not None and not in_graph:
+            dist.all_reduce(frame, op=dist.ReduceOp.SUM, group=group)
         return frame[:h]
 
+    run.graph = graph
     return run
 
 

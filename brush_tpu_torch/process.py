@@ -13,9 +13,10 @@ messages come in the JAX package's order: `overflow`, `step`, `refine`,
 `loop_step` is one turn of the training loop: a `train_step`, then the
 host's policy between steps. On the card, `train_process` takes the step
 from a `graphs.StepGraphs` cache (the JAX package's jitted, donated
-`step_cache`): one CUDA graph a key, replayed, the state the graph's own
-(a `LoopState` carries the cache; without one the step runs eagerly, as
-on the CPU and in a shared step):
+`step_cache`) and the refine from a `graphs.RefineGraphs` (its
+`refine_jit`): one CUDA graph a key, replayed, the state the graphs' own
+(a `LoopState` carries the caches; without them the turn runs eagerly, as
+on the CPU and in a step shared over gloo):
 
 * the previous step's `num_isects` and `num_chunks` are read one step
   behind (so the read never stalls the queue of the step just enqueued)
@@ -33,12 +34,19 @@ own tensors). `tcfg.lpips_loss_weight > 0` with
 With a process `group` of W processes (parallel/data_parallel.py), each
 batched step is shared: the first process runs the loader and picks the
 step's B views, broadcasts their indices over a gloo group of host
-integers (no wait on the card's stream), and every process loads, uploads
-and renders its own B / W of them. The gradients and statistics are
-combined inside the step, so every process holds the same state, grows
-the same capacities and refines alike. Only the first process evaluates,
-exports, checkpoints, logs telemetry and publishes to a viewer; the
-others yield their `step` and `refine` messages.
+integers (no wait on the card's stream), and the first gcd(B, W)
+processes load, upload and render B / gcd of them each (the others
+render none). The gradients and statistics are combined inside the step
+(in its graph, over NCCL), so every process holds the same state, grows
+the same capacities at the same turn (the overflow read follows the
+MAX-combined statistics, so every process captures and replays the same
+graphs in the same order) and refines alike. Only the first process
+evaluates, exports, checkpoints, logs telemetry and publishes to a
+viewer; the others yield their `step` and `refine` messages.
+
+The LOD bake runs after the loop's graphs are freed: its scoring views
+(train/lod.py) and its steps (a `StepGraphs` of its own, the JAX
+`lod_cache`) are graphs too.
 """
 
 from __future__ import annotations
@@ -57,7 +65,8 @@ from brush_tpu_torch.camera import fov_to_focal
 from brush_tpu_torch.data.dataloader import SceneLoader
 from brush_tpu_torch.data.formats import Dataset, LoadConfig, load_dataset
 from brush_tpu_torch.data.scene import AlphaMode, image_dims
-from brush_tpu_torch.graphs import StepGraphs, copy_out
+from brush_tpu_torch import graphs
+from brush_tpu_torch.graphs import RefineGraphs, StepGraphs, copy_out
 from brush_tpu_torch.io import ply as ply_io
 from brush_tpu_torch.models.splats import Splats, grow_capacity
 from brush_tpu_torch.ops.sh import rgb_to_sh_dc
@@ -135,6 +144,7 @@ class LoopState:
     it: int = 0                          # steps taken (host side)
     prev_aux: RenderAux | None = None    # the last step's aux, still unread
     graphs: StepGraphs | None = None     # the step's CUDA graphs, or eager
+    refines: RefineGraphs | None = None  # the refine's, or eager
 
 
 def _next_pow2(n: int) -> int:
@@ -168,7 +178,8 @@ def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
     if loop.graphs is not None:
         state, stats, aux = loop.graphs(loop.state, batch, rcfg,
                                         has_alpha=has_alpha,
-                                        alpha_is_mask=alpha_is_mask)
+                                        alpha_is_mask=alpha_is_mask,
+                                        share=share)
     else:
         state, stats, aux = train_step_impl(
             loop.state, batch, tcfg, rcfg, has_alpha=has_alpha,
@@ -210,8 +221,9 @@ def _memory_mb(dev: torch.device) -> dict:
 def _refine_turn(loop: LoopState, tcfg: TrainConfig,
                  view_centers: torch.Tensor, view_focals: torch.Tensor):
     """The refine of a turn, on its cadence: every refine_every until 95 %
-    progress (train_stream.rs:321-327). Returns (LoopState, ["refine"] or
-    [])."""
+    progress (train_stream.rs:321-327), on the loop's RefineGraphs where it
+    has them (the statistics are read after the graph, from its copies).
+    Returns (LoopState, ["refine"] or [])."""
     it, state = loop.it, loop.state
     if not (it % tcfg.refine_every == 0
             and it < tcfg.total_train_iters * 0.95):
@@ -221,7 +233,11 @@ def _refine_turn(loop: LoopState, tcfg: TrainConfig,
         state = _grow_state(state, min(_next_pow2(cap * 2),
                                        _next_pow2(tcfg.max_splats)))
     with stage("refine"):
-        state, rstats = refine_step(state, tcfg, view_centers, view_focals)
+        if loop.refines is not None:
+            state, rstats = loop.refines(state, view_centers, view_focals)
+        else:
+            state, rstats = refine_step(state, tcfg, view_centers,
+                                        view_focals)
     msg = TrainMessage("refine", it, dict(
         added=int(rstats.num_added), pruned=int(rstats.num_pruned),
         oversized=int(rstats.num_oversized),
@@ -400,18 +416,13 @@ def train_process(
     `device`. `slot` (viewer.slot.Slot) receives live splat snapshots.
     `group` (a torch.distributed process group, every process of the run
     calling with its own device) shares each batched step among its
-    processes; W must divide `pcfg.views_per_batch`."""
+    processes: gcd(W, `pcfg.views_per_batch`) of them render."""
     dev = resolve_device(device)
     tcfg = tcfg or TrainConfig()
     lcfg = lcfg or LoadConfig()
     pcfg = pcfg or ProcessConfig()
     world = 1 if group is None else dist.get_world_size(group)
     lead = group is None or dist.get_rank(group) == 0
-    if world > 1 and pcfg.views_per_batch % world:
-        raise ValueError(
-            f"views_per_batch B={pcfg.views_per_batch} is not a multiple of "
-            f"the world size W={world}: every process renders B / W views "
-            f"a step")
     if not lead:
         # The first process alone writes, logs and serves.
         slot, telemetry_dir = None, None
@@ -475,20 +486,24 @@ def train_process(
     if tcfg.lpips_loss_weight > 0.0 and pcfg.lpips_weights:
         from brush_tpu_torch.models.lpips import load_lpips
         lpips_model = load_lpips(pcfg.lpips_weights, device=dev)
-    batched = pcfg.views_per_batch > 1
+    # A step shared by several processes is batched, even of one view: the
+    # processes without a view take the batched step's zeros.
+    batched = pcfg.views_per_batch > 1 or world > 1
     alpha_is_mask = lcfg.alpha_mode == AlphaMode.MASKED
 
     # Initial intersection / gradient-chunk capacities, grown on overflow
     # (replaces the reference's exact-count readback, SURVEY.md §7). The
     # image size follows each view; the grown capacities carry over.
     first = ds.train.views[0]
-    # The JAX package's jitted, donated step: CUDA graphs on the card (the
-    # kernel path; a shared step stays eager, as on the CPU).
-    graphs = (StepGraphs(tcfg, batched=batched, lpips_model=lpips_model)
-              if dev.type == "cuda" and pcfg.use_pallas and group is None
-              else None)
+    # The JAX package's jitted, donated step and its refine_jit: CUDA graphs
+    # on the card (the kernel path, one process or NCCL; a step shared over
+    # gloo stays eager, as on the CPU).
+    graphed = graphs.capturable(dev, pcfg.use_pallas, group)
+    steps = (StepGraphs(tcfg, batched=batched, lpips_model=lpips_model)
+             if graphed else None)
+    refines = RefineGraphs(tcfg) if graphed else None
     loop = LoopState(
-        state=state, it=pcfg.start_iter, graphs=graphs,
+        state=state, it=pcfg.start_iter, graphs=steps, refines=refines,
         rcfg=RenderConfig(
             img_size=image_dims(ds.train.vfs, first.image_path,
                                 lcfg.max_resolution),
@@ -526,11 +541,18 @@ def train_process(
             share = None
             if world > 1:
                 share = view_share(group, pcfg.views_per_batch)
-                views = _my_views(views, share, world, loader, host_group)
-            view = views[0]
+                views, view = _my_views(views, share, loader, host_group)
+            else:
+                view = views[0]
             if batched:
                 batch = stack_batches([_scene_batch(v, upload)
-                                       for v in views])
+                                       for v in views or [view]])
+                if not views:
+                    # None of this step's views: an empty batch of their
+                    # shape (the step adds zeros).
+                    batch = SceneBatch(gt_packed=batch.gt_packed[:0],
+                                       cam=type(batch.cam)(
+                                           *(x[:0] for x in batch.cam)))
             else:
                 batch = _scene_batch(view, upload)
             loop = dataclasses.replace(loop, rcfg=dataclasses.replace(
@@ -603,8 +625,11 @@ def train_process(
                                    dict(path=pcfg.ckpt_dir))
     finally:
         loader.stop()
-        if graphs is not None:
-            graphs.clear()
+        # The loop's graphs and their pools go before the LOD bake, which
+        # steps at another capacity and image size.
+        for cache in (steps, refines):
+            if cache is not None:
+                cache.clear()
         if host_group is not None and host_group is not group:
             dist.destroy_process_group(host_group)
 
@@ -635,19 +660,23 @@ def train_process(
         telem.close()
 
 
-def _my_views(views: list, share: ViewShare, world: int,
-              loader: SceneLoader, host_group) -> list:
-    """This process's views of a shared step: the first process's picks
-    (`views`, its own loaded) go to every process as indices over the host
-    group, and each loads its rows of them."""
+def _my_views(views: list, share: ViewShare, loader: SceneLoader,
+              host_group) -> tuple[list, object]:
+    """This process's views of a shared step and one view of the step: the
+    first process's picks (`views`, its own loaded) go to every process as
+    indices over the host group, and each loads its rows of them; a
+    process with no rows loads the first pick for the step's image size
+    and ground-truth shape."""
     idx = torch.tensor([v.view_index for v in views] if views
                        else [0] * share.total, dtype=torch.int64)
     dist.broadcast(idx, src=dist.get_global_rank(host_group, 0),
                    group=host_group)
-    rows = range(share.first, share.first + share.total // world)
+    rows = range(share.first, share.first + share.count)
     if views:
-        return [views[i] for i in rows]
-    return [loader.load_view(int(idx[i])) for i in rows]
+        mine = [views[i] for i in rows]
+        return mine, views[0]
+    mine = [loader.load_view(int(idx[i])) for i in rows]
+    return mine, mine[0] if mine else loader.load_view(int(idx[0]))
 
 
 def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,
@@ -656,7 +685,10 @@ def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,
                     upload: PinnedUpload) -> TrainState:
     """One LOD level: PUP scores over a handful of training views at half
     resolution, decimation to `lod_decimation_keep` percent, then
-    `lod_refine_steps` steps on downscaled images with growth off."""
+    `lod_refine_steps` steps on downscaled images with growth off; on the
+    card the scoring views and the steps are graphs (the steps' a
+    `StepGraphs` of their own, the JAX `lod_cache` keyed by image size,
+    freed at the end)."""
     from brush_tpu_torch.train.lod import decimate_to_count, pup_scores
 
     score_views = ds.train.views[::max(1, len(ds.train.views) // 8)]
@@ -679,16 +711,23 @@ def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,
                              alpha_mode=lcfg.alpha_mode)
     lod_tcfg = dataclasses.replace(tcfg, growth_stop_iter=0,
                                    total_train_iters=tcfg.lod_refine_steps)
+    steps = (StepGraphs(lod_tcfg)
+             if graphs.capturable(upload.dev, pcfg.use_pallas) else None)
     try:
         for _ in range(tcfg.lod_refine_steps):
             view = next(lod_loader)
             rcfg = RenderConfig(img_size=view.img_size,
                                 sh_degree=pcfg.sh_degree, isect_cap=isect_cap,
                                 use_pallas=pcfg.use_pallas)
-            state, _, _ = train_step(state, _scene_batch(view, upload),
-                                     lod_tcfg, rcfg)
+            batch = _scene_batch(view, upload)
+            if steps is not None:
+                state, _, _ = steps(state, batch, rcfg)
+            else:
+                state, _, _ = train_step(state, batch, lod_tcfg, rcfg)
     finally:
         lod_loader.stop()
+        if steps is not None:
+            steps.clear()
     return state
 
 

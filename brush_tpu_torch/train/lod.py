@@ -12,6 +12,13 @@ random image-space probe on the retained graph (a Hutchinson estimate of
 sum(J J^T) with K probes), accumulated as 6x6 outer products per splat. The
 probes come from `sample_probes`, which a test can replace with the JAX
 package's samples.
+
+On the card (the kernel path) a view runs as a CUDA graph, as the JAX
+package jits `view_hessian` and `fd_col`: one graph a call of
+`pup_hessians` (its views share a shape and a capacity), captured at the
+first view and replayed for the others, the probes' generator registered
+with it; the exact mode replays one graph a column pair. A replaced
+`sample_probes` runs at the capture only.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import dataclasses
 
 import torch
 
+from brush_tpu_torch import graphs
 from brush_tpu_torch.models.splats import DEAD_RAW_OPACITY, Splats
 from brush_tpu_torch.render import RenderConfig, render
 
@@ -59,11 +67,24 @@ def _view_hessian(folded, cam, rcfg, rng, view, n_probes):
     return acc
 
 
+def _fd_col(folded, cam, rcfg, dm, ds):
+    """One Jacobian column by central differences: dm / ds carry the step
+    in exactly one (splat, parameter) entry."""
+    up = _render_rgb(folded, folded.means + dm, folded.log_scales + ds, cam,
+                     rcfg)
+    dn = _render_rgb(folded, folded.means - dm, folded.log_scales - ds, cam,
+                     rcfg)
+    return (up - dn).reshape(-1) / (2.0 * FD_EPS)
+
+
 @torch.no_grad()
-def _view_hessian_exact(folded, cam, rcfg):
+def _view_hessian_exact(folded, cam, rcfg, fd_col=None):
     """One view's sum(J J^T) with J built column by column from central
     differences of the forward render: 2 * 6 * capacity renders, for tiny
-    scenes only (the oracle the estimate is tested against)."""
+    scenes only (the oracle the estimate is tested against). `fd_col(cam,
+    dm, ds)` computes a column (eager `_fd_col` by default, or a graph's
+    replay, copied out before the next)."""
+    fd_col = fd_col or (lambda c, dm, ds: _fd_col(folded, c, rcfg, dm, ds))
     cap = folded.capacity
     cols = []
     for g in range(cap):
@@ -71,13 +92,32 @@ def _view_hessian_exact(folded, cam, rcfg):
             dm = torch.zeros_like(folded.means)
             ds = torch.zeros_like(folded.log_scales)
             (dm if which < 3 else ds)[g, which % 3] = FD_EPS
-            up = _render_rgb(folded, folded.means + dm,
-                             folded.log_scales + ds, cam, rcfg)
-            dn = _render_rgb(folded, folded.means - dm,
-                             folded.log_scales - ds, cam, rcfg)
-            cols.append((up - dn).reshape(-1) / (2.0 * FD_EPS))
+            cols.append(fd_col(cam, dm, ds).clone())
     j = torch.stack(cols, dim=1).reshape(-1, cap, 6)       # [P, cap, 6]
     return torch.einsum("pgi,pgj->gij", j, j)
+
+
+def _graphed_views(folded, rcfg, rng, n_probes, exact):
+    """`view(i, cam) -> [cap, 6, 6]` of one view through a CUDA graph over
+    `folded` (fixed for the call), `view.graph`: the Hutchinson body
+    (render, probes, their products) captured at the first view, or the
+    exact mode's column."""
+    if exact:
+        graph = graphs.FnGraph(
+            lambda cam, dm, ds: _fd_col(folded, cam, rcfg, dm, ds),
+            what="fd_col")
+
+        def view(i, cam):
+            return _view_hessian_exact(folded, cam, rcfg, graph)
+    else:
+        graph = graphs.FnGraph(
+            lambda cam: _view_hessian(folded, cam, rcfg, rng, 0, n_probes),
+            generator=rng, grad=True, what="view_hessian")
+
+        def view(i, cam):
+            return graph(cam)
+    view.graph = graph
+    return view
 
 
 def pup_hessians(splats: Splats, cams: list, rcfg: RenderConfig,
@@ -96,9 +136,20 @@ def pup_hessians(splats: Splats, cams: list, rcfg: RenderConfig,
                          "RenderConfig(forward_only=False)")
     h_acc = torch.zeros((folded.capacity, 6, 6), dtype=torch.float32,
                         device=dev)
+    graphed = graphs.capturable(dev, rcfg.use_pallas)
+    if graphed:
+        view = _graphed_views(folded, rcfg, rng, n_probes, exact)
+    elif exact:
+        def view(i, cam):
+            return _view_hessian_exact(folded, cam, rcfg)
+    else:
+        def view(i, cam):
+            return _view_hessian(folded, cam, rcfg, rng, i, n_probes)
     for i, cam in enumerate(cams):
-        h_acc += (_view_hessian_exact(folded, cam, rcfg) if exact
-                  else _view_hessian(folded, cam, rcfg, rng, i, n_probes))
+        h_acc += view(i, cam)
+    if graphed:
+        del view            # the graph and its pool
+        graphs.free_pools()
     return h_acc
 
 

@@ -28,11 +28,12 @@ times B, the render statistics max-combined). With an `lpips_model`
 `lpips_loss_weight * LPIPS(render, ground truth)` (train.rs:246-253).
 
 Several processes share one batched step through a `ViewShare`: each
-renders its own rows of the step's views, and the share's `reduce` sums
-the gradients and the loss and max-combines the render statistics across
-the processes before the optimizer (parallel/data_parallel.py). On one
-device the share covers every view and reduces nothing, so the one-device
-and the multi-device step are this one function.
+renders its own rows of the step's views (a process may render none),
+and the share's `reduce` sums the gradients and the loss and max-combines
+the render statistics across the processes before the optimizer
+(parallel/data_parallel.py). On one device the share covers every view
+and reduces nothing, so the one-device and the multi-device step are this
+one function.
 """
 
 from __future__ import annotations
@@ -134,14 +135,31 @@ def _local(grads, loss, aux):
 
 class ViewShare(NamedTuple):
     """The views of one step that this process renders: rows [first,
-    first + n) of the step's `total` views, n the batch's leading size.
-    `reduce(grads, loss, aux) -> (grads, loss, aux)` sums the processes'
-    gradients (a list of tensors) and loss and max-combines their render
-    statistics; every process gets the same result."""
+    first + count) of the step's `total` views (count None: the batch's
+    leading size; 0: none, the process adds zeros). `reduce(grads, loss,
+    aux) -> (grads, loss, aux)` sums the processes' gradients (a list of
+    tensors) and loss and max-combines their render statistics; every
+    process gets the same result. `group` is the process group that
+    reduces (None: this process alone)."""
 
     first: int
     total: int
     reduce: Callable = _local
+    count: int | None = None
+    group: object = None
+
+
+def _zero_aux(n: int, device) -> RenderAux:
+    """The render statistics of no view: zeros, which leave every sum and
+    maximum of the statistics (all >= 0) as they are."""
+    def z():
+        return torch.zeros((), dtype=torch.int32, device=device)
+    return RenderAux(
+        num_visible=z(), num_isects=z(), num_bbox_tail=z(),
+        max_isects_per_tile=z(),
+        visible=torch.zeros((n,), dtype=torch.float32, device=device),
+        max_radius=torch.zeros((n,), dtype=torch.float32, device=device),
+        num_chunks=z())
 
 
 def _max_aux(auxs: list[RenderAux]) -> RenderAux:
@@ -327,20 +345,27 @@ def train_step_impl(
                     img[None, ..., :3], gt_rgb[None])
         return loss, aux
 
-    if batched:
-        # This process's part of the mean over all the step's views: the
-        # parts' sum is the mean, so their gradients sum to its gradient.
-        losses, auxs = zip(*(view_loss(_view_of(batch, v), bgs[v])
-                             for v in range(n_local)))
-        loss = torch.stack(losses).sum() / float(share.total)
-        aux = _max_aux(list(auxs))
+    names = list(params)
+    wrt = [params[k] for k in names] + [refine_holder, visible_holder]
+    if batched and n_local == 0:
+        # A process with none of the step's views (the step's views are
+        # shared by gcd(B, W) processes): zeros for the sums and maxima.
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        aux = _zero_aux(splats.capacity, dev)
+        grads = [torch.zeros_like(x) for x in wrt]
     else:
-        loss, aux = view_loss(batch, bgs[0])
-    with stage("backward"):
-        names = list(params)
-        grads = torch.autograd.grad(
-            loss, [params[k] for k in names] + [refine_holder,
-                                                visible_holder])
+        if batched:
+            # This process's part of the mean over all the step's views:
+            # the parts' sum is the mean, so their gradients sum to its
+            # gradient.
+            losses, auxs = zip(*(view_loss(_view_of(batch, v), bgs[v])
+                                 for v in range(n_local)))
+            loss = torch.stack(losses).sum() / float(share.total)
+            aux = _max_aux(list(auxs))
+        else:
+            loss, aux = view_loss(batch, bgs[0])
+        with stage("backward"):
+            grads = torch.autograd.grad(loss, wrt)
     # Sum the gradients and the loss, max the statistics, across the
     # processes of the step, before anything reads them (the overflow
     # gate included, so every process takes the same branch).

@@ -72,10 +72,14 @@ Phases, each of which must pass (any failure exits non-zero):
              within 1e-3 of 1); each evaluation renders through a
              RenderGraph it captures at its first view.
 11. init-lod — `create_random_splats(10_000)` and `to_init_splats` of
-             100,000 random points, each rendered once; `pup_scores` of the
-             trained scene over 2 views x 2 probes and `decimate_to_count`
-             to half: finite scores, the live count halved, the kept set
-             the top-scoring set. One scoring view's launches are kept for
+             100,000 random points, each rendered once; the PUP scoring of
+             the trained scene over 2 views x 2 probes, its views on a CUDA
+             graph (captured at the first, replayed for the second) and
+             eagerly from the same seed, the sums within 2 * BWD_RTOL of
+             the largest; `decimate_to_count` to half: finite scores, the
+             live count halved, the kept set the top-scoring set; a scoring
+             view's replay reading (host us, device ops). One eager
+             scoring view's launches and the graph's capture are kept for
              the kernel phase, as are those of one view of the evaluation
              after the loop.
 12. process — `train_process` as a user runs it: a COLMAP binary scene
@@ -97,8 +101,13 @@ Phases, each of which must pass (any failure exits non-zero):
              loop phase's step, the time to first step, eval, export,
              checkpoint and LOD times, peak memory and the ground-truth
              upload's host time (pageable against pinned). Every turn
-             must run on `StepGraphs`; the launches of the first capture
-             after the first refine are kept for the kernel phase.
+             must run on `StepGraphs` and every refine on `RefineGraphs`;
+             the launches of the first capture after the first refine are
+             kept for the kernel phase. The LOD bake again from its input,
+             one loader thread: on graphs (its captures kept) and eagerly
+             with the graphed run's scores, the baked states held by
+             `hold_steps`, the scoring sums within 2 * BWD_RTOL; the LOD
+             step graph's replay reading.
 13. live   — on the process phase's dataset, `train_process(slot=...,
              on_message=...)` for 6 steps while `serve(slot=..., bus=...)`
              runs: /render fetched from another thread while training
@@ -137,20 +146,35 @@ Phases, each of which must pass (any failure exits non-zero):
              within `TIE_ALPHA_TOL`, the colour mean within
              `TIE_RGB_MEAN_TOL`: tied depth keys may blend in another order
              in a strip); strip ms against the frame's, each strip's
-             `num_isects` against its cap; strip 1's launches kept.
+             `num_isects` against its cap; strip 1's launches kept. Each
+             strip again on a RenderGraph: equal to its eager render bit
+             for bit, timed, a replay under sync debug mode; strip 1's
+             capture kept; the replay reading.
 18. dp     — view-sharded training at the train cell (B = 2 views):
-             (a) `make_dp_train_step` over a one-process NCCL group, 3 steps
-             held to `train_step_impl(batched=True)` from the same state
-             (every state tensor within rtol 1e-5, atol 1e-6; step 2's
-             launches kept); (b) 2 child processes of this script on the
+             (a) over a one-process NCCL group: the eager DP step
+             (`train_step_impl` with the group's share), 3 steps held to
+             `train_step_impl(batched=True)` from the same state (every
+             state tensor within rtol 1e-5, atol 1e-6; step 2's launches
+             kept); `make_dp_train_step`, which runs on a StepGraph over
+             NCCL (the all_reduces captured; its capture kept): 3 steps
+             held to the batched step by the same rule and to the eager DP
+             step by `hold_steps` (bit for bit reported), 5 timed replays,
+             a replay under sync debug mode and its reading; the graphed
+             batched step, 3 steps, against it; the strips' `run` over the
+             group (one strip, the frame's all_reduce captured) equal to
+             the eager `run` bit for bit, timed; (b) 2 child processes of this script on the
              card over gloo (`--child ranks`): bit-identical replicas after
              every step, each held to (a)'s reference, a refine and one more
-             step, then `render_space_parallel` of the space phase's strips,
-             equal to the strips rendered here bit for bit; (c) a 2-process
+             step, the steps eager (gloo cannot be captured, and each says
+             so), then the strips' `run` of the space phase's strips on a
+             graph (the render captured, the gloo all_reduce eager), equal
+             to the strips rendered here bit for bit; (c) a 2-process
              `torch.distributed.run` launch of `cli.main` on the process
              phase's dataset (`--child cli`, 6 steps, refine at 3): one
              export, finite losses, no overflow after growth, equal final
-             states. Prints step ms, each process's peak MiB, wall times.
+             states, the steps eager (gloo). Prints step ms, each process's
+             peak MiB, wall times. With more than one card the multi-card
+             case runs after it (below); with one, a line says it did not.
 19. graph  — the JAX package's compiled, donated programs as CUDA graphs
              (brush_tpu_torch/graphs.py). An eager serve frame, training
              step and first loop turn under sync debug mode "error" (no
@@ -165,15 +189,22 @@ Phases, each of which must pass (any failure exits non-zero):
              (24 `loop_step` turns on StepGraphs in a capacity of 2^21,
              refines at 8, 16, 24: finite after each, no overflow after
              growth, eval PSNR within 0.05 dB of the eager loop's); the
-             process phase's turns on StepGraphs. Replays under sync debug
-             mode too. The frame's and the step's capture launches are
-             kept for the kernel phase.
+             process phase's turns on StepGraphs; the loop cell's refine
+             (the state one step before its last refine) on a RefineGraph,
+             each replay equal to eager `refine_step` bit for bit
+             (statistics and generator too), one under sync debug mode,
+             timed against eager, with its reading; a table of every
+             graph's host us of `replay()` beside its device ops a replay.
+             Replays under sync debug mode too. The frame's and the step's
+             capture launches are kept for the kernel phase.
 20. kernels — each kernel against its plain PyTorch version, on the card,
              on the inputs the serving frame, the training step, the direct
              calls, the stress run, two growth steps, two loop steps, an
              evaluation view, a LOD scoring view, a process step, a viewer
-             frame, an LPIPS step, a DP step, a strip and the graph
-             frame's and step's captures gave it (scan, stack, emit, expand
+             frame, an LPIPS step, a DP step, a strip, the graph frame's
+             and step's captures and this slice's graphs' captures (the DP
+             step over NCCL, a scoring view, the LOD bake, a strip) gave
+             it (scan, stack, emit, expand
              and fill bit-exact; the forward rasterizers within a few ulps;
              the backward within 1e-5 of each gradient row's largest entry;
              the f32 scan within 1e-6 of the running sum of |x|), with its
@@ -202,8 +233,16 @@ Phases, each of which must pass (any failure exits non-zero):
 
 The last lines are the `kernels` JSON, the card's name and power limit
 from nvidia-smi, and the result JSON. No GPU, or no brush_tpu_torch next to
-this script: exit 2 with no result. `--child ranks|cli ...` runs one of the
-dp phase's own child processes.
+this script: exit 2 with no result. `--child ranks|cli|cli-eager ...` runs
+one of the script's own child processes.
+
+    python3 chip_smoke.py --multi-card   # on a machine of 2 or more cards
+
+runs the multi-card case alone: the process cell's dataset, then the CLI
+under `torchrun --nproc-per-node N` (one card a process, NCCL, N views a
+step) on graphs and eagerly, 12 steps, refine every 3, one loader thread:
+each run's replicas equal, the graphed losses within 1e-3 of the eager
+ones, turn ms by rank.
 """
 
 from __future__ import annotations
@@ -266,6 +305,8 @@ LPIPS_STEPS = 3
 DP_VIEWS = 2
 DP_STEPS = 3
 DP_CAPTURED_STEP = 2
+DP_TIMED = 5        # replays of the graphed DP step timed after the check
+MULTI_STEPS = 12    # steps of the multi-card CLI run (more than one card)
 DP_RANKS = 2
 DP_CLI_STEPS = 6
 DP_CLI_REFINE_EVERY = 3
@@ -1479,6 +1520,8 @@ def phase_loop(torch, serve):
                 ssim=dict(teacher=ev_teacher["ssim"],
                           before=ev_before["ssim"], after=ev_after["ssim"]),
                 state=state, rcfg=loop.rcfg, truths=truths,
+                before_last_refine=before_last_refine, tcfg=tcfg,
+                centers=centers, focals=focals,
                 step=lambda i: loop_step(loop, batches[i % N_VIEWS], tcfg,
                                          centers, focals),
                 refine=lambda _: refine_step(before_last_refine, tcfg,
@@ -1491,7 +1534,7 @@ def phase_init_lod(torch, loop):
     from brush_tpu_torch import kernels
     from brush_tpu_torch.ops.capacity import plan_caps
     from brush_tpu_torch.render import RenderConfig, render
-    from brush_tpu_torch.train.lod import decimate_to_count, pup_scores
+    from brush_tpu_torch.train.lod import decimate_to_count
     from brush_tpu_torch.train.splat_init import (
         create_random_splats, to_init_splats)
 
@@ -1528,24 +1571,62 @@ def phase_init_lod(torch, loop):
             f"the host, visible={visible} coverage="
             f"{float((img[..., 3] > 1.0 / 255.0).float().mean()):.4f}")
 
-    # LOD scoring of the trained scene, as the process bakes a level.
+    # LOD scoring of the trained scene, as the process bakes a level: the
+    # views on a graph (captured at the first, replayed for the second),
+    # then the same views eagerly, from the same seed.
+    from brush_tpu_torch import graphs
+    from brush_tpu_torch.ops.rasterize_cuda import BWD_ATOL, BWD_RTOL
+    from brush_tpu_torch.train.lod import (
+        _graphed_views, pup_hessians, scores_from_hessians)
     splats = loop["state"].splats
     n_alive = int(splats.n_alive)
     score_cams = [ci for _, ci, _ in truths[:LOD_VIEWS]]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    with kernels.capture() as cap_list:
-        scores = pup_scores(splats, score_cams, loop["rcfg"], SEED,
-                            n_probes=LOD_PROBES)
-    torch.cuda.synchronize()
-    t_scores = time.perf_counter() - t0
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    # The first view's launches (a render and one backward a probe) go to
-    # the kernel phase.
-    captured = first_run(cap_list, LOD_VIEWS)
-    held_mb = held_mib(torch, cap_list)
-    del cap_list
+    secs = {}
+    for how in ("graph", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if how == "eager":
+                stack.enter_context(wrapped(graphs, "capturable",
+                                            lambda real: lambda *a: False))
+            cap_list = stack.enter_context(kernels.capture())
+            h = pup_hessians(splats, score_cams, loop["rcfg"], SEED,
+                             n_probes=LOD_PROBES)
+        torch.cuda.synchronize()
+        secs[how] = time.perf_counter() - t0
+        if how == "graph":
+            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            h_graph, graph_captured = h, list(cap_list)
+        else:
+            h_eager = h
+            # The first eager view's launches (a render and one backward a
+            # probe) go to the kernel phase, as do the graph's capture's.
+            captured = first_run(cap_list, LOD_VIEWS)
+        del cap_list
+    t_scores = secs["graph"]
+    held_mb = held_mib(torch, captured + graph_captured)
+    h_top = float(h_eager.abs().max())
+    h_diff = float((h_graph - h_eager).abs().max())
+    check(h_diff <= 2.0 * BWD_RTOL * h_top + BWD_ATOL,
+          f"the graphed scoring views' sums differ from eager's by "
+          f"{h_diff:.3g} (largest entry {h_top:.3g})")
+    scores = scores_from_hessians(h_graph)
+    del h_eager
+    # One scoring view's graph alone: its replay's host time and size.
+    folded = splats.fold_min_scale()
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(SEED)
+    view = _graphed_views(folded, loop["rcfg"], rng, LOD_PROBES, False)
+    view(0, score_cams[0])
+    score_reading = graph_reading(
+        torch, "PUP scoring view", view.graph.replay,
+        lambda: view(1, score_cams[1]))
+    for name in kernels.TRAIN_PATH:
+        check(score_reading["kernels"].get(name, 0) > 0,
+              f"the replayed scoring view launched no {name}")
+    del view, folded
+    graphs.free_pools()
     # H + 1e-12 I is positive definite, so every live splat scores finite;
     # a splat no probe touched sits at the floor 6 ln(1e-12) = -165.8.
     live = scores[:n_alive]
@@ -1565,6 +1646,9 @@ def phase_init_lod(torch, loop):
     check(bool(torch.equal(live[order], top)),
           "the kept set is not the top-scoring set")
     launches = dict(kernels.LAUNCHES)
+    log(f"[init-lod] scoring views on a graph against eager: sums within "
+        f"{h_diff:.3g} (largest entry {h_top:.3g}); {secs['graph']:.3f} s "
+        f"graphed (its capture included), {secs['eager']:.3f} s eager")
     log(f"[init-lod] pup_scores over {LOD_VIEWS} views x {LOD_PROBES} "
         f"probes on {n_alive} live splats: {t_scores:.3f} s, peak "
         f"{peak_mb:.1f} MiB; {int(seen.sum())} splats score above the "
@@ -1577,7 +1661,11 @@ def phase_init_lod(torch, loop):
     for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
         check(launches[name] > 0, f"kernel {name} was not launched")
     return dict(launches=launches, captured=captured, pup_seconds=t_scores,
-                pup_peak_mb=peak_mb)
+                pup_eager_seconds=secs["eager"], pup_peak_mb=peak_mb,
+                pup_sums_max_abs_diff=h_diff, pup_sums_largest=h_top,
+                graph_captured=graph_captured,
+                graph_counts=counted(graph_captured),
+                score_reading=score_reading)
 
 
 def write_colmap_scene(root: str, cams, focal: float, pngs) -> None:
@@ -1653,18 +1741,15 @@ def phase_process(torch, loop, work: str):
         torch, data, work)
 
 
-def _process_run(torch, loop, work):
-    from brush_tpu_torch import cli, graphs, kernels, process
+def write_process_dataset(torch, work: str):
+    """The process cell's dataset in work/scene: 8 PINHOLE views of
+    1920x1080 about the serve camera, PNG ground truth the port's 8-bit
+    renders of the seed-43 scene, the seed-42 scene as init.ply. Returns
+    (its path, the PNGs' pixels)."""
     from brush_tpu_torch.camera import Camera, Pinhole, focal_to_fov
-    from brush_tpu_torch.data.formats import LoadConfig
     from brush_tpu_torch.io import ply
-    from brush_tpu_torch.ops.loss import gt_tensor
-    from brush_tpu_torch.process import ProcessConfig, train_process
-    from brush_tpu_torch.train import checkpoint
-    from brush_tpu_torch.train.config import TrainConfig
     from brush_tpu_torch.utils.synthetic import bench_splats
 
-    # --- the dataset: 8 views about the serve camera, GT rendered ---
     t0 = time.perf_counter()
     w, h = IMG_SIZE
     focal = (w / 2.0) / np.tan(0.5)          # the serve camera's fov_x, 1.0
@@ -1683,11 +1768,85 @@ def _process_run(torch, loop, work):
     with open(os.path.join(data, "init.ply"), "wb") as f:
         f.write(ply.splats_to_ply_bytes(init))
     del init
-    out = os.path.join(work, "out")
     log(f"[process] dataset: {PROCESS_VIEWS} views {w}x{h} PINHOLE f="
         f"{focal:.4f}, init.ply of {N_SPLATS} splats "
         f"({os.path.getsize(os.path.join(data, 'init.ply')) / 2**20:.1f} "
         f"MiB); written in {time.perf_counter() - t0:.3f} s")
+    return data, pngs
+
+
+def phase_multicard(torch, work: str, data: str) -> dict:
+    """The CLI under `torchrun --nproc-per-node N`, one card a process
+    (NCCL), on the process cell's dataset: B = N views a step, one each,
+    `MULTI_STEPS` steps, refine every `DP_CLI_REFINE_EVERY`, one loader
+    thread; on graphs, then with every program eager. Each run's replicas
+    equal; the graphed run's losses within 1e-3 of the eager run's; turn
+    ms by rank (host clock between turns, the turns with no refine after
+    them and no capture in them)."""
+    n = torch.cuda.device_count()
+    res = {}
+    for mode in ("cli", "cli-eager"):
+        out = os.path.join(work, f"multi_{mode}")
+        os.makedirs(out)
+        export = os.path.join(out, "multi_{iter}.ply")
+        secs = run_children(torch, mode, [
+            out, data, "--views-per-batch", str(n), "--total-train-iters",
+            str(MULTI_STEPS), "--refine-every", str(DP_CLI_REFINE_EVERY),
+            "--eval-every", "0", "--log-every", "1", "--export-path",
+            export], n, work, torchrun=True)
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out, f"cli{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r, c in enumerate(ranks):
+            check(c["rc"] == 0 and c["backend"] == "nccl"
+                  and c["digest"] == ranks[0]["digest"],
+                  f"{mode} rank {r}: rc {c['rc']} backend {c['backend']}, "
+                  f"final state equal to rank 0's: "
+                  f"{c['digest'] == ranks[0]['digest']}")
+        # Turns with no refine after them and no capture in them (the
+        # first, and the first after the first refine, capture on graphs).
+        turn_ms = [[(b - a) * 1e3 for i, (a, b) in enumerate(
+            zip(c["turns"], c["turns"][1:]), start=1)
+            if i % DP_CLI_REFINE_EVERY and i not in (
+                1, DP_CLI_REFINE_EVERY + 1)] for c in ranks]
+        res[mode] = dict(seconds=secs, losses=ranks[0]["losses"],
+                         step_kind=ranks[0]["step_kind"],
+                         digest=ranks[0]["digest"],
+                         turn_median_ms=[statistics.median(t)
+                                         for t in turn_ms],
+                         peak_mib=[c["peak_mib"] for c in ranks])
+        log(f"[multicard] {mode}: torchrun --nproc-per-node {n}, NCCL, "
+            f"{n} views a step ({ranks[0]['step_kind']}): {secs:.1f} s; "
+            f"losses {ranks[0]['losses']}; turn median ms by rank "
+            f"{[round(x, 3) for x in res[mode]['turn_median_ms']]}; peak "
+            f"MiB {[round(x, 1) for x in res[mode]['peak_mib']]}; "
+            f"replicas equal")
+    g, e = res["cli"], res["cli-eager"]
+    check(g["step_kind"] == "graphs" and e["step_kind"] == "eager",
+          f"step kinds {g['step_kind']}, {e['step_kind']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"])]
+    check(len(rel) == MULTI_STEPS and max(rel) <= 1e-3,
+          f"graphed losses {g['losses']} against eager {e['losses']}")
+    res["bit_identical"] = g["digest"] == e["digest"]
+    log(f"[multicard] graphed against eager: losses within "
+        f"{max(rel):.3g} relative, final states bit for bit "
+        f"{res['bit_identical']}")
+    return res
+
+
+def _process_run(torch, loop, work):
+    from brush_tpu_torch import cli, graphs, kernels, process
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.ops.loss import gt_tensor
+    from brush_tpu_torch.process import ProcessConfig, train_process
+    from brush_tpu_torch.train import checkpoint
+    from brush_tpu_torch.train.config import TrainConfig
+
+    data, pngs = write_process_dataset(torch, work)
+    w, h = IMG_SIZE
+    out = os.path.join(work, "out")
 
     rgb = pngs[0].astype(np.uint32)
     packed = rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | (
@@ -1739,6 +1898,8 @@ def _process_run(torch, loop, work):
                          use_pallas=True, sh_degree=SH_DEGREE, seed=SEED)
     turns, flags, captured, final = [], [], [], {}
     graphed = []      # (the turn ran on StepGraphs, its captures so far)
+    refined = []      # each refine turn ran on RefineGraphs
+    baked = []        # the LOD bake's arguments, its state a copy
     secs = dict(eval=[], export=[], save=[], lod=[])
 
     def step_turn(real):
@@ -1761,6 +1922,20 @@ def _process_run(torch, loop, work):
             return res
         return run
 
+    def refine_turn(real):
+        def run(loop_state, *a, **k):
+            res = real(loop_state, *a, **k)
+            if res[1]:
+                refined.append(res[0].refines is not None)
+            return res
+        return run
+
+    def bake(real):
+        def run(state, *a, **k):
+            baked.append((fresh_copy(torch, state), a, k))
+            return real(state, *a, **k)
+        return run
+
     # No render graph carries over from an earlier phase: this run's
     # frames capture their own, so the counters count them.
     graphs.RENDER_GRAPHS.clear()
@@ -1772,9 +1947,11 @@ def _process_run(torch, loop, work):
     with contextlib.ExitStack() as stack:
         for mod, name, wrap in (
                 (process, "_step_turn", step_turn),
+                (process, "_refine_turn", refine_turn),
                 (process, "_run_eval", timed(torch, secs["eval"])),
                 (process, "_export_splats", timed(torch, secs["export"])),
-                (process, "_bake_lod_level", timed(torch, secs["lod"])),
+                (process, "_bake_lod_level",
+                 lambda real: timed(torch, secs["lod"])(bake(real))),
                 (checkpoint, "save_checkpoint", timed(torch, secs["save"]))):
             stack.enter_context(wrapped(mod, name, wrap))
         msgs = list(train_process(data, tcfg, lcfg, pcfg,
@@ -1815,6 +1992,8 @@ def _process_run(torch, loop, work):
     for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
         check(launches[name] > 0, f"kernel {name} was not launched")
     check(captured, "no capture after the first refine recorded launches")
+    check(refined == [True] * len(refines),
+          f"refine turns on RefineGraphs: {refined}")
 
     # The checkpoint restores the state of step 24 bit for bit, generator
     # included, and the final export is its folded live rows.
@@ -1865,6 +2044,9 @@ def _process_run(torch, loop, work):
           f"compressed {comp_bytes} bytes against {raw_bytes}")
     del saved, restored, folded, final
 
+    bake_res = _bake_graph_against_eager(torch, baked[0])
+    del baked
+
     # --- resume from the checkpoint to step 26 ---
     t1 = time.perf_counter()
     resumed = list(train_process(
@@ -1914,7 +2096,8 @@ def _process_run(torch, loop, work):
         overflows=[m.data for m in overflows],
         live=n, lod_live=lod.num_splats,
         graphed_turns=sum(g for g, _ in graphed),
-        graph_captures=graphed[-1][1])
+        graph_captures=graphed[-1][1], graphed_refines=sum(refined),
+        **bake_res)
     log(f"[process] train_process {PROCESS_STEPS} steps in {run_secs:.3f} s: "
         f"step_median_ms={res['step_median_ms']:.4f} (host clock between "
         f"turns, {len(turn_ms)} turns without a refine or eval; min "
@@ -1941,6 +2124,100 @@ def _process_run(torch, loop, work):
         f"{json.dumps(res['overflows'])}; launches {json.dumps(launches)}")
     res.update(launches=launches, captured=captured)
     return res
+
+
+def _bake_graph_against_eager(torch, baked) -> dict:
+    """The process phase's LOD bake again from its input state, one loader
+    thread (two make the view order a race): on graphs (the scoring views
+    and the LOD steps; their captures' launches kept), then eagerly with
+    the graphed run's scores (so both decimate alike), the baked states
+    held by `hold_steps`; the scoring views' sums of that input graphed
+    against eager; each graph's replay reading."""
+    import functools
+
+    from brush_tpu_torch import graphs, kernels, process
+    from brush_tpu_torch.data import dataloader
+    from brush_tpu_torch.ops.rasterize_cuda import BWD_ATOL, BWD_RTOL
+    from brush_tpu_torch.train import lod
+
+    state, args, kw = baked
+    scored, kept = {}, []
+
+    def one_thread():
+        return wrapped(process, "SceneLoader",
+                       lambda real: functools.partial(real, n_threads=1))
+
+    def record(real):
+        def run(splats, cams, rcfg, rng, **k):
+            scored["args"] = (splats, cams, rcfg, rng, k)
+            scored["scores"] = real(splats, cams, rcfg, rng, **k)
+            return scored["scores"]
+        return run
+
+    class KeptStepGraphs(process.StepGraphs):
+        def clear(self):
+            if self.graph is not None:
+                kept.append(self.graph)  # kept for its replay reading
+            super().clear()
+
+    secs = {}
+    with one_thread(), wrapped(lod, "pup_scores", record), wrapped(
+            process, "StepGraphs", lambda real: KeptStepGraphs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with kernels.capture() as cap_list:
+            on_graphs = process._bake_lod_level(fresh_copy(torch, state),
+                                                *args, **kw)
+        torch.cuda.synchronize()
+        secs["graph"] = time.perf_counter() - t0
+    with one_thread(), wrapped(graphs, "capturable",
+                               lambda real: lambda *a: False), wrapped(
+            lod, "pup_scores", lambda real: lambda *a, **k: scored["scores"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = process._bake_lod_level(fresh_copy(torch, state), *args, **kw)
+        torch.cuda.synchronize()
+        secs["eager"] = time.perf_counter() - t0
+    check(int(on_graphs.splats.n_alive) == int(eager.splats.n_alive),
+          "the graphed bake kept another count")
+    tcfg = args[3]
+    lrs = dict(means=tcfg.lr_mean * float(eager.median_scale),
+               log_scales=tcfg.lr_scale, quats=tcfg.lr_rotation,
+               sh_coeffs=tcfg.lr_coeffs_dc, raw_opacities=tcfg.lr_opac)
+    diffs = hold_steps(torch, on_graphs, eager, lrs, tcfg.lod_refine_steps)
+    bit_identical = not diff_bits(torch, on_graphs, eager)
+    # The scoring views' sums of the bake's input, graphed against eager.
+    splats, cams, rcfg, rng, k = scored["args"]
+    h_graph = lod.pup_hessians(splats, cams, rcfg, rng, **k)
+    with wrapped(graphs, "capturable", lambda real: lambda *a: False):
+        h_eager = lod.pup_hessians(splats, cams, rcfg, rng, **k)
+    top = float(h_eager.abs().max())
+    h_diff = float((h_graph - h_eager).abs().max())
+    check(h_diff <= 2.0 * BWD_RTOL * top + BWD_ATOL,
+          f"the bake's scoring sums graphed against eager: {h_diff:.3g} "
+          f"(largest entry {top:.3g})")
+    del h_graph, h_eager, on_graphs, eager
+    step = kept[0]
+    lod_reading = graph_reading(torch, "LOD step", step.replay,
+                                lambda: step(step.state, step._batch))
+    for name in kernels.TRAIN_PATH:
+        check(lod_reading["kernels"].get(name, 0) > 0,
+              f"the replayed LOD step launched no {name}")
+    del kept, step
+    graphs.free_pools()
+    log(f"[process] LOD bake from the run's state, one loader thread: "
+        f"{secs['graph']:.3f} s on graphs (its captures included) against "
+        f"{secs['eager']:.3f} s eager; the baked states within the rule "
+        f"(bit for bit: {bit_identical}; largest |d| by path "
+        + json.dumps({p: float(f"{v:.3g}") for p, v in diffs.items() if v})
+        + f"); the scoring sums within {h_diff:.3g} of eager's (largest "
+        f"entry {top:.3g})")
+    return dict(bake_graph_s=secs["graph"], bake_eager_s=secs["eager"],
+                bake_bit_identical=bit_identical,
+                bake_max_abs_diff={p: v for p, v in diffs.items() if v},
+                bake_sums_max_abs_diff=h_diff, lod_reading=lod_reading,
+                bake_captured=list(cap_list),
+                bake_counts=counted(cap_list))
 
 
 def _http(port: int, path: str, timeout: float = 600) -> bytes:
@@ -2598,6 +2875,52 @@ def _twin(torch, state):
     return dataclasses.replace(state, rng=rng)
 
 
+def counted(captured) -> dict:
+    """Launches of each kernel among `captured` (a graph's capture: its
+    replays run no wrapper and move no counter)."""
+    from brush_tpu_torch import kernels
+    return {name: sum(1 for c in captured if c.name == name)
+            for name in kernels.KERNEL_NAMES}
+
+
+def fresh_copy(torch, state):
+    """A copy of `state` with tensors and a generator of its own: what a
+    graph that takes its state by donation is given here."""
+    from brush_tpu_torch import graphs
+    return dataclasses.replace(
+        graphs.copy_out(dataclasses.replace(state, rng=None)),
+        rng=_twin(torch, state).rng)
+
+
+def diff_bits(torch, got, want) -> list:
+    """The paths of the TrainState `want` (its generator's state too) that
+    `got` does not hold bit for bit."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    bad = [p for p, w, g in _state_pairs(torch, want, got)
+           if g is None or g.dtype != w.dtype or g.shape != w.shape
+           or not torch.equal(bits(g), bits(w))]
+    if not torch.equal(got.rng.get_state(), want.rng.get_state()):
+        bad.append("state.rng")
+    return bad
+
+
+def graph_reading(torch, what: str, replay, call) -> dict:
+    """Whether a replay's host time follows the graph's size: host us of
+    `replay()` alone and of the whole `call()` (copies in and out
+    included), and a profiled call's device ops (the graph's kernel,
+    memset and copy nodes), busy ms and csrc/ kernels by device name."""
+    us = host_us(torch, {"call": call, "replay": replay}, calls=3,
+                 repeats=3)
+    prof = replay_profile(torch, what, call)
+    res = dict(host_us=us, nodes=prof["device_ops"],
+               device_busy_ms=prof["device_busy_ms"],
+               kernels=prof["kernels"])
+    log(f"[graph] {what}: host us a replay() {us['replay']:.1f}, a call "
+        f"{us['call']:.1f}; {prof['device_ops']:.0f} device ops a replay")
+    return res
+
+
 def run_children(torch, mode: str, args: list, world: int, work: str,
                  timeout: float = CHILD_TIMEOUT_S, torchrun: bool = False):
     """`world` processes of this script in `--child mode`, started at once
@@ -2711,12 +3034,42 @@ def phase_space(torch, serve):
     strip_ms = [time_ms(torch, lambda c=c: render(*params, c, bg, scfg),
                         FRAMES) for c in strips]
     frame_ms = time_ms(torch, lambda: render(*params, ci, bg, cfg), FRAMES)
+    # Each strip's render on a graph of its own (a process renders one):
+    # bit for bit the eager strip, timed; strip 1's capture kept.
+    from brush_tpu_torch import graphs
+    strip_graphs, graph_captured, graph_ms = [], [], []
+    for i, c in enumerate(strips):
+        g = graphs.RenderGraph(scfg, s.means.shape[0])
+        with (kernels.capture() if i == 1
+              else contextlib.nullcontext([])) as cap_list:
+            g(*params, c, bg)
+        graph_captured.extend(cap_list)
+        for _ in range(2):
+            got, _ = g(*params, c, bg)
+            check(torch.equal(got.view(torch.int32), imgs[i].view(
+                torch.int32)), f"strip {i} on a graph differs from eager")
+        graph_ms.append(time_ms(torch, lambda g=g, c=c: g(*params, c, bg),
+                                FRAMES))
+        strip_graphs.append(g)
+    sync_free(torch, "strip graph replay",
+              lambda: strip_graphs[0](*params, strips[0], bg))
+    strip_reading = graph_reading(
+        torch, "strip", strip_graphs[1].replay,
+        lambda: strip_graphs[1](*params, strips[1], bg))
+    for name in kernels.SERVE_PATH:
+        check(strip_reading["kernels"].get(name, 0) > 0,
+              f"the replayed strip launched no {name}")
+    del strip_graphs, g, got
+    graphs.free_pools()
     res = dict(h_strip=h_strip, isect_cap=scfg.isect_cap,
                expand_k0=scfg.expand_k0, strip_isects=isects,
                strip_planned_caps=[c for _, c in plans], strip_ms=strip_ms,
                full_frame_ms=frame_ms, rgb_quantiles=quant,
                rgb_mean=mean_rgb, rgb_max=float(d_rgb.max()),
                rgb_share_over=over, alpha_max=d_alpha,
+               graph_strip_ms=graph_ms, strip_reading=strip_reading,
+               graph_captured=graph_captured,
+               graph_counts=counted(graph_captured),
                launches=launches, captured=captured, strips=SPACE_STRIPS,
                # + 0.0: the all_reduce's sum with zeros turns -0 into +0
                frame=(frame + 0.0).cpu(),
@@ -2727,7 +3080,9 @@ def phase_space(torch, serve):
         f"{scfg.isect_cap} (planned a strip {res['strip_planned_caps']}, "
         f"expand_k0 {scfg.expand_k0}); strip ms "
         f"{[round(x, 4) for x in strip_ms]} (CUDA events, {FRAMES} "
-        f"renders each) against the full frame's {frame_ms:.4f}; assembled "
+        f"renders each; on graphs {[round(x, 4) for x in graph_ms]}, each "
+        f"equal to the eager strip bit for bit) against the full frame's "
+        f"{frame_ms:.4f}; assembled "
         f"against the full render: alpha max {d_alpha:.3g}, rgb mean "
         f"{mean_rgb:.3g} quantiles {json.dumps(quant)} max "
         f"{float(d_rgb.max()):.3g}, share of rgb values off by more than "
@@ -2749,7 +3104,11 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
     from brush_tpu_torch.camera import fov_to_focal
     from brush_tpu_torch.ops import loss as loss_mod
     from brush_tpu_torch.ops.capacity import plan_caps
-    from brush_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from brush_tpu_torch import graphs
+    from brush_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step, view_share)
+    from brush_tpu_torch.parallel.tile_parallel import (
+        make_space_parallel_render, strip_camera_inputs)
     from brush_tpu_torch.render import RenderConfig, render
     from brush_tpu_torch.train.config import TrainConfig
     from brush_tpu_torch.train.trainer import (
@@ -2805,8 +3164,11 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         "nccl", init_method="file://" + os.path.join(work, "nccl_store"),
         rank=0, world_size=1,
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    group = dist.group.WORLD
     try:
-        step = make_dp_train_step(dist.group.WORLD, tcfg, rcfg)
+        # The eager DP step: the body the graph captures, the share's
+        # all_reduces over NCCL (its first step sets NCCL up).
+        share = view_share(group, DP_VIEWS)
         state, losses, events, captured = _twin(torch, state0), [], [], []
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2816,7 +3178,8 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
             start.record()
             with (kernels.capture() if i == DP_CAPTURED_STEP
                   else contextlib.nullcontext([])) as cap_list:
-                state, stats, _ = step(state, batch)
+                state, stats, _ = train_step_impl(
+                    state, batch, tcfg, rcfg, batched=True, share=share)
             end.record()
             captured.extend(cap_list)
             events.append((start, end))
@@ -2825,6 +3188,72 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        # The DP step as a user makes it: on a StepGraph over NCCL, the
+        # all_reduces in the graph. Its first step captures.
+        step = make_dp_train_step(group, tcfg, rcfg)
+        check(step.graphs is not None, "the NCCL DP step is not graphed")
+        graphed, g_losses = fresh_copy(torch, state0), []
+        t0 = time.perf_counter()
+        with kernels.capture() as dp_graph_captured:
+            graphed, stats, _ = step(graphed, batch)
+        torch.cuda.synchronize()
+        dp_capture_s = time.perf_counter() - t0
+        g_losses.append(float(stats.loss))
+        for _ in range(DP_STEPS - 1):
+            graphed, stats, _ = step(graphed, batch)
+            g_losses.append(float(stats.loss))
+        torch.cuda.synchronize()
+        g_report = hold_state(torch, graphed, ref, lrs)
+        g_diffs = hold_steps(torch, graphed, state, lrs, DP_STEPS)
+        g_bits = diff_bits(torch, graphed, state)
+        g_state = fresh_copy(torch, graphed)
+        sync_free(torch, "graph DP step replay (NCCL)",
+                  lambda: step(graphed, batch))
+        g_ms, g_host = [], []
+        for _ in range(DP_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            graphed, _, _ = step(graphed, batch)
+            g_host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            g_ms.append((start, end))
+        torch.cuda.synchronize()
+        g_ms = [a.elapsed_time(b) for a, b in g_ms]
+        own = step.graphs.graph
+        dp_reading = graph_reading(torch, "DP step (NCCL)", own.replay,
+                                   lambda: step(own.state, batch))
+        for name in kernels.TRAIN_PATH:
+            check(dp_reading["kernels"].get(name, 0) > 0,
+                  f"the replayed DP step launched no {name}")
+        del own
+        step.graphs.clear()
+        # The strips' run over the NCCL group (one process: one strip, the
+        # whole frame), the frame's all_reduce in its graph, against eager.
+        frame_cfg = serve["plans"][0][2]
+        cam = views(N_VIEWS, YAW)[0][1]
+        stack, _ = strip_camera_inputs(cam, img, 1)
+        sp = serve["splats"].fold_min_scale()
+        sp_args = (sp.means, sp.log_scales, sp.quats, sp.sh_coeffs,
+                   sp.raw_opacities, stack, torch.zeros(3, device="cuda"))
+        with wrapped(graphs, "capturable", lambda real: lambda *a: False):
+            eager_run = make_space_parallel_render(group, frame_cfg)
+            strip_want = eager_run(*sp_args) + 0.0
+            strip_eager_ms = time_ms(torch, lambda: eager_run(*sp_args),
+                                     FRAMES)
+        run = make_space_parallel_render(group, frame_cfg)
+        with kernels.capture() as run_captured:
+            run(*sp_args)
+        for _ in range(2):
+            check(torch.equal((run(*sp_args) + 0.0).view(torch.int32),
+                              strip_want.view(torch.int32)),
+                  "the strips' run on a graph over NCCL differs from eager")
+        strip_graph_ms = time_ms(torch, lambda: run(*sp_args), FRAMES)
+        check(run.graph.captured and run_captured,
+              "the strips' run over NCCL was not captured")
+        del run, eager_run, strip_want, sp, sp_args
+        graphs.free_pools()
     finally:
         dist.destroy_process_group()
     for name in kernels.TRAIN_PATH:
@@ -2833,17 +3262,45 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
     report = hold_state(torch, state, ref, lrs)
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     bad = {p: r for p, r in report.items() if r["bad"]}
+    g_bad = {p: r for p, r in g_report.items() if r["bad"]}
     log(f"[dp] (a) one-process NCCL group, B={DP_VIEWS} views at {img[0]}x"
-        f"{img[1]}, {N_SPLATS} splats sh{SH_DEGREE}: step ms "
+        f"{img[1]}, {N_SPLATS} splats sh{SH_DEGREE}: eager step ms "
         f"{[round(x, 3) for x in ms]} (median {statistics.median(ms):.4f}; "
         f"the first sets up NCCL), peak {peak_mb:.1f} MiB; losses {losses} "
         f"against the batched step's {ref_losses} (rel {loss_rel}); tensors "
         f"outside rtol 1e-5 atol 1e-6: {json.dumps(bad)}; the batched step "
         f"against its own repeat: "
         f"{json.dumps({p: r for p, r in self_report.items() if r['bad']})}")
+    log(f"[dp] (a) the DP step on a graph over NCCL (make_dp_train_step, "
+        f"its all_reduces captured): capture {dp_capture_s:.3f} s, losses "
+        f"{g_losses}; against the eager DP step bit for bit: {not g_bits} "
+        f"(differing {g_bits}; largest |d| by path "
+        + json.dumps({p: float(f"{v:.3g}") for p, v in g_diffs.items() if v})
+        + f"); tensors outside rtol 1e-5 atol 1e-6 of the batched step: "
+        f"{json.dumps(g_bad)}; step ms {[round(x, 3) for x in g_ms]} "
+        f"(median {statistics.median(g_ms):.4f}, {DP_TIMED} replays; host "
+        f"ms a replay {statistics.median(g_host):.4f}) against the eager DP "
+        f"step's {statistics.median(ms):.4f}")
+    log(f"[space] the strips' run over the one-process NCCL group (one "
+        f"strip, the frame's all_reduce in the graph): equal to eager bit "
+        f"for bit, {strip_graph_ms:.4f} ms against eager "
+        f"{strip_eager_ms:.4f} ms (CUDA events, {FRAMES} runs)")
     check(max(loss_rel) <= 1e-5, f"dp losses {losses} against {ref_losses}")
     check(not bad, "the dp step differs from the batched step")
-    del state
+    check(not g_bad, "the graphed dp step differs from the batched step")
+    # The graphed batched step (one process, no share) from the same state.
+    steps = graphs.StepGraphs(tcfg, batched=True)
+    batched = fresh_copy(torch, state0)
+    for _ in range(DP_STEPS):
+        batched, _, _ = steps(batched, batch, rcfg)
+    steps.clear()
+    b_diffs = hold_steps(torch, g_state, batched, lrs, DP_STEPS)
+    b_bits = diff_bits(torch, g_state, batched)
+    log(f"[dp] (a) the graphed DP step against the graphed batched step: "
+        f"bit for bit {not b_bits} (differing {b_bits}; largest |d| "
+        + json.dumps({p: float(f"{v:.3g}") for p, v in b_diffs.items() if v})
+        + ")")
+    del state, graphed, g_state, batched
 
     # --- (b): two gloo processes on the card, and the space strips ---
     cams = [cam for _, cam in views(N_VIEWS, YAW)][:DP_VIEWS]
@@ -2878,7 +3335,9 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
                                                    ref_losses)]
         bad = {p: v for p, v in res["report"].items() if v["bad"]}
         after = {k: v for k, v in res["after"].items() if k != "digest"}
-        log(f"[dp] (b) rank {r} of {DP_RANKS} (gloo, one card): step ms "
+        log(f"[dp] (b) rank {r} of {DP_RANKS} (gloo, one card; the step "
+            f"{res['step_kind']}, the strips' render on a graph and their "
+            f"all_reduce eager): step ms "
             f"{[round(x, 3) for x in res['ms']]} (the cost of the "
             f"collective path on a shared card, not a scaling figure), peak "
             f"{res['peak_mib']:.1f} MiB; losses {res['losses']} (rel "
@@ -2890,6 +3349,9 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         check(res["after"]["finite"] and res["after"]["n_alive"] > 0
               and np.isfinite(res["after"]["loss"]),
               f"rank {r} after the refine: {res['after']}")
+        check(res["step_kind"] == "eager (gloo)" and res["strip_graphed"],
+              f"rank {r}: step {res['step_kind']}, strips on a graph "
+              f"{res['strip_graphed']}")
         frame = torch.load(os.path.join(work, f"frame{r}.pt"))
         check(torch.equal(frame.view(torch.int32),
                           space["frame"].view(torch.int32)),
@@ -2934,15 +3396,32 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
               f"rank {r}'s final state differs from rank 0's")
         check(c["refines"] == cli[0]["refines"] and len(c["refines"]) == 1,
               f"refines {c['refines']}")
+        check(c["step_kind"] == "eager" and c["backend"] == "gloo",
+              f"rank {r}: the CLI's step {c['step_kind']} over "
+              f"{c['backend']}")
     log(f"[dp] (c) torchrun --nproc-per-node {DP_RANKS} of the CLI "
         f"({cli[0]['backend']}, {DP_CLI_STEPS} steps of {DP_VIEWS} views at "
         f"{img[0]}x{img[1]}, refine every {DP_CLI_REFINE_EVERY}): "
-        f"{cli_secs:.1f} s; losses {cli[0]['losses']}; refine "
+        f"{cli_secs:.1f} s, steps {cli[0]['step_kind']}; losses "
+        f"{cli[0]['losses']}; refine "
         f"{cli[0]['refines']}; overflowed {cli[0]['overflowed']}; peak MiB "
         f"by rank {[round(c['peak_mib'], 1) for c in cli]}; one export, "
         f"final states equal")
     res = dict(step_median_ms=statistics.median(ms), step_ms=ms,
                peak_mib=peak_mb, losses=losses, ref_losses=ref_losses,
+               graph_step_median_ms=statistics.median(g_ms),
+               graph_step_ms=g_ms, graph_host_ms=statistics.median(g_host),
+               graph_capture_s=dp_capture_s, graph_losses=g_losses,
+               graph_bit_identical_to_eager=not g_bits,
+               graph_bit_identical_to_graphed_batched=not b_bits,
+               graph_max_abs_diff={p: v for p, v in g_diffs.items() if v},
+               dp_reading=dp_reading,
+               graph_captured=list(dp_graph_captured),
+               graph_counts=counted(dp_graph_captured),
+               nccl_strip_graph_ms=strip_graph_ms,
+               nccl_strip_eager_ms=strip_eager_ms,
+               ranks_step_kind=[x["step_kind"] for x in ranks],
+               cli_step_kind=cli[0]["step_kind"],
                steps=DP_STEPS, launches=launches, captured=captured,
                ranks_step_ms=[x["ms"] for x in ranks],
                ranks_step_median_ms=[statistics.median(x["ms"])
@@ -2968,7 +3447,8 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
     import torch.distributed as dist
 
     from brush_tpu_torch.parallel.data_parallel import make_dp_train_step
-    from brush_tpu_torch.parallel.tile_parallel import render_space_parallel
+    from brush_tpu_torch.parallel.tile_parallel import (
+        make_space_parallel_render, strip_camera_inputs)
     from brush_tpu_torch.train.refine import refine_step
 
     job = torch.load(job_path, map_location="cuda", weights_only=False)
@@ -2982,7 +3462,8 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
         group = dist.group.WORLD
         step = make_dp_train_step(group, job["tcfg"], job["rcfg"])
         torch.cuda.reset_peak_memory_stats()
-        out = dict(losses=[], digests=[], ms=[])
+        out = dict(losses=[], digests=[], ms=[], step_kind=(
+            "eager (gloo)" if step.graphs is None else "graphs"))
         for _ in range(DP_STEPS):
             t0 = time.perf_counter()
             state, stats, _ = step(state, job["batch"])
@@ -3003,15 +3484,26 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
         out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
         del state
         sp = job["space"]
-        with torch.no_grad():
-            frame = render_space_parallel(sp["splats"], sp["cam"], sp["bg"],
-                                          sp["rcfg"], group)
+        s = sp["splats"]
+        stack, _ = strip_camera_inputs(sp["cam"], sp["rcfg"].img_size,
+                                       world)
+        run = make_space_parallel_render(group, sp["rcfg"])
+        args = (s.means, s.log_scales, s.quats, s.sh_coeffs,
+                s.raw_opacities, stack, sp["bg"].to("cuda"))
+        frame = run(*args).clone()     # the capture's eager warm-up
+        times = []
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            render_space_parallel(sp["splats"], sp["cam"], sp["bg"],
-                                  sp["rcfg"], group)
+            again = run(*args)
             torch.cuda.synchronize()
-        out["space_ms"] = (time.perf_counter() - t0) * 1e3
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(again.view(torch.int32),
+                               frame.view(torch.int32)):
+                raise RuntimeError("a replay of the strips differs")
+        out["space_ms"] = statistics.median(times)
+        out["strip_graphed"] = run.graph.captured
+        del run
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -3023,22 +3515,30 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
     return 0
 
 
-def child_cli(torch, out: str, argv: list) -> int:
-    """A process of the dp phase's (c), started by torchrun: `cli.main`
-    with the process functions wrapped to record what each process
-    exported, each step's overflow flag, the refines and the final state's
-    digest; writes out/cli<rank>.json."""
+def child_cli(torch, out: str, argv: list, eager: bool = False) -> int:
+    """A process of the dp phase's (c) or of the multi-card case, started
+    by torchrun: `cli.main` with the process functions wrapped to record
+    what each process exported, each step's overflow flag and start time,
+    the refines and the final state's digest, one loader thread, every
+    program eager when asked; writes out/cli<rank>.json."""
+    import functools
+
     import torch.distributed as dist
 
     from brush_tpu_torch import cli, process
 
+    from brush_tpu_torch import graphs
+
     rank = int(os.environ["RANK"])
     rec = dict(exports=[], overflowed=[], overflow_iters=[], refines=[],
-               losses=[])
+               losses=[], turns=[])
     last = {}
 
     def step_turn(real):
         def run(loop, *a, **k):
+            rec["turns"].append(time.perf_counter())
+            rec["step_kind"] = ("graphs" if loop.graphs is not None
+                                else "eager")
             res = real(loop, *a, **k)
             rec["overflowed"].append(bool(res[1].overflowed))
             rec["losses"].append(float(res[1].loss))
@@ -3066,8 +3566,15 @@ def child_cli(torch, out: str, argv: list) -> int:
     with contextlib.ExitStack() as stack:
         for name, wrap in (("_step_turn", step_turn),
                            ("_refine_turn", refine_turn),
-                           ("_export_splats", export)):
+                           ("_export_splats", export),
+                           # One loader thread: with two the view order is
+                           # a race, and two runs are compared.
+                           ("SceneLoader", lambda real: functools.partial(
+                               real, n_threads=1))):
             stack.enter_context(wrapped(process, name, wrap))
+        if eager:
+            stack.enter_context(wrapped(graphs, "capturable",
+                                        lambda real: lambda *a: False))
         rec["rc"] = cli.main(argv)
     rec["digest"] = state_digest(torch, last["state"])
     rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -3075,6 +3582,11 @@ def child_cli(torch, out: str, argv: list) -> int:
         json.dump(rec, f)
     return rec["rc"]
 
+
+# Kernel-phase paths whose launches are held to their plain versions but
+# whose plain versions are not timed (their shapes are timed on other paths).
+UNTIMED_PLAIN_PATHS = ("graph_dp_step", "graph_score", "graph_lod_bake",
+                       "graph_strip")
 
 # The device kernels of csrc/ by the names a profiler trace gives them: a
 # substring of the demangled name, with a second one where one template
@@ -3189,7 +3701,7 @@ def hold_steps(torch, got, want, lrs: dict, steps: int,
     return out
 
 
-def phase_graph(torch, serve, train, loop, proc):
+def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     """The JAX package's compiled, donated programs on the card: the eager
     frame, step and loop turn run under sync debug mode, then the graphed
     serve, train and loop cells held to the eager ones, with their times
@@ -3458,6 +3970,9 @@ def phase_graph(torch, serve, train, loop, proc):
     del gl
     graphs.RENDER_GRAPHS.clear()
 
+    # --- loop cell: the refine on a RefineGraph ---
+    res.update(_refine_cell(torch, loop))
+
     # --- train_process: the process phase's turns ran on StepGraphs ---
     check(proc["graphed_turns"] == PROCESS_STEPS,
           f"{proc['graphed_turns']} of {PROCESS_STEPS} train_process turns "
@@ -3470,13 +3985,99 @@ def phase_graph(torch, serve, train, loop, proc):
         f"{proc['step_median_ms']:.4f}; the graph phase took "
         f"{res['seconds']:.3f} s")
 
-    def counted(captured):
-        return {name: sum(1 for c in captured if c.name == name)
-                for name in kernels.KERNEL_NAMES}
-
     res.update(frame_captured=list(cap_frame), step_captured=list(cap_step),
                frame_counts=counted(cap_frame), step_counts=counted(cap_step))
+
+    # Host time a replay against the graph's size, for every graph.
+    readings = {
+        "frame": dict(host_us=frame_host_us, nodes=frame_prof["device_ops"]),
+        "step": dict(host_us=step_host_us, nodes=step_prof["device_ops"]),
+        "refine": res["refine_reading"],
+        "dp_step": dp["dp_reading"], "score_view": init_lod["score_reading"],
+        "lod_step": proc["lod_reading"], "strip": space["strip_reading"]}
+    res["replay_host_us_by_nodes"] = {
+        k: dict(nodes=r["nodes"], replay_us=r["host_us"]["replay"],
+                call_us=r["host_us"]["call"]) for k, r in readings.items()}
+    log("[graph] host us of replay() and device ops a replay, by graph: "
+        + json.dumps({k: [round(v["replay_us"], 1), round(v["nodes"])]
+                      for k, v in res["replay_host_us_by_nodes"].items()}))
     return res
+
+
+def _refine_cell(torch, loop) -> dict:
+    """The loop cell's refine (of the state one step before its last
+    refine, so it selects and splits) on a RefineGraph: the first call
+    captures, then replays from copies of the same state, each equal bit
+    for bit to the eager `refine_step` (statistics and generator too);
+    a replay under sync debug mode; CUDA event times of eager refines,
+    graphed calls (the state copied in) and the copy in alone; the replay
+    reading."""
+    from brush_tpu_torch import graphs
+    from brush_tpu_torch.train.refine import refine_step
+
+    state, tcfg = loop["before_last_refine"], loop["tcfg"]
+    views = (loop["centers"], loop["focals"])
+    want, w_stats = refine_step(fresh_copy(torch, state), tcfg, *views)
+    refines = graphs.RefineGraphs(tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, g_stats = refines(fresh_copy(torch, state), *views)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+
+    def held(got, g_stats, what):
+        bad = diff_bits(torch, got, want)
+        check(not bad, f"{what}: the graphed refine differs from eager at "
+              f"{bad}")
+        for name in w_stats._fields:
+            check(int(getattr(g_stats, name)) == int(getattr(w_stats, name)),
+                  f"{what}: {name} {int(getattr(g_stats, name))} against "
+                  f"{int(getattr(w_stats, name))}")
+    held(got, g_stats, "the capture's call")
+    timed = {"eager": [], "graph": [], "copy_in": []}
+    for k in range(3):
+        for how in ("eager", "graph", "copy_in"):
+            s = fresh_copy(torch, state)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if how == "eager":
+                refine_step(s, tcfg, *views)
+            elif how == "graph":
+                got, g_stats = refines(s, *views)
+            else:
+                graphs.load_into(dataclasses.replace(refines.graph.state,
+                                                     rng=None),
+                                 dataclasses.replace(s, rng=None))
+            end.record()
+            timed[how].append((start, end))
+            if how == "graph":
+                torch.cuda.synchronize()
+                held(got, g_stats, f"replay {k + 1}")
+    torch.cuda.synchronize()
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in timed.items()}
+    s = fresh_copy(torch, state)
+    sync_free(torch, "graph refine replay", lambda: refines(s, *views))
+    check(refines.captures == 1, f"{refines.captures} refine captures")
+    own = refines.graph
+    reading = graph_reading(torch, "refine", own.replay,
+                            lambda: refines(own.state, *views))
+    refines.clear()
+    del own, got, want, s
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"[graph] loop cell's refine on a RefineGraph: capture "
+        f"{capture_s:.3f} s; 3 replays from copies of the state one step "
+        f"before the last refine, each equal to eager bit for bit (added "
+        f"{int(w_stats.num_added)}, pruned {int(w_stats.num_pruned)}, "
+        f"resampled {int(w_stats.num_resampled)}); ms (CUDA events, median "
+        f"of 3): graphed {med['graph']:.4f} (the state copied in: "
+        f"{med['copy_in']:.4f}), eager {med['eager']:.4f}; profiled replay "
+        f"busy {reading['device_busy_ms']:.4f} ms")
+    return dict(refine_graph_ms=med["graph"], refine_eager_ms=med["eager"],
+                refine_copy_in_ms=med["copy_in"],
+                refine_capture_s=capture_s, refine_reading=reading,
+                refine_stats={k: int(getattr(w_stats, k))
+                              for k in w_stats._fields})
 
 
 def train_order_ms(torch, launch) -> dict:
@@ -3576,8 +4177,8 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
     plain_iters = {"emit": 2, "rasterize_fwd": 1, "rasterize_fwd_train": 1,
                    "rasterize_bwd": 1, "expand": 2, "fill": 2}
 
-    def measure(name, launches):
-        r = dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+    def measure(name, launches, time_plain=True):
+        r = dict(ms=0.0, device_ms=0.0, plain_ms=0.0 if time_plain else None,
                  library_ms=0.0 if name in library else None,
                  library_device_ms=0.0 if name in library else None,
                  err=0.0, bytes=0, ops=0, shape=[], parts=[])
@@ -3612,8 +4213,8 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                 device_ms=dev["ms"],
                 device_ops={k: dev[k] for k in ("kernels", "memsets",
                                                 "copies", "retraced")},
-                plain_ms=time_ms(torch, plain, plain_iters.get(name, ITERS),
-                                 warm=False),
+                plain_ms=(time_ms(torch, plain, plain_iters.get(name, ITERS),
+                                  warm=False) if time_plain else None),
                 library_ms=(time_ms(torch, lib, ITERS) if lib else None),
                 library_device_ms=(device_time(torch, lib, ITERS)["ms"]
                                    if lib else None),
@@ -3671,7 +4272,17 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         "graph_frame": (graph["frame_counts"],
                         by_name(graph["frame_captured"]), 1),
         "graph_step": (graph["step_counts"], by_name(graph["step_captured"]),
-                       1)}
+                       1),
+        # This slice's graphs: the DP step over NCCL, a PUP scoring view,
+        # the process's LOD bake (its scoring view and LOD step) and a strip.
+        "graph_dp_step": (dp["graph_counts"], by_name(dp["graph_captured"]),
+                          1),
+        "graph_score": (init_lod["graph_counts"],
+                        by_name(init_lod["graph_captured"]), 1),
+        "graph_lod_bake": (proc["bake_counts"],
+                           by_name(proc["bake_captured"]), 1),
+        "graph_strip": (space["graph_counts"],
+                        by_name(space["graph_captured"]), 1)}
     counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
     for name in kernels.KERNEL_NAMES:
@@ -3702,7 +4313,11 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                 continue
             # Also on this path: hold those launches to their plain versions
             # too, and time them at their shapes.
-            ro = measure(name, o_caps[name])
+            # The graphs' captures of this slice repeat shapes the paths
+            # before them time: each launch is held to its plain version,
+            # and the plain version is not timed again (up to 18 s a path).
+            ro = measure(name, o_caps[name],
+                         time_plain=other not in UNTIMED_PLAIN_PATHS)
             entry["max_abs_err"] = max(entry["max_abs_err"], ro["err"])
             entry.update({
                 f"{other}_launches": o_counts[name],
@@ -3719,7 +4334,7 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                 entry[f"{other}_slot_reduce_device_ms"] = ro[
                     "slot_reduce_device_ms"]
             also += (f"; on the {other} path: ms={ro['ms']:.5f} device_ms="
-                     f"{ro['device_ms']:.5f} plain_ms={ro['plain_ms']:.5f} "
+                     f"{ro['device_ms']:.5f} plain_ms={ro['plain_ms']} "
                      f"library_ms={ro['library_ms']} library_device_ms="
                      f"{ro['library_device_ms']} "
                      f"bound_ms={entry[f'{other}_bound_ms']:.5f} launches="
@@ -3837,15 +4452,43 @@ def phase_profile(torch, what: str, run, stage_names, n_frames: int) -> dict:
                 idle_share=1.0 - busy_ms / wall_ms, device_ops=n_ops)
 
 
-def gpu_line() -> str:
+def gpu_line(every_card: bool = False) -> str:
+    """The card's name and power limit as nvidia-smi gives them (every
+    card's, one a line, when asked)."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60)
-        return out.stdout.strip().splitlines()[0]
+        lines = out.stdout.strip().splitlines()
+        return "\n".join(lines) if every_card else lines[0]
     except (OSError, subprocess.SubprocessError, IndexError) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def _multicard_only(torch) -> int:
+    """`--multi-card`: the process cell's dataset and the multi-card phase
+    alone, on a machine of several cards."""
+    import shutil
+    import tempfile
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --multi-card: {n} card; the multi-card case "
+              f"needs two or more", file=sys.stderr)
+        return 2
+    work = tempfile.mkdtemp(prefix="brush_multicard_")
+    try:
+        phase_build()
+        data, _ = write_process_dataset(torch, work)
+        res = phase_multicard(torch, work, data)
+        print(json.dumps({f"multicard_{k}": v for k, v in res.items()}))
+        print(gpu_line(every_card=True))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": n}}))
+        return 0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -3866,8 +4509,11 @@ def main(argv=None) -> int:
     if argv[:2] == ["--child", "ranks"]:
         rank, world, job, store, work = argv[2:]
         return child_ranks(torch, int(rank), int(world), job, store, work)
-    if argv[:2] == ["--child", "cli"]:
-        return child_cli(torch, argv[2], argv[3:])
+    if argv[:2] in (["--child", "cli"], ["--child", "cli-eager"]):
+        return child_cli(torch, argv[2], argv[3:],
+                         eager=argv[1] == "cli-eager")
+    if argv[:1] == ["--multi-card"]:
+        return _multicard_only(torch)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()} tf32 off")
@@ -3899,7 +4545,15 @@ def _run_phases(torch, work: str) -> int:
     space = phase_space(torch, serve)
     dp = phase_dp(torch, serve, train, space, os.path.join(work, "scene"),
                   work)
-    graph = phase_graph(torch, serve, train, loop, proc)
+    if torch.cuda.device_count() > 1:
+        multicard = phase_multicard(torch, work, os.path.join(work, "scene"))
+    else:
+        multicard = {}
+        log("[multicard] one card: the multi-card case (torchrun of the CLI "
+            "over NCCL, a card a process; `python3 chip_smoke.py "
+            "--multi-card` on a machine of several) was not run")
+    graph = phase_graph(torch, serve, train, loop, proc, init_lod, space,
+                        dp)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
                                 loop, init_lod, proc, viewer, lpips, dp,
                                 space, graph)
@@ -3941,18 +4595,23 @@ def _run_phases(torch, work: str) -> int:
                       "eval_ssim_before": loop["ssim"]["before"],
                       "eval_ssim_after": loop["ssim"]["after"],
                       "pup_scores_seconds": init_lod["pup_seconds"],
+                      "pup_scores_eager_seconds": init_lod[
+                          "pup_eager_seconds"],
+                      "pup_sums_max_abs_diff": init_lod[
+                          "pup_sums_max_abs_diff"],
                       "pup_peak_memory_MiB": init_lod["pup_peak_mb"],
                       **{f"loop_{k}": v for k, v in profiled_loop.items()},
                       **{f"refine_{k}": v
                          for k, v in profiled_refine.items()}}))
     print(json.dumps({"process_" + k: v for k, v in proc.items()
-                      if k not in ("launches", "captured")}))
+                      if k not in ("launches", "captured", "bake_captured")}))
     for name, res in (("viewer", viewer), ("live", live), ("ffi", ffi),
                       ("lpips", lpips), ("dp", dp), ("space", space),
-                      ("graph", graph)):
+                      ("graph", graph), ("multicard", multicard)):
         print(json.dumps({f"{name}_{k}": v for k, v in res.items()
                           if k not in ("captured", "frame", "job",
-                                       "frame_captured", "step_captured")}))
+                                       "frame_captured", "step_captured",
+                                       "graph_captured")}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

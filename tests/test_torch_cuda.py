@@ -48,7 +48,16 @@ under sync debug mode "error"; a RenderGraph's frames equal eager ones bit
 for bit; StepGraphs steps (plain, with the LPIPS term, over two stacked
 views) and `train_process` on StepGraphs (with LPIPS weights, with two
 views a batch) are held to the eager ones; freeing graphs on one thread
-waits for a capture on another.
+waits for a capture on another. The refine on a RefineGraph equals the
+eager refine bit for bit (the generator too, after a refine that
+resamples); the DP step on a graph over a one-process NCCL group (its
+all_reduces captured) is held to the eager DP step and to the graphed
+batched step; the PUP scoring views on graphs to the eager ones (the
+exact mode bit for bit); the strip render on a graph equals the eager one
+bit for bit, alone and over a one-process NCCL group; and `train_process`
+with refines, capacity growths and a LOD level runs no eager step,
+refine or scoring view on the card, alone and over a one-process NCCL
+group, and is held to its eager run.
 """
 
 import dataclasses
@@ -1496,3 +1505,308 @@ def test_freeing_graphs_waits_for_a_capture_on_another_thread(cuda):
         thread.join()
     assert not errors, errors
     assert evictions[0] > 6
+
+
+# --------------------------------------------------------------------------
+# the refine, the DP step, the scoring views and the strips on graphs
+# --------------------------------------------------------------------------
+
+
+def _nccl_world_1(path):
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", init_method=f"file://{path}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=60))
+    return dist.group.WORLD
+
+
+def _same_state_bits(a, b):
+    from brush_tpu_torch import graphs
+    la = graphs._leaves(dataclasses.replace(a, rng=None))
+    lb = graphs._leaves(dataclasses.replace(b, rng=None))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        if torch.is_tensor(x):
+            assert x.dtype == y.dtype and x.shape == y.shape, path
+            xi = x.view(torch.int32) if x.dtype == torch.float32 else x
+            yi = y.view(torch.int32) if y.dtype == torch.float32 else y
+            assert torch.equal(xi, yi), path
+        else:
+            assert x == y, path
+    assert torch.equal(a.rng.get_state(), b.rng.get_state())
+
+
+def _donated_copy(state):
+    from brush_tpu_torch import graphs
+    return dataclasses.replace(graphs.copy_out(dataclasses.replace(
+        state, rng=None)), rng=_twin_state(state).rng)
+
+
+@pytest.mark.cuda
+def test_refine_graph_equals_the_eager_refine(cuda):
+    """Two steps, then a refine of a state whose first 100 splats are too
+    faint to live (pruned, so the refine resamples): the RefineGraph's
+    first call (warm-up and capture), then two replays from copies of the
+    same state, each equal to the eager `refine_step` bit for bit, the
+    statistics and the generator's state too; the replays do not
+    synchronise, and the refined state is the graph's own."""
+    from brush_tpu_torch import graphs
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.refine import refine_step
+    from brush_tpu_torch.train.trainer import train_step_impl
+    state, views, rcfg, _, centers, focals = _graph_case(cuda)
+    tcfg = TrainConfig(refine_every=2)
+    for _, batch in views:
+        state, _, _ = train_step_impl(state, batch, tcfg, rcfg)
+    raw = state.splats.raw_opacities.clone()
+    raw[:100] = -12.0
+    state = dataclasses.replace(state, splats=dataclasses.replace(
+        state.splats, raw_opacities=raw))
+    want, w_stats = refine_step(_twin_state(state), tcfg, centers, focals)
+    assert int(w_stats.num_resampled) > 0
+    refines = graphs.RefineGraphs(tcfg)
+    for k in range(3):
+        torch.cuda.synchronize()
+        if k == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, g_stats = refines(_donated_copy(state), centers, focals)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        _same_state_bits(got, want)
+        for name in w_stats._fields:
+            assert int(getattr(g_stats, name)) == int(
+                getattr(w_stats, name)), name
+        assert got.splats.means is refines.graph.state.splats.means
+    assert refines.captures == 1
+
+
+@pytest.mark.cuda
+def test_dp_step_graph_over_nccl_matches_the_eager_dp_step(tmp_path, cuda):
+    """`make_dp_train_step` over a one-process NCCL group runs on a
+    StepGraph (the all_reduces captured): 3 steps held to 3 eager DP steps
+    (`train_step_impl` with the same share) and to 3 steps of the graphed
+    batched step by the backward's BWD_RTOL rule (`chip_smoke.hold_steps`),
+    the generator equal, one capture."""
+    import torch.distributed as dist
+
+    from chip_smoke import hold_steps
+    from brush_tpu_torch import graphs
+    from brush_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step, view_share)
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import train_step_impl
+    state, batch, rcfg = _dp_card_scene(cuda)
+    tcfg = TrainConfig()
+    group = _nccl_world_1(tmp_path / "store")
+    try:
+        step = make_dp_train_step(group, tcfg, rcfg)
+        assert step.graphs is not None
+        share = view_share(group, 2)
+        eager, graphed = _twin_state(state), _donated_copy(state)
+        for _ in range(3):
+            eager, e_stats, _ = train_step_impl(eager, batch, tcfg, rcfg,
+                                                batched=True, share=share)
+            graphed, g_stats, _ = step(graphed, batch)
+            assert abs(float(g_stats.loss) - float(e_stats.loss)) <= (
+                rasterize_cuda.BWD_RTOL * abs(float(e_stats.loss)))
+        torch.cuda.synchronize()
+        assert step.graphs.captures == 1
+        assert step.graphs.key.backend == "nccl"
+        step.graphs.clear()
+    finally:
+        dist.destroy_process_group()
+    batched, steps = _donated_copy(state), graphs.StepGraphs(tcfg,
+                                                             batched=True)
+    for _ in range(3):
+        batched, _, _ = steps(batched, batch, rcfg)
+    lrs = dict(means=tcfg.lr_mean * float(state.median_scale),
+               log_scales=tcfg.lr_scale, quats=tcfg.lr_rotation,
+               sh_coeffs=tcfg.lr_coeffs_dc, raw_opacities=tcfg.lr_opac)
+    for what, want in (("eager dp", eager), ("graphed batched", batched)):
+        d = hold_steps(torch, graphed, want, lrs, 3)
+        print(f"graphed dp against {what}, largest |d| by path:",
+              {k: v for k, v in d.items() if v})
+        assert torch.equal(graphed.rng.get_state(), want.rng.get_state())
+
+
+def _eager(monkeypatch):
+    """Every program eager in the block: no graph is capturable."""
+    from brush_tpu_torch import graphs
+    monkeypatch.setattr(graphs, "capturable", lambda *a, **k: False)
+
+
+@pytest.mark.cuda
+def test_pup_scoring_views_on_graphs_match_eager(cuda, monkeypatch):
+    """`pup_hessians` over two views on the card: the Hutchinson views on
+    a graph (captured at the first, replayed for the second) against the
+    eager views from the same seed, within 2 * BWD_RTOL of the largest
+    entry (a product of two per-splat gradients); the exact mode's
+    columns on a graph equal the eager ones bit for bit."""
+    from brush_tpu_torch.train import lod
+    state, views, _, _, _, _ = _graph_case(cuda)
+    rcfg = RenderConfig(img_size=(96, 64), sh_degree=1, isect_cap=1 << 14,
+                        use_pallas=True)
+    cams = [ci for ci, _ in views]
+    got = lod.pup_hessians(state.splats, cams, rcfg, 7, n_probes=3)
+    small = bench_splats(12, sh_degree=1, seed=8, device=cuda)
+    exact_got = lod.pup_hessians(small, cams[:1], rcfg, 0, exact=True)
+    torch.cuda.synchronize()
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = lod.pup_hessians(state.splats, cams, rcfg, 7, n_probes=3)
+        exact_want = lod.pup_hessians(small, cams[:1], rcfg, 0, exact=True)
+    top = float(want.abs().max())
+    assert top > 0 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= (
+        2 * rasterize_cuda.BWD_RTOL * top + rasterize_cuda.BWD_ATOL)
+    assert float(exact_want.abs().max()) > 0
+    assert torch.equal(exact_got, exact_want)
+
+
+@pytest.mark.cuda
+def test_strip_render_on_a_graph_equals_the_eager_strips(tmp_path, cuda,
+                                                         monkeypatch):
+    """`make_space_parallel_render`'s `run` on a graph, alone and over a
+    one-process NCCL group (the frame's all_reduce captured), twice each,
+    equal to the eager `run` bit for bit; a replay does not
+    synchronise."""
+    import torch.distributed as dist
+
+    from brush_tpu_torch.parallel.tile_parallel import (
+        make_space_parallel_render, strip_camera_inputs)
+    state, _, _, fwd, _, _ = _graph_case(cuda)
+    params = tuple(state.splats.fold_min_scale().params().values())
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    cam = Camera(position=np.array([0.3, 0.0, -18.0]),
+                 rotation=np.array([1.0, 0.0, 0.0, 0.0]), fov_x=1.0,
+                 fov_y=0.7)
+    stack, _ = strip_camera_inputs(cam, fwd.img_size, 1, device=cuda)
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = make_space_parallel_render(None, fwd)(*params, stack, bg)
+    group = _nccl_world_1(tmp_path / "store")
+    try:
+        for g in (None, group):
+            run = make_space_parallel_render(g, fwd)
+            for k in range(3):
+                torch.cuda.synchronize()
+                if k == 2:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = run(*params, stack, bg)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                assert torch.equal((got + 0.0).view(torch.int32),
+                                   (want + 0.0).view(torch.int32)), (g, k)
+            assert run.graph.captured
+            del run, got
+    finally:
+        dist.destroy_process_group()
+
+
+def _eager_calls(monkeypatch):
+    """Calls of the eager step, refine and scoring view made on the
+    default stream outside a capture (a graph's warm-up runs on a side
+    stream), by name."""
+    from brush_tpu_torch import process
+    from brush_tpu_torch.train import lod
+    calls = {}
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def run(*a, **k):
+            if (torch.cuda.current_stream() == torch.cuda.default_stream()
+                    and not torch.cuda.is_current_stream_capturing()):
+                calls[name] = calls.get(name, 0) + 1
+            return real(*a, **k)
+        monkeypatch.setattr(module, name, run)
+    for module, name in ((process, "train_step_impl"),
+                         (process, "train_step"), (process, "refine_step"),
+                         (lod, "_view_hessian")):
+        spy(module, name)
+    return calls
+
+
+@pytest.mark.cuda
+def test_train_process_with_growth_and_lod_on_graphs_matches_eager(
+        tmp_path, monkeypatch, cuda):
+    """`train_process` on the card, 12 steps, a refine every 2 that grows
+    the live count until the capacity doubles twice (1,024 -> 4,096), one
+    LOD level of 2 steps: on graphs (no eager step, refine or scoring view
+    on the default stream), alone and over a one-process NCCL group,
+    against the same run with every program eager, noise off, one loader
+    thread: the refines' messages equal, per-step losses within 1e-3
+    relative, eval PSNR within 0.05 dB, the exported parameters of the
+    run and of the LOD level within 2 * lr * steps + 1e-5 (the card-
+    against-CPU rule of `test_train_process_on_the_card_matches_the_cpu`).
+    """
+    import functools
+
+    import torch.distributed as dist
+
+    from brush_tpu_torch import process
+    from brush_tpu_torch.data import dataloader
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.io import ply
+    from brush_tpu_torch.train.config import TrainConfig
+    _card_scene(tmp_path / "scene")
+    monkeypatch.setattr(process, "SceneLoader", functools.partial(
+        dataloader.SceneLoader, n_threads=1))
+    steps = 12
+    tcfg = TrainConfig(total_train_iters=steps, refine_every=2,
+                       growth_grad_threshold=0.0, growth_select_fraction=1.0,
+                       background_noise_strength=0.0, mean_noise_weight=0.0,
+                       lod_levels=1, lod_refine_steps=2)
+    runs = {}
+    for mode in ("eager", "graphs", "nccl"):
+        group = None
+        with monkeypatch.context() as m:
+            if mode == "eager":
+                _eager(m)
+            else:
+                calls = _eager_calls(m)
+            if mode == "nccl":
+                group = _nccl_world_1(tmp_path / "store")
+            pcfg = process.ProcessConfig(
+                eval_every=steps, export_every=0, log_every=1, init_count=0,
+                sh_degree=1, use_pallas=True,
+                export_path=str(tmp_path / f"{mode}_{{iter}}.ply"))
+            try:
+                msgs = list(process.train_process(
+                    str(tmp_path / "scene"), tcfg,
+                    LoadConfig(max_resolution=32, eval_split_every=4), pcfg,
+                    device="cuda", group=group))
+            finally:
+                if group is not None:
+                    dist.destroy_process_group()
+        if mode != "eager":
+            assert calls == {}, (mode, calls)
+        runs[mode] = (
+            [m.data["loss"] for m in msgs if m.kind == "step"],
+            [m.data["psnr"] for m in msgs if m.kind == "eval"],
+            [m.data["total"] for m in msgs if m.kind == "refine"],
+            [ply.load_splat_ply(str(tmp_path / f"{mode}_{steps}{s}.ply"))
+             for s in ("", "_lod1")])
+    l_e, p_e, r_e, d_e = runs["eager"]
+    assert r_e[-1] > 2048, r_e           # the capacity doubled twice
+    t = TrainConfig()
+    for mode in ("graphs", "nccl"):
+        l_g, p_g, r_g, d_g = runs[mode]
+        assert r_g == r_e, (mode, r_g, r_e)
+        assert len(l_g) == steps and np.isfinite(l_g).all()
+        np.testing.assert_allclose(l_g, l_e, rtol=1e-3)
+        assert abs(p_g[0] - p_e[0]) <= 0.05, (p_g, p_e)
+        for g, e in zip(d_g, d_e):
+            assert g.num_splats == e.num_splats
+            for name, lr in (("means", t.lr_mean * 3.0),
+                             ("log_scales", t.lr_scale),
+                             ("rotations", t.lr_rotation),
+                             ("sh_coeffs", t.lr_coeffs_dc),
+                             ("raw_opacities", t.lr_opac)):
+                d = np.abs(getattr(g, name) - getattr(e, name)).max()
+                assert d <= 2 * lr * (steps + 2) + 1e-5, (mode, name, d)

@@ -3,6 +3,13 @@ the CPU, where no graph is captured:
 
   * `StepGraph` and `RenderGraph` raise on CPU tensors (the CPU path is the
     plain eager functions), and on the plain rasterizer's configuration;
+    so do `RefineGraph`, `RefineGraphs` and `FnGraph` (the scoring views,
+    the strips) on CPU tensors, and a StepGraph of a step shared over
+    gloo, whose collectives a capture cannot hold;
+  * `refine_body`, the refine a RefineGraph captures (`refine_step`, its
+    new state written into the donated state's own tensors), equals
+    `refine_step` bit for bit, the generator too, and hands back the
+    donated tensors (the 3D filter floor of a first refine its own);
   * `step_body`, the step a StepGraph captures (`train_step_impl`, then the
     new state copied into the state's own tensors), run eagerly with the
     graph's protocol (`load_into` of a state that is not its own,
@@ -12,8 +19,9 @@ the CPU, where no graph is captured:
     one more; and one such step stays within tests/test_torch_loss.py's
     rules of the JAX package's jitted `train_step_impl`;
   * step k's copied-out aux survives step k+1;
-  * `step_key` holds the JAX `step_cache` key's fields, and a key change
-    frees the cached graph (`StepGraphs`, `RenderGraphs`).
+  * `step_key` holds the JAX `step_cache` key's fields and the step's
+    share (rank, world, backend), and a key change frees the cached graph
+    (`StepGraphs`, `RefineGraphs`, `RenderGraphs`).
 
 The graphs themselves are held to the eager path on the card
 (tests/test_torch_cuda.py and `python3 chip_smoke.py`).
@@ -230,7 +238,7 @@ def test_step_key_has_the_jax_step_cache_fields(monkeypatch):
 
     class FakeGraph:
         def __init__(self, tcfg, rcfg, has_alpha, alpha_is_mask, batched,
-                     lpips_model):
+                     lpips_model, share=None):
             made.append(self)
 
         def __call__(self, state, batch):
@@ -272,3 +280,93 @@ def test_render_graphs_keep_two():
     assert cache.get(trender.render, cfgs[0], 256) is not a  # splat count
     cache.clear()
     assert cache.keys() == []
+
+
+def test_refine_and_function_graphs_raise_on_the_cpu(tmp_path):
+    state, batch = _scene()
+    tcfg = TrainConfig(total_train_iters=100)
+    views = (torch.zeros((1, 3)), torch.full((1,), 30.0))
+    with pytest.raises(RuntimeError, match="card only"):
+        graphs.RefineGraph(tcfg)(state, *views)
+    with pytest.raises(RuntimeError, match="card only"):
+        graphs.RefineGraphs(tcfg)(state, *views)
+    with pytest.raises(RuntimeError, match="card only"):
+        graphs.FnGraph(lambda cam: cam.viewmat * 2)(batch.cam)
+    assert not graphs.capturable(CPU, True)
+    assert not graphs.capturable("cuda", False)
+    assert graphs.capturable("cuda", True)
+    # A step shared over gloo stays eager: its StepGraph is refused.
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 's'}",
+                            rank=0, world_size=1)
+    try:
+        share = ttrainer.ViewShare(first=0, total=1, count=1,
+                                   group=dist.group.WORLD)
+        assert graphs.share_key(share) == (0, 1, "gloo")
+        assert not graphs.capturable("cuda", True, dist.group.WORLD)
+        with pytest.raises(ValueError, match="gloo"):
+            graphs.StepGraph(tcfg, _rcfg(), share=share)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_step_key_carries_the_share(monkeypatch):
+    """The key differs across the rank, the world and the backend of the
+    processes sharing the step, and holds (0, 1, None) for one process."""
+    state, _ = _scene()
+
+    class Group:
+        def __init__(self, rank, world, backend):
+            self.rank, self.world, self.backend = rank, world, backend
+    monkeypatch.setattr(graphs.dist, "get_rank", lambda g: g.rank)
+    monkeypatch.setattr(graphs.dist, "get_world_size", lambda g: g.world)
+    monkeypatch.setattr(graphs.dist, "get_backend", lambda g: g.backend)
+
+    def key(group):
+        share = None if group is None else ttrainer.ViewShare(
+            first=0, total=4, count=2, group=group)
+        return graphs.step_key(state, _rcfg(), False, False, share)
+    one = key(None)
+    assert (one.rank, one.world, one.backend) == (0, 1, None)
+    keys = [key(Group(*g)) for g in ((0, 2, "nccl"), (1, 2, "nccl"),
+                                     (0, 4, "nccl"), (0, 2, "gloo"))]
+    assert (keys[1].rank, keys[1].world, keys[1].backend) == (1, 2, "nccl")
+    assert len({one, *keys}) == 5
+    assert all(k[:6] == one[:6] for k in keys)
+
+
+def test_refine_body_equals_refine_step_bit_for_bit():
+    """A step and a refine, twice (the first refine attaches the 3D filter
+    floor): `refine_body` on a donated state against `refine_step`, the
+    same bits in every state tensor, statistic and the generator; the new
+    state's tensors are the donated ones, but for the floor a first refine
+    makes; the refine key follows the layout and the capacity."""
+    from brush_tpu_torch.process import _grow_state
+    tcfg = TrainConfig(total_train_iters=100, growth_grad_threshold=1e-9,
+                       growth_select_fraction=1.0)
+    state, batch = _scene()
+    views = (torch.tensor([[0.0, 0.0, -8.0]]), torch.tensor([40.0]))
+    eager, donated = _twin(state), _twin(state)
+    keys = []
+    for k in range(2):
+        eager, _, _ = ttrainer.train_step_impl(eager, batch, tcfg, _rcfg())
+        donated, _, _ = ttrainer.train_step_impl(donated, batch, tcfg,
+                                                 _rcfg())
+        keys.append(graphs.refine_key(donated, *views))
+        own = {x.data_ptr() for x in graphs._tensors(
+            dataclasses.replace(donated, rng=None))}
+        e_state, e_stats = trefine.refine_step(eager, tcfg, *views)
+        d_state, d_stats = graphs.refine_body(donated, tcfg, *views)
+        assert int(d_stats.num_added) > 0
+        _assert_same_bits(dataclasses.replace(d_state, rng=None),
+                          dataclasses.replace(e_state, rng=None), "state")
+        _assert_same_bits(d_stats, e_stats, "stats")
+        assert torch.equal(d_state.rng.get_state(), e_state.rng.get_state())
+        for path, x in graphs._leaves(dataclasses.replace(d_state,
+                                                          rng=None)):
+            if torch.is_tensor(x):
+                assert (x.data_ptr() in own) == (
+                    k == 1 or path != "splats.min_scale"), path
+        eager, donated = e_state, d_state
+    assert keys[0] != keys[1]            # the floor is a new layout
+    assert graphs.refine_key(_grow_state(donated, 256), *views)[0] == 256

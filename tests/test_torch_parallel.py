@@ -29,8 +29,12 @@ package's `parallel/` on the conftest's 8 CPU devices.
     of test_dp_multi_step_with_refine; `quats` within 2 lr a step, the
     noise rule), then a refine and one more step: finite, splats alive,
     replicas identical.
-  * W not dividing B raises ValueError, in the step and in
-    `train_process`.
+  * `view_share` gives the JAX package's device count gcd(B, W): B / gcd
+    views to each of the first gcd processes, none to the rest; a gloo
+    group of 2 at B = 3 (one process renders all three, the other adds
+    zeros) equals the port's one-process batched step and the JAX
+    package's batched `train_step_impl` on the same noise samples, and so
+    does `train_process(views_per_batch=3)` at W = 2 the one-process run.
   * The backend rule, and one process joining no group.
   * The CLI under `torchrun --nproc-per-node 2` on the CPU.
   * `train_process(views_per_batch=2)` at W = 2 against the one-process
@@ -164,14 +168,22 @@ def _dp_scene():
     return jstate, jbatch, tstate, tbatch
 
 
-def _jax_noise(jstate, tcfg):
+def _jax_noise(jstate, tcfg, n_views=B):
     """The JAX step's background and mean-noise samples for its key."""
     _, k_bg, k_noise = jax.random.split(jstate.rng, 3)
     s = tcfg.background_noise_strength
     return (torch.from_numpy(np.asarray(jax.random.uniform(
-                k_bg, (B, 3), minval=-s, maxval=s))),
+                k_bg, (n_views, 3), minval=-s, maxval=s))),
             torch.from_numpy(np.asarray(jax.random.normal(
                 k_noise, jstate.splats.means.shape))))
+
+
+def _first_views(batch, n):
+    """The first `n` views of a stacked batch (the port's or the JAX
+    package's)."""
+    c = batch.cam
+    return type(batch)(gt_packed=batch.gt_packed[:n],
+                       cam=type(c)(*(x[:n] for x in c)))
 
 
 def _trcfg():
@@ -211,9 +223,8 @@ def _group_tasks(world):
             common, tcfg=TrainConfig(**TCFG, refine_every=2),
             steps=MULTI_STEPS, refine=_refine_inputs())
         tasks["dp_3_views"] = dict(
-            common, tcfg=tcfg, steps=1, batch=ttrainer.SceneBatch(
-                gt_packed=tbatch.gt_packed[:3],
-                cam=CameraInputs(*(x[:3] for x in tbatch.cam))))
+            common, tcfg=tcfg, steps=1, batch=_first_views(tbatch, 3),
+            noise=_jax_noise(jstate, JTrainConfig(**TCFG), 3))
     return tasks
 
 
@@ -439,10 +450,69 @@ def test_dp_multi_step_with_refine(group):
 
 
 @pytest.mark.parametrize("group", [2], ids=["W2"], indirect=True)
-def test_dp_step_refuses_a_world_that_does_not_divide_the_batch(group):
+def test_dp_step_refuses_a_world_that_does_not_divide_the_batch(
+        group, monkeypatch):
+    """A world that does not divide the batch is no longer refused: at
+    B = 3, W = 2 the JAX package's gcd(B, W) = 1 process renders the three
+    views and the other adds zeros. Both hold the state of the port's
+    one-process batched step and of the JAX package's batched
+    `train_step_impl`, fed the same noise samples."""
     world, res = group
-    for r in res["dp_3_views"]:
-        assert "B=3" in r["error"] and "W=2" in r["error"], r
+    ranks = res["dp_3_views"]
+    assert all("error" not in r for r in ranks), ranks
+    _assert_replicas_equal(ranks)
+    jstate, jbatch, tstate, tbatch = _dp_scene()
+    jtcfg = JTrainConfig(**TCFG)
+    bg, mean = _jax_noise(jstate, jtcfg, 3)
+    monkeypatch.setattr(ttrainer, "sample_background_noise",
+                        lambda rng, n, s, d: bg.clone().to(d))
+    monkeypatch.setattr(ttrainer, "sample_mean_noise",
+                        lambda rng, shape, d: mean.clone().to(d))
+    tcfg = TrainConfig(**TCFG)
+    ref, stats, _ = ttrainer.train_step_impl(
+        tstate, _first_views(tbatch, 3), tcfg, _trcfg(), batched=True)
+    np.testing.assert_allclose(ranks[0]["losses"][0], float(stats.loss),
+                               rtol=1e-5)
+    _assert_state_matches(
+        {k: v for k, v in ranks[0]["state"].items() if k != "rng"},
+        {k: v.cpu() for k, v in state_tensors(ref).items() if k != "rng"},
+        tcfg.lr_rotation)
+    js2, jstats, _ = jax.jit(lambda s, b: jtrainer.train_step_impl(
+        s, b, jtcfg, DP_RCFG, batched=True))(jstate,
+                                             _first_views(jbatch, 3))
+    np.testing.assert_allclose(ranks[0]["losses"][0], float(jstats.loss),
+                               rtol=1e-5)
+    want = _jax_state_tensors(js2)
+    _assert_state_matches({k: ranks[0]["state"][k] for k in want}, want,
+                          jtcfg.lr_rotation)
+
+
+@pytest.mark.parametrize("views,world", [(3, 2), (6, 4), (4, 2)])
+def test_view_share_gives_the_jax_device_count(monkeypatch, views, world):
+    """`view_share` of B views over W processes: the JAX package trains on
+    gcd(B, devices) devices (brush_tpu/process.py:239); here the first
+    gcd processes render B / gcd views each, in order, and the rest none."""
+    import math
+
+    class Group:
+        rank = 0
+    monkeypatch.setattr(tdp.dist, "get_world_size", lambda g: world)
+    monkeypatch.setattr(tdp.dist, "get_rank", lambda g: g.rank)
+    shares = []
+    for r in range(world):
+        g = Group()
+        g.rank = r
+        shares.append(tdp.view_share(g, views))
+    sharing = math.gcd(views, world)
+    assert sum(1 for s in shares if s.count) == sharing
+    rows = []
+    for r, s in enumerate(shares):
+        assert s.total == views and s.group is not None
+        assert s.count == (views // sharing if r < sharing else 0)
+        rows += list(range(s.first, s.first + s.count))
+    assert rows == list(range(views))
+    assert tdp.view_share(None, views) == ttrainer.ViewShare(
+        first=0, total=views, count=views)
 
 
 @pytest.mark.parametrize("device,local_world,cards,want", [
@@ -478,28 +548,36 @@ def _process_configs(tmp, tag):
 
 
 def test_train_process_over_two_processes(tmp_path, monkeypatch):
+    """B = 2 and B = 3 a step at W = 2 (at B = 3 one process renders the
+    three views, gcd(3, 2) = 1), each against the one-process run."""
     scene = tmp_path / "scene"
     write_colmap_bin(scene, n_views=4, w=64, h=64)
     tcfg, lcfg, pcfg = _process_configs(tmp_path, "dp")
+    three = dataclasses.replace(pcfg, views_per_batch=3,
+                                export_path=str(tmp_path / "dp3_{iter}.ply"))
     ranks = run_ranks(tmp_path / "ranks", 2, [
         dict(kind="process", source=str(scene), tcfg=tcfg, lcfg=lcfg,
-             pcfg=dataclasses.replace(pcfg, views_per_batch=3)),
+             pcfg=three),
         dict(kind="process", source=str(scene), tcfg=tcfg, lcfg=lcfg,
              pcfg=pcfg)])
-    for bad, _ in ranks:
-        assert "B=3" in bad["error"] and "W=2" in bad["error"], bad
+    ranks_3 = [r[0] for r in ranks]
     ranks = [r[1] for r in ranks]
 
     monkeypatch.setattr(tprocess, "SceneLoader",
                         functools.partial(tloader.SceneLoader, n_threads=1))
     tcfg1, lcfg1, pcfg1 = _process_configs(tmp_path, "one")
-    one = list(tprocess.train_process(str(scene), tcfg1, lcfg1, pcfg1,
-                                      device=CPU))
-    want = [m.data["loss"] for m in one if m.kind == "step"]
-    for r in ranks:
-        got = [d["loss"] for k, _, d in r["messages"] if k == "step"]
-        assert len(got) == len(want) == 4
-        np.testing.assert_allclose(got, want, rtol=1e-5)
+    for got_ranks, views in ((ranks_3, 3), (ranks, 2)):
+        one = list(tprocess.train_process(
+            str(scene), tcfg1, lcfg1,
+            dataclasses.replace(pcfg1, views_per_batch=views), device=CPU))
+        want = [m.data["loss"] for m in one if m.kind == "step"]
+        for r in got_ranks:
+            assert "error" not in r, r
+            got = [d["loss"] for k, _, d in r["messages"] if k == "step"]
+            assert len(got) == len(want) == 4
+            np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert ranks_3[0]["digest"] == ranks_3[1]["digest"]
+    assert ranks_3[1]["exports"] == []
     assert ranks[0]["exports"] == [pcfg.export_path.format(iter=4)]
     assert ranks[1]["exports"] == []
     assert (tmp_path / "dp_4.ply").is_file()
