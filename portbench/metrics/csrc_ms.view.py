@@ -1,0 +1,3 @@
+"""csrc_ms of the view cells: see portbench/readers.py."""
+
+from portbench.readers import csrc_ms as read  # noqa: F401

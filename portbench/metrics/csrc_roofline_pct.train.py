@@ -1,0 +1,3 @@
+"""csrc_roofline_pct of the train cells: see portbench/readers.py."""
+
+from portbench.readers import csrc_roofline_pct as read  # noqa: F401
