@@ -124,5 +124,9 @@ class SceneLoader:
             raise item
         return item
 
+    def empty(self) -> bool:
+        """Whether no view is ready (`next` would wait for a decode)."""
+        return self._queue.empty()
+
     def stop(self):
         self._stop.set()

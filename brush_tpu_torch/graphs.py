@@ -70,9 +70,11 @@ is `thread_local`: autograd runs the rasterizer's backward on a thread of
 its own, which launches onto the capture stream, and a viewer's server
 threads may go on with eager work while the trainer captures. Freeing a
 graph's pool (`torch.cuda.empty_cache`) synchronises the device, which a
-capture refuses, so it takes the capture lock too. Stage timing
-events (`utils/tracing.record_stages`) are off inside a warm-up and a
-capture.
+capture refuses, so it takes the capture lock too. Stages
+(`utils/tracing`) record nothing inside a warm-up and a capture; each
+replay is a `graphs.replay` stage with device marks, and the recorder
+counts `graphs.capture.<kind>`, `graphs.replay.<kind>` and
+`graphs.evict.<kind>` (kind: `step`, `refine`, `render`, `fn`).
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ from brush_tpu_torch.train.trainer import (
     ViewShare,
     train_step_impl,
 )
-from brush_tpu_torch.utils.tracing import stages_off
+from brush_tpu_torch.utils.tracing import count, stage, stages_off
 
 _capture_lock = threading.Lock()
 
@@ -283,10 +285,11 @@ def share_key(share: ViewShare | None) -> tuple:
 # --------------------------------------------------------------------------
 
 
-def _capture(graph, body, generator=None):
+def _capture(graph, body, kind: str, generator=None):
     """Capture `body()` into `graph` and return its outputs (tensors of the
     graph's pool). The launches of the capture go to an open
     `kernels.capture()`, as an eager call's would."""
+    count(f"graphs.capture.{kind}")
     if generator is not None:
         graph.register_generator_state(generator)
     with _capture_lock, stages_off():
@@ -318,7 +321,10 @@ def _warm_up(body):
 class _Graph:
     """A body captured into a CUDA graph: `_run()` is the body's result
     for this call, the eager warm-up's on the first call (which then
-    captures the body), a replay's after (the graph's own tensors)."""
+    captures the body), a replay's after (the graph's own tensors).
+    `kind` names the graph in the recorder's counters."""
+
+    kind = "fn"
 
     def __init__(self):
         self._graph = None
@@ -329,11 +335,11 @@ class _Graph:
 
     def _run(self, generator=None):
         if self._graph is not None:
-            self._graph.replay()
+            self.replay()
             return self._outs
         out = _warm_up(self._body)
         graph = torch.cuda.CUDAGraph()
-        self._outs = _capture(graph, self._body, generator)
+        self._outs = _capture(graph, self._body, self.kind, generator)
         self._graph = graph
         return out
 
@@ -343,12 +349,17 @@ class _Graph:
 
     def replay(self) -> None:
         """Replay the captured body on the inputs the graph holds."""
-        self._graph.replay()
+        count(f"graphs.replay.{self.kind}")
+        with stage("graphs.replay", device=True):
+            self._graph.replay()
 
 
 class _Cache:
     """One graph at a time, made for a key: a key change frees the old
-    graph and its pool first. `captures` counts the graphs made."""
+    graph and its pool first. `captures` counts the graphs made; `kind`
+    names the graphs in the recorder's counters."""
+
+    kind = "fn"
 
     def __init__(self):
         self.key = None
@@ -357,6 +368,8 @@ class _Cache:
 
     def _get(self, key, make):
         if key != self.key:
+            if self.graph is not None:
+                count(f"graphs.evict.{self.kind}")
             self.clear()
             self.graph = make()
             self.key = key
@@ -427,6 +440,8 @@ class StepGraph(_Graph):
     `share` over NCCL the step's all_reduces are in the graph; a share over
     gloo is refused."""
 
+    kind = "step"
+
     def __init__(self, tcfg: TrainConfig, rcfg: RenderConfig,
                  has_alpha: bool = False, alpha_is_mask: bool = False,
                  batched: bool = False, lpips_model=None,
@@ -475,6 +490,8 @@ class StepGraphs(_Cache):
     `step_key`. `steps(state, batch, rcfg, has_alpha, alpha_is_mask,
     share)` takes one step."""
 
+    kind = StepGraph.kind
+
     def __init__(self, tcfg: TrainConfig, batched: bool = False,
                  lpips_model=None):
         super().__init__()
@@ -522,6 +539,8 @@ class RefineGraph(_Graph):
     that is not the graph's own is copied in. The stats and what the refine
     adds to the layout are copied out."""
 
+    kind = "refine"
+
     def __init__(self, tcfg: TrainConfig):
         super().__init__()
         self.tcfg = tcfg
@@ -555,6 +574,8 @@ class RefineGraph(_Graph):
 class RefineGraphs(_Cache):
     """The loop's refine on the card: one RefineGraph, keyed by
     `refine_key`. `refines(state, centers, focals) -> (state, stats)`."""
+
+    kind = RefineGraph.kind
 
     def __init__(self, tcfg: TrainConfig):
         super().__init__()
@@ -607,6 +628,8 @@ class RenderGraph(FnGraph):
     `graph(means, log_scales, quats, sh_coeffs, raw_opacities, cam, extra)`
     returns its outputs, valid until its next call."""
 
+    kind = "render"
+
     def __init__(self, rcfg: RenderConfig, n_splats: int, fn=render):
         _require_kernel_path(rcfg, "RenderGraph")
         super().__init__(lambda *inputs: fn(*inputs, rcfg),
@@ -641,6 +664,7 @@ class RenderGraphs:
                 graph = RenderGraph(rcfg, n_splats, fn)
                 while len(self._graphs) >= self.size:
                     self._graphs.popitem(last=False)
+                    count("graphs.evict.render")
                     evicted = True
             self._graphs[key] = graph
         if evicted:

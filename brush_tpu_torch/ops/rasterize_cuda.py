@@ -633,11 +633,11 @@ class _RasterizeTrain(torch.autograd.Function):
         (soa, tiles, tile_ranges, gid_from_isect, bg,
          part_useful) = ctx.saved_tensors
         img_size = ctx.img_size
-        with stage("rasterize_bwd"):
+        with stage("rasterize_bwd", device=True):
             per_splat = rasterize_backward_splats(
                 soa, tile_ranges, tiles, image_to_tiles(v_img, img_size), bg,
                 img_size, gid_from_isect, ctx.n, TileSchedule(part_useful))
-        with stage("reduce"):
+        with stage("reduce", device=True):
             v_refine = torch.clamp(
                 torch.nan_to_num(per_splat[9], nan=0.0), 0.0,
                 REFINE_WEIGHT_CLAMP)

@@ -169,7 +169,7 @@ def build_intersections(
     k0 = max(int(expand_k0), 1)
     rem_cap = int(isect_cap)
 
-    with stage("counts"):
+    with stage("counts", device=True):
         num_visible = proj.visible.sum().to(torch.int32)
         hit_mask, counts = exact_tile_counts(proj)
         pc = popcount_u32(hit_mask).to(torch.int32)
@@ -195,12 +195,12 @@ def build_intersections(
         ]
         rem_counts = torch.clamp_min(counts - k0, 0)
 
-    with stage("scan"):
+    with stage("scan", device=True):
         rem_cum = _cumsum_flat(rem_counts)
         rem_needed = rem_cum[-1].to(torch.int32)
         rem_starts = (rem_cum - rem_counts).to(torch.int32)
 
-    with stage("emit"):
+    with stage("emit", device=True):
         key, rows10 = emit_slots(table_rows, rem_starts, k0, rem_cap,
                                  img_size)
         s_cap, eff_rem_cap = emit_sizes(n, k0, rem_cap)
@@ -208,25 +208,25 @@ def build_intersections(
     empty = torch.zeros((0,), dtype=torch.int32, device=dev)
     if with_bwd_info:
         # The ten f32 rows (9 payload + gid) ride the sort as they are.
-        with stage("sort"):
+        with stage("sort", device=True):
             key_sorted, rows_sorted = sort_packed(
                 key, [rows10[r] for r in range(10)])
             gid_from_isect = rows_sorted[9].to(torch.int32)
         soa_rows = SOA_ROWS
     else:
         # The payload diets to 6 words a slot before the sort (tiling_key).
-        with stage("pack"):
+        with stage("pack", device=True):
             packed = pack_fwd_rows(key, [rows10[r] for r in range(9)],
                                    num_tiles, tile_bw)
-        with stage("sort"):
+        with stage("sort", device=True):
             key_sorted, rows_sorted = sort_packed(key, packed)
         gid_from_isect = empty
         soa_rows = DIET_SOA_ROWS
 
-    with stage("stack"):
+    with stage("stack", device=True):
         soa = stack_rows(rows_sorted, soa_rows, s_cap + LANE_PAD)
 
-    with stage("ranges"):
+    with stage("ranges", device=True):
         bounds = torch.searchsorted(
             key_sorted, tile_boundary_keys(num_tiles, dev),
             side="left").to(torch.int32)
@@ -241,7 +241,7 @@ def build_intersections(
     # slots cut off where the remainder region overflowed (the emission's
     # remainder width is rem_cap itself in this layout).
     if with_bwd_info:
-        with stage("scan"):
+        with stage("scan", device=True):
             avail_rem = torch.clamp_min(eff_rem_cap - rem_starts, 0)
             emitted = torch.minimum(counts, k0 + avail_rem)
             surv_starts_g = _cumsum_flat(emitted) - emitted

@@ -47,6 +47,13 @@ viewer; the others yield their `step` and `refine` messages.
 The LOD bake runs after the loop's graphs are freed: its scoring views
 (train/lod.py) and its steps (a `StepGraphs` of its own, the JAX
 `lod_cache`) are graphs too.
+
+Stages (utils/tracing.py): each turn of the loop is a `run.turn` of unit
+its step, with device marks from its first enqueue to its end; inside it
+`run.load` (the loader and the batch's views; `run.loader_empty` counts
+the turns that found no view ready), `run.upload` (the pinned uploads),
+`run.readback` (the overflow read one step behind) and, at a log step,
+`run.message` (its reads, telemetry and the slot's copy).
 """
 
 from __future__ import annotations
@@ -94,7 +101,7 @@ from brush_tpu_torch.train.trainer import (
     train_step_impl,
 )
 from brush_tpu_torch.utils.device import resolve_device
-from brush_tpu_torch.utils.tracing import stage
+from brush_tpu_torch.utils.tracing import count, stage
 
 # Host-byte budget for cached packed eval views (the reference byte-budgets
 # its packed-batch cache at 6 GiB, brush-dataset/src/config.rs:8; eval
@@ -192,9 +199,10 @@ def _step_turn(loop: LoopState, batch: SceneBatch, tcfg: TrainConfig,
     # one or two no-op steps in the detection window are lost views, not
     # corrupt updates.
     if loop.prev_aux is not None:
-        p_isects = int(loop.prev_aux.num_isects)
-        p_chunks = (int(loop.prev_aux.num_chunks)
-                    if loop.prev_aux.num_chunks is not None else 0)
+        with stage("run.readback"):
+            p_isects = int(loop.prev_aux.num_isects)
+            p_chunks = (int(loop.prev_aux.num_chunks)
+                        if loop.prev_aux.num_chunks is not None else 0)
         grown = {}
         if p_isects > rcfg.isect_cap:
             grown["isect_cap"] = _next_pow2(int(p_isects * 1.3))
@@ -232,7 +240,7 @@ def _refine_turn(loop: LoopState, tcfg: TrainConfig,
     if int(state.splats.n_alive) > 0.8 * cap and cap < tcfg.max_splats:
         state = _grow_state(state, min(_next_pow2(cap * 2),
                                        _next_pow2(tcfg.max_splats)))
-    with stage("refine"):
+    with stage("refine", device=True):
         if loop.refines is not None:
             state, rstats = loop.refines(state, view_centers, view_focals)
         else:
@@ -512,117 +520,132 @@ def train_process(
     t_start = time.perf_counter()
     try:
         while loop.it < tcfg.total_train_iters:
-            views = []
-            if lead:
-                views = [next(loader)]
-            if lead and batched:
-                # B same-sized views (datasets are near-uniform; odd sizes
-                # fall back to repeating until the batch fills).
-                view = views[0]
-                tries = 0
-                while (len(views) < pcfg.views_per_batch
-                       and tries < 4 * pcfg.views_per_batch):
-                    v = next(loader)
-                    tries += 1
-                    if (v.img_size == view.img_size
-                            and v.has_alpha == view.has_alpha):
-                        views.append(v)
-                if len(views) < pcfg.views_per_batch:
-                    # Padding by repetition biases the mean-loss gradient
-                    # toward the repeated view: surface it.
-                    yield emit(TrainMessage("warning", loop.it, dict(
-                        message=f"batch padded by repeating a view "
-                                f"({len(views)}/{pcfg.views_per_batch} "
-                                f"distinct; mixed image sizes in dataset?) "
-                                f"— the mean-loss gradient is biased toward "
-                                f"the repeat")))
-                while len(views) < pcfg.views_per_batch:
-                    views.append(views[0])
-            share = None
-            if world > 1:
-                share = view_share(group, pcfg.views_per_batch)
-                views, view = _my_views(views, share, loader, host_group)
-            else:
-                view = views[0]
-            if batched:
-                batch = stack_batches([_scene_batch(v, upload)
-                                       for v in views or [view]])
-                if not views:
-                    # None of this step's views: an empty batch of their
-                    # shape (the step adds zeros).
-                    batch = SceneBatch(gt_packed=batch.gt_packed[:0],
-                                       cam=type(batch.cam)(
-                                           *(x[:0] for x in batch.cam)))
-            else:
-                batch = _scene_batch(view, upload)
-            loop = dataclasses.replace(loop, rcfg=dataclasses.replace(
-                loop.rcfg, img_size=view.img_size))
-            loop, stats, overflows = _step_turn(
-                loop, batch, tcfg, view.has_alpha, alpha_is_mask,
-                batched=batched, lpips_model=lpips_model, share=share)
-            it, state = loop.it, loop.state
-            for msg in overflows:
-                yield emit(msg)
+            with stage("run.turn", device=True,
+                       unit=loop.it + 1) as turn:
+                with stage("run.load"):
+                    views = []
+                    if lead:
+                        if loader.empty():
+                            count("run.loader_empty")
+                        views = [next(loader)]
+                    if lead and batched:
+                        # B same-sized views (datasets are near-uniform;
+                        # odd sizes fall back to repeating until the batch
+                        # fills).
+                        view = views[0]
+                        tries = 0
+                        while (len(views) < pcfg.views_per_batch
+                               and tries < 4 * pcfg.views_per_batch):
+                            v = next(loader)
+                            tries += 1
+                            if (v.img_size == view.img_size
+                                    and v.has_alpha == view.has_alpha):
+                                views.append(v)
+                        if len(views) < pcfg.views_per_batch:
+                            # Padding by repetition biases the mean-loss
+                            # gradient toward the repeated view: surface it.
+                            yield emit(TrainMessage("warning", loop.it, dict(
+                                message=f"batch padded by repeating a view "
+                                        f"({len(views)}/"
+                                        f"{pcfg.views_per_batch} distinct; "
+                                        f"mixed image sizes in dataset?) — "
+                                        f"the mean-loss gradient is biased "
+                                        f"toward the repeat")))
+                        while len(views) < pcfg.views_per_batch:
+                            views.append(views[0])
+                    share = None
+                    if world > 1:
+                        share = view_share(group, pcfg.views_per_batch)
+                        views, view = _my_views(views, share, loader,
+                                                host_group)
+                    else:
+                        view = views[0]
+                # The turn's device span starts at its first enqueue.
+                turn.mark_device_start()
+                with stage("run.upload"):
+                    if batched:
+                        batch = stack_batches([_scene_batch(v, upload)
+                                               for v in views or [view]])
+                        if not views:
+                            # None of this step's views: an empty batch of
+                            # their shape (the step adds zeros).
+                            batch = SceneBatch(
+                                gt_packed=batch.gt_packed[:0],
+                                cam=type(batch.cam)(
+                                    *(x[:0] for x in batch.cam)))
+                    else:
+                        batch = _scene_batch(view, upload)
+                loop = dataclasses.replace(loop, rcfg=dataclasses.replace(
+                    loop.rcfg, img_size=view.img_size))
+                loop, stats, overflows = _step_turn(
+                    loop, batch, tcfg, view.has_alpha, alpha_is_mask,
+                    batched=batched, lpips_model=lpips_model, share=share)
+                it, state = loop.it, loop.state
+                for msg in overflows:
+                    yield emit(msg)
 
-            if it % pcfg.log_every == 0 or it == tcfg.total_train_iters:
-                aux = loop.prev_aux
-                msg = TrainMessage("step", it, dict(
-                    loss=float(stats.loss),
-                    num_visible=int(stats.num_visible),
-                    splats=int(state.splats.n_alive),
-                    isects=int(aux.num_isects),
-                    # Slots emitted under bbox-tail semantics (exact tile
-                    # test bypassed past B_SCAN).
-                    bbox_tail_isects=int(aux.num_bbox_tail),
-                    sps=pcfg.log_every / max(
-                        time.perf_counter() - t_start, 1e-9),
-                ))
-                t_start = time.perf_counter()
-                if telem:
-                    telem.log_scalars(it, **{
-                        k: v for k, v in msg.data.items()
-                        if isinstance(v, (int, float))})
-                if slot is not None:
-                    slot.set(0, copy_out(state.splats))
-                yield emit(msg)
+                if it % pcfg.log_every == 0 or it == tcfg.total_train_iters:
+                    with stage("run.message"):
+                        aux = loop.prev_aux
+                        msg = TrainMessage("step", it, dict(
+                            loss=float(stats.loss),
+                            num_visible=int(stats.num_visible),
+                            splats=int(state.splats.n_alive),
+                            isects=int(aux.num_isects),
+                            # Slots emitted under bbox-tail semantics
+                            # (exact tile test bypassed past B_SCAN).
+                            bbox_tail_isects=int(aux.num_bbox_tail),
+                            sps=pcfg.log_every / max(
+                                time.perf_counter() - t_start, 1e-9),
+                        ))
+                        t_start = time.perf_counter()
+                        if telem:
+                            telem.log_scalars(it, **{
+                                k: v for k, v in msg.data.items()
+                                if isinstance(v, (int, float))})
+                        if slot is not None:
+                            slot.set(0, copy_out(state.splats))
+                    yield emit(msg)
 
-            loop, refined = _refine_turn(loop, tcfg, centers, focals)
-            state = loop.state
-            for msg in refined:
-                if telem:
-                    d = msg.data
-                    telem.log_scalars(
-                        it, refine_added=d["added"],
-                        refine_pruned=d["pruned"],
-                        refine_oversized=d["oversized"],
-                        refine_resampled=d["resampled"],
-                        refine_grad_grown=d["grad_grown"],
-                        splats_total=d["total"],
-                        **{k: d[k] for k in ("mem_used_mb", "mem_limit_mb")
-                           if k in d})
-                    telem.log_splat_distribution(it, state.splats)
-                    telem.log_memory(it)
-                yield emit(msg)
+                loop, refined = _refine_turn(loop, tcfg, centers, focals)
+                state = loop.state
+                for msg in refined:
+                    if telem:
+                        d = msg.data
+                        telem.log_scalars(
+                            it, refine_added=d["added"],
+                            refine_pruned=d["pruned"],
+                            refine_oversized=d["oversized"],
+                            refine_resampled=d["resampled"],
+                            refine_grad_grown=d["grad_grown"],
+                            splats_total=d["total"],
+                            **{k: d[k] for k in ("mem_used_mb", "mem_limit_mb")
+                               if k in d})
+                        telem.log_splat_distribution(it, state.splats)
+                        telem.log_memory(it)
+                    yield emit(msg)
 
-            if not lead:
-                continue
-            if pcfg.eval_every and it % pcfg.eval_every == 0 and ds.eval:
-                emsg = _run_eval(state, ds, lcfg, pcfg, it,
-                                 loop.rcfg.isect_cap, cache=eval_cache)
-                if telem:
-                    telem.log_scalars(it, **emsg.data)
-                yield emit(emsg)
+                if not lead:
+                    continue
+                if pcfg.eval_every and it % pcfg.eval_every == 0 and ds.eval:
+                    emsg = _run_eval(state, ds, lcfg, pcfg, it,
+                                     loop.rcfg.isect_cap, cache=eval_cache)
+                    if telem:
+                        telem.log_scalars(it, **emsg.data)
+                    yield emit(emsg)
 
-            if pcfg.export_every and it % pcfg.export_every == 0:
-                path = pcfg.export_path.format(iter=it)
-                _export_splats(path, state.splats)
-                yield TrainMessage("export", it, dict(path=path))
+                if pcfg.export_every and it % pcfg.export_every == 0:
+                    path = pcfg.export_path.format(iter=it)
+                    _export_splats(path, state.splats)
+                    yield TrainMessage("export", it, dict(path=path))
 
-            if pcfg.ckpt_every and it % pcfg.ckpt_every == 0:
-                from brush_tpu_torch.train.checkpoint import save_checkpoint
-                save_checkpoint(pcfg.ckpt_dir, state, iteration=it)
-                yield TrainMessage("checkpoint", it,
-                                   dict(path=pcfg.ckpt_dir))
+                if pcfg.ckpt_every and it % pcfg.ckpt_every == 0:
+                    from brush_tpu_torch.train.checkpoint import (
+                        save_checkpoint,
+                    )
+                    save_checkpoint(pcfg.ckpt_dir, state, iteration=it)
+                    yield TrainMessage("checkpoint", it,
+                                       dict(path=pcfg.ckpt_dir))
     finally:
         loader.stop()
         # The loop's graphs and their pools go before the LOD bake, which

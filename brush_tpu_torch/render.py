@@ -166,7 +166,7 @@ def _render_impl(means, log_scales, quats, sh_coeffs, raw_opacities, cam, bg,
     n = means.shape[0]
     bg = bg.to(torch.float32)
     with torch.set_grad_enabled(torch.is_grad_enabled() and not fwd_only):
-        with stage("project"):
+        with stage("project", device=True):
             proj = project_splats(
                 means, log_scales, quats, sh_coeffs, raw_opacities, cam,
                 cfg.img_size, sh_degree=cfg.sh_degree, model=cfg.model,
@@ -175,7 +175,7 @@ def _render_impl(means, log_scales, quats, sh_coeffs, raw_opacities, cam, bg,
                                     expand_k0=cfg.expand_k0,
                                     chunk_cap=cfg.chunk_cap,
                                     with_bwd_info=not fwd_only)
-        with stage("rasterize"):
+        with stage("rasterize", device=True):
             if fwd_only:
                 img = tiles_to_image(
                     rasterize_forward(isect.soa, isect.tile_ranges, bg,

@@ -326,7 +326,7 @@ def train_step_impl(
             rendered.means, rendered.log_scales, rendered.quats,
             rendered.sh_coeffs, rendered.raw_opacities,
             view.cam, bg, rcfg, refine_holder, visible_holder)
-        with stage("loss"):
+        with stage("loss", device=True):
             pred = img if do_alpha_match else img[..., :3]
             # Compositing folds gt + (1-a)*bg inside the loss
             # (train.rs:215-218).
@@ -338,7 +338,7 @@ def train_step_impl(
                               bg_dyn=bg if composite else None)
         if lpips_model is not None and tcfg.lpips_loss_weight > 0.0:
             # Optional perceptual term (train.rs:246-253; weight 0 default).
-            with stage("lpips"):
+            with stage("lpips", device=True):
                 gt_rgb = unpack_gt_rgb(view.gt_packed,
                                        bg if composite else None)
                 loss = loss + tcfg.lpips_loss_weight * lpips_model(
@@ -364,7 +364,7 @@ def train_step_impl(
             aux = _max_aux(list(auxs))
         else:
             loss, aux = view_loss(batch, bgs[0])
-        with stage("backward"):
+        with stage("backward", device=True):
             grads = torch.autograd.grad(loss, wrt)
     # Sum the gradients and the loss, max the statistics, across the
     # processes of the step, before anything reads them (the overflow
@@ -373,7 +373,7 @@ def train_step_impl(
     param_grads = dict(zip(names, grads[:len(names)]))
     refine_weight, visible_grad = grads[len(names):]
 
-    with stage("adam"), torch.no_grad():
+    with stage("adam", device=True), torch.no_grad():
         # The batched loss is a mean over views: undo the 1/B factor so the
         # refine statistics accumulate as one view a step does.
         if share.total > 1:

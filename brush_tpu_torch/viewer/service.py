@@ -18,11 +18,21 @@ silently. `ThreadingHTTPServer` serves each request on a thread of its own;
 path a frame is a replay of a CUDA graph (`graphs.RENDER_GRAPHS`, the
 counterpart of the JAX viewer's jitted `_jitted_render`), captured at the
 first frame of each size.
+
+Stages (utils/tracing.py): a frame is a `viewer.frame` of unit the
+`ViewerState`'s frame number, with device marks from before the fold to
+after the host copy; inside it `viewer.lock` (the wait for the lock,
+counted `viewer.lock_contended` where another render held it),
+`viewer.fold` (the 3D filter floor and the scale), `viewer.camera` (the
+pose and its upload) and `viewer.copy` (the uint8 frame to the host,
+with device marks).
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
+import itertools
 import json
 import math
 import threading
@@ -35,6 +45,7 @@ import torch
 
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.utils.device import resolve_device
+from brush_tpu_torch.utils.tracing import count, stage
 from brush_tpu_torch.viewer.slot import MessageBus, Slot
 
 _CLIENT_HTML = """<!DOCTYPE html>
@@ -250,6 +261,7 @@ class ViewerState:
         self.mip_splatting = mip_splatting  # from ply header render mode
         self.device = resolve_device(device)
         self.lock = threading.Lock()  # one card: serialize renders
+        self._frame_ids = itertools.count()   # render_pose's stage units
 
     def splat_buffer(self, frame: int) -> bytes:
         """Packed splat snapshot for the JS API (see _BRUSH_JS.splats):
@@ -324,27 +336,48 @@ class ViewerState:
         from brush_tpu_torch.render import camera_inputs, render
         from brush_tpu_torch.utils.device import device_constant
 
-        splats = self.slot.get(frame)
-        if splats is None:
-            return np.zeros((h, w, 3), np.uint8)
-        cam = self.pose_camera(pos, w, h, fov=fov, quat=quat, fov_y=fov_y)
-        cfg = self.render_config(w, h)
-        dev = self.device
-        with self.lock, torch.no_grad():
-            folded = splats.fold_min_scale()
-            log_scales = folded.log_scales
-            if splat_scale != 1.0:
-                log_scales = log_scales + math.log(max(splat_scale, 1e-6))
-            args = (folded.means, log_scales, folded.quats,
-                    folded.sh_coeffs, folded.raw_opacities,
-                    camera_inputs(cam, (w, h), device=dev),
-                    device_constant(bg, dev))
-            if dev.type == "cuda" and cfg.use_pallas:
-                img, _ = RENDER_GRAPHS.get(render, cfg,
-                                           folded.capacity)(*args)
-            else:
-                img, _ = render(*args, cfg)
-            return frame_u8(img).cpu().numpy()
+        with stage("viewer.frame", device=True,
+                   unit=next(self._frame_ids)) as frame_span:
+            splats = self.slot.get(frame)
+            if splats is None:
+                return np.zeros((h, w, 3), np.uint8)
+            cfg = self.render_config(w, h)
+            dev = self.device
+            with self._locked(), torch.no_grad():
+                frame_span.mark_device_start()
+                with stage("viewer.fold"):
+                    folded = splats.fold_min_scale()
+                    log_scales = folded.log_scales
+                    if splat_scale != 1.0:
+                        log_scales = log_scales + math.log(
+                            max(splat_scale, 1e-6))
+                with stage("viewer.camera"):
+                    cam = camera_inputs(self.pose_camera(
+                        pos, w, h, fov=fov, quat=quat, fov_y=fov_y), (w, h),
+                        device=dev)
+                args = (folded.means, log_scales, folded.quats,
+                        folded.sh_coeffs, folded.raw_opacities, cam,
+                        device_constant(bg, dev))
+                if dev.type == "cuda" and cfg.use_pallas:
+                    img, _ = RENDER_GRAPHS.get(render, cfg,
+                                               folded.capacity)(*args)
+                else:
+                    img, _ = render(*args, cfg)
+                with stage("viewer.copy", device=True):
+                    return frame_u8(img).cpu().numpy()
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """`self.lock`, its wait a `viewer.lock` stage (and a
+        `viewer.lock_contended` count where another render held it)."""
+        with stage("viewer.lock"):
+            if not self.lock.acquire(blocking=False):
+                count("viewer.lock_contended")
+                self.lock.acquire()
+        try:
+            yield
+        finally:
+            self.lock.release()
 
 
 def frame_u8(img: torch.Tensor) -> torch.Tensor:

@@ -58,6 +58,12 @@ bit for bit, alone and over a one-process NCCL group; and `train_process`
 with refines, capacity growths and a LOD level runs no eager step,
 refine or scoring view on the card, alone and over a one-process NCCL
 group, and is held to its eager run.
+
+The stage recorder (utils/tracing.py): a device stage records no event
+inside a capture, the anchor puts device marks on the host clock (a 10 ms
+host sleep between two stages reads its length within 1 ms), and
+`train_process` and a RenderGraph count their captures, replays and
+evictions, each replay and turn with device marks.
 """
 
 import dataclasses
@@ -1810,3 +1816,119 @@ def test_train_process_with_growth_and_lod_on_graphs_matches_eager(
                              ("raw_opacities", t.lr_opac)):
                 d = np.abs(getattr(g, name) - getattr(e, name)).max()
                 assert d <= 2 * lr * (steps + 2) + 1e-5, (mode, name, d)
+
+
+# --------------------------------------------------------------------------
+# the stage recorder's device marks
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_stage_device_marks_skip_a_capture_and_share_the_host_clock(cuda):
+    """A stage with `device=True` records no event inside a CUDA graph
+    capture (its host times are kept), and one around the graph's replay;
+    the anchor puts a 10 ms sleep of the host between two device stages
+    on the host clock within 1 ms of the sleep's own length, and each
+    device mark within 1 ms of its own host mark on an idle card."""
+    import time
+
+    from brush_tpu_torch.utils import tracing
+    x = torch.zeros(1024, device=cuda)
+    with tracing.record_stages() as rec:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x.add_(1.0)                                  # the warm-up
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with tracing.stage("captured", device=True):
+                x.add_(1.0)
+        with tracing.stage("replayed", device=True):
+            graph.replay()
+        torch.cuda.synchronize()
+        with tracing.stage("a", device=True):
+            x.add_(1.0)
+        t0 = time.perf_counter_ns()
+        time.sleep(0.01)
+        slept_ms = (time.perf_counter_ns() - t0) * 1e-6
+        with tracing.stage("b", device=True):
+            x.add_(1.0)
+        snap = rec.snapshot()
+    stages = snap["stages"]
+    assert stages["captured"]["count"] == 1
+    assert stages["captured"]["device_count"] == 0
+    assert stages["replayed"]["device_count"] == 1
+    assert float(x[0]) == 4.0
+    a, = [e for e in snap["timeline"] if e["name"] == "a"]
+    b, = [e for e in snap["timeline"] if e["name"] == "b"]
+    # The sleep itself may overrun on a loaded host: the gap is held to
+    # what the host clock read around it.
+    gap_ms = (b["device"][0] - a["device"][1]) * 1e-6
+    host_gap_ms = (b["host"][0] - a["host"][1]) * 1e-6
+    assert slept_ms >= 10.0
+    assert abs(gap_ms - slept_ms) <= 1.0, (gap_ms, slept_ms, host_gap_ms)
+    assert abs(gap_ms - host_gap_ms) <= 1.0, (gap_ms, host_gap_ms)
+    for e in (a, b):
+        assert abs(e["device"][0] - e["host"][0]) < 1_000_000, e
+
+
+@pytest.mark.cuda
+def test_recorder_counts_graphs_and_times_turns_on_the_card(tmp_path,
+                                                            monkeypatch,
+                                                            cuda):
+    """`train_process` on StepGraphs with the recorder open: one capture
+    and a replay a step after the first, each replay a `graphs.replay`
+    with device marks inside its `run.turn`, every turn with device marks
+    whose spans come in order; a RenderGraph's frames count `render`
+    captures and replays, and an eviction."""
+    import functools
+
+    from brush_tpu_torch import graphs, process
+    from brush_tpu_torch.data import dataloader
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.utils import tracing
+    _card_scene(tmp_path / "scene")
+    monkeypatch.setattr(process, "SceneLoader", functools.partial(
+        dataloader.SceneLoader, n_threads=1))
+    steps = 5
+    pcfg = process.ProcessConfig(
+        eval_every=0, export_every=0, log_every=steps, init_count=0,
+        sh_degree=1, export_path=str(tmp_path / "out_{iter}.ply"))
+    with tracing.record_stages() as rec:
+        list(process.train_process(
+            str(tmp_path / "scene"), TrainConfig(total_train_iters=steps,
+                                                 refine_every=1000),
+            LoadConfig(max_resolution=32, eval_split_every=4), pcfg,
+            device="cuda"))
+        snap = rec.snapshot()
+    c = snap["counters"]
+    assert c["graphs.capture.step"] == 1
+    assert c["graphs.replay.step"] == steps - 1
+    turns = [e for e in snap["timeline"] if e["name"] == "run.turn"]
+    assert [e["unit"] for e in turns] == list(range(1, steps + 1))
+    assert all(e["device"][0] <= e["device"][1] for e in turns)
+    assert all(t0["device"][1] <= t1["device"][0] + 1_000_000
+               for t0, t1 in zip(turns, turns[1:]))
+    replays = [e for e in snap["timeline"] if e["name"] == "graphs.replay"]
+    assert [e["unit"] for e in replays] == list(range(2, steps + 1))
+    for r in replays:
+        turn = turns[r["unit"] - 1]
+        assert r["parent"] == "run.turn" and r["device"] is not None
+        assert turn["device"][0] <= r["device"][0] + 1_000_000
+        assert r["device"][1] <= turn["device"][1] + 1_000_000
+
+    state, views, _, fwd, _, _ = _graph_case(cuda)
+    params = tuple(state.splats.params().values())
+    bg = torch.zeros(3, device=cuda)
+    cache = graphs.RenderGraphs(1)
+    with tracing.record_stages() as rec:
+        for n in (params[0].shape[0], params[0].shape[0] // 2):
+            for ci, _ in views:
+                cache.get(render, fwd, n)(*(p[:n] for p in params), ci, bg)
+        snap = rec.snapshot()
+    assert snap["counters"] == {"graphs.capture.render": 2,
+                                "graphs.replay.render": 2,
+                                "graphs.evict.render": 1}
+    assert snap["stages"]["graphs.replay"]["device_count"] == 2

@@ -409,26 +409,30 @@ def test_report_from_telemetry_run(tmp_path, rng):
 
 
 def test_tracing_helpers(tmp_path):
-    """`wall_timer` reports its block; `profile_trace` writes a Chrome
-    trace holding the block's stages; `stages_off` keeps stage events out
-    of a `record_stages` block; `memory_stats` is empty without a card."""
-    import re
+    """A stage is a profiler range, named in a Chrome trace; `stages_off`
+    keeps stages out of a `record_stages` block; the recorder sums each
+    stage's host time, and `stage_ms` its device time (none on the CPU);
+    `memory_stats` is empty without a card."""
+    from torch.profiler import ProfilerActivity, profile
 
     from brush_tpu_torch.utils import tracing
-    lines = []
-    with tracing.wall_timer("block", sink=lines.append):
-        torch.ones(8).sum()
-    assert len(lines) == 1 and re.fullmatch(r"block: \d+\.\d\d ms", lines[0])
-    with tracing.profile_trace(str(tmp_path / "trace")) as prof:
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with tracing.stage("project"):
             torch.ones(64).cumsum(0)
-    assert prof is not None
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "project" for e in trace["traceEvents"])
     with tracing.record_stages() as recs, tracing.stages_off():
         with tracing.stage("off"):
             pass
-    assert recs == []
+    assert recs.snapshot()["stages"] == {}
+    with tracing.record_stages() as recs:
+        for _ in range(2):
+            with tracing.stage("project", device=True):
+                torch.ones(64).cumsum(0)
+    project = recs.snapshot()["stages"]["project"]
+    assert project["count"] == 2 and project["host_ms"] > 0.0
+    assert project["device_count"] == 0 and tracing.stage_ms(recs) == {}
     assert tracing.memory_stats() == {}
 
 
