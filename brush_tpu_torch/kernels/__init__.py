@@ -25,13 +25,15 @@ from typing import Callable, NamedTuple
 # `expand` and `fill` lie on no render or training path, as in the JAX
 # package since the emission kernel took over the remainder expansion: the
 # 30M-slot stress run of the binning primitives drives them.
+# `tile_counts` replaces no TPU kernel: it computes the binning's exact tile
+# counts, which the JAX package leaves to XLA.
 KERNEL_NAMES = ("scan", "stack", "emit", "rasterize_fwd",
                 "rasterize_fwd_train", "rasterize_bwd", "scan_f32",
-                "scan_max", "expand", "fill")
+                "scan_max", "expand", "fill", "tile_counts")
 # The kernels a forward-only render launches, and those one training step
 # launches.
-SERVE_PATH = ("scan", "stack", "emit", "rasterize_fwd")
-TRAIN_PATH = ("scan", "stack", "emit", "rasterize_fwd_train",
+SERVE_PATH = ("tile_counts", "scan", "stack", "emit", "rasterize_fwd")
+TRAIN_PATH = ("tile_counts", "scan", "stack", "emit", "rasterize_fwd_train",
               "rasterize_bwd")
 # The kernels the stress run of the binning primitives launches.
 STRESS_PATH = ("scan", "scan_f32", "stack", "expand", "fill")

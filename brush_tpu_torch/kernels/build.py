@@ -57,6 +57,7 @@ SIGNATURES = {
     "brush_expand_segments": [_P, _L, _I, _P, _P, _I, _L, _P, _P],
     "brush_fill_tile_items": [],
     "brush_fill_rows": [_P, _P, _I, _L, _P, _P, _L, _P],
+    "brush_tile_counts": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P],
 }
 
 _lock = threading.Lock()

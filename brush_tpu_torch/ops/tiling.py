@@ -10,6 +10,7 @@ id `num_tiles` and sort past every real tile. `num_isects` reports the
 remainder slots needed, so a caller can retry with a larger cap.
 
 On this path:
+  * `tile_counts` (ops/tile_counts_cuda.py) forms the exact counts;
   * `cumsum_rows` (ops/scan_cuda.py) forms the remainder starts;
   * `emit_slots` (ops/emit_cuda.py) writes the sort operands;
   * a stable `torch.sort` on the int64 key + index_select of the payload
@@ -36,10 +37,10 @@ from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.ops.emit_cuda import emit_sizes, emit_slots
 from brush_tpu_torch.ops.projection import ProjectedSplats
 from brush_tpu_torch.ops.scan_cuda import cumsum_rows, stack_rows
+from brush_tpu_torch.ops.tile_counts_cuda import tile_counts, tile_counts_plain
 from brush_tpu_torch.ops.tiling_key import (
     B_SCAN,
     pack_fwd_rows,
-    popcount_u32,
     sort_packed,
     tile_boundary_keys,
 )
@@ -73,49 +74,14 @@ class Intersections(NamedTuple):
     #   (both [0] forward only)
 
 
-def will_contribute(tile_x, tile_y, mx, my, c00, c01, c11, power_threshold):
-    """Exact (conservative) gaussian-vs-tile test, StopThePop style
-    (helpers.rs will_primitive_contribute:223-260). All args broadcast."""
-    tw = float(TILE_WIDTH)
-    min_x = tile_x.to(torch.float32) * tw
-    min_y = tile_y.to(torch.float32) * tw
-    max_x = min_x + tw
-    max_y = min_y + tw
-
-    x_left = mx < min_x
-    x_right = mx > max_x
-    in_x = ~(x_left | x_right)
-    y_above = my < min_y
-    y_below = my > max_y
-    in_y = ~(y_above | y_below)
-
-    corner_x = torch.where(x_left, min_x, max_x)
-    corner_y = torch.where(y_above, min_y, max_y)
-    dxf = torch.where(x_left, tw, -tw)
-    dyf = torch.where(y_above, tw, -tw)
-    diff_x = mx - corner_x
-    diff_y = my - corner_y
-
-    tx_den = dxf * c00 * dxf
-    ty_den = dyf * c11 * dyf
-    tx_raw = (dxf * c00 * diff_x + dxf * c01 * diff_y) / torch.where(
-        tx_den != 0, tx_den, 1.0)
-    ty_raw = (dyf * c01 * diff_x + dyf * c11 * diff_y) / torch.where(
-        ty_den != 0, ty_den, 1.0)
-    tx = torch.where(in_y, 0.0, torch.clamp(tx_raw, 0.0, 1.0))
-    ty = torch.where(in_x, 0.0, torch.clamp(ty_raw, 0.0, 1.0))
-
-    px = corner_x + tx * dxf
-    py = corner_y + ty * dyf
-    ddx = px - mx
-    ddy = py - my
-    sigma = 0.5 * (c00 * ddx * ddx + c11 * ddy * ddy) + c01 * ddx * ddy
-    return (in_x & in_y) | (sigma <= power_threshold)
-
-
 def _power_threshold(opac):
     """ln(255*opac), the alpha-cutoff iso-level (project_forward.rs:96)."""
     return torch.log(torch.clamp_min(opac, 1e-30) * 255.0)
+
+
+def _count_inputs(proj: ProjectedSplats):
+    return (proj.mean2d, proj.conic, _power_threshold(proj.opac),
+            proj.tile_min, proj.tile_max, proj.num_tiles_bbox.to(torch.int32))
 
 
 def exact_tile_counts(proj: ProjectedSplats):
@@ -124,24 +90,16 @@ def exact_tile_counts(proj: ProjectedSplats):
 
     Returns (mask [N] int64 holding a u32, counts_x [N] int32): bit j of
     mask says bbox-local tile j passes the exact test, and
-    counts_x = popcount(mask) + max(bbox_count - B_SCAN, 0)."""
-    counts_bb = proj.num_tiles_bbox.to(torch.int32)
-    dev = counts_bb.device
-    jloc = torch.arange(B_SCAN, dtype=torch.int32, device=dev)[None, :]
-    bb_w = torch.clamp_min(proj.tile_max[:, 0] - proj.tile_min[:, 0],
-                           1)[:, None]
-    tx = proj.tile_min[:, 0:1] + jloc % bb_w
-    ty = proj.tile_min[:, 1:2] + jloc // bb_w
-    hit = will_contribute(
-        tx, ty, proj.mean2d[:, 0:1], proj.mean2d[:, 1:2],
-        proj.conic[:, 0:1], proj.conic[:, 1:2], proj.conic[:, 2:3],
-        _power_threshold(proj.opac)[:, None])
-    hit = hit & (jloc < torch.clamp_max(counts_bb, B_SCAN)[:, None])
-    bits = torch.arange(B_SCAN, dtype=torch.int64, device=dev)[None, :]
-    mask = (hit.to(torch.int64) << bits).sum(dim=1)
-    pc = popcount_u32(mask).to(torch.int32)
-    counts_x = pc + torch.clamp_min(counts_bb - B_SCAN, 0)
-    return mask, counts_x
+    counts_x = popcount(mask) + max(bbox_count - B_SCAN, 0). On a CUDA
+    device one kernel computes both (ops/tile_counts_cuda.py); CPU tensors
+    take the plain version."""
+    return tile_counts(*_count_inputs(proj))
+
+
+def exact_tile_counts_plain(proj: ProjectedSplats):
+    """`exact_tile_counts` by the plain version on any device: the [N,
+    B_SCAN] grid the kernel is held to."""
+    return tile_counts_plain(*_count_inputs(proj))
 
 
 def _cumsum_flat(x):
@@ -172,8 +130,10 @@ def build_intersections(
     with stage("counts", device=True):
         num_visible = proj.visible.sum().to(torch.int32)
         hit_mask, counts = exact_tile_counts(proj)
-        pc = popcount_u32(hit_mask).to(torch.int32)
-        num_bbox_tail = (counts - pc).sum().to(torch.int32)
+        # counts - popcount(mask): the bbox tiles past the first B_SCAN.
+        num_bbox_tail = torch.clamp_min(
+            proj.num_tiles_bbox.to(torch.int32) - B_SCAN, 0).sum().to(
+                torch.int32)
         depth_bits = torch.clamp_min(proj.depth, 0.0).view(torch.int32)
         # Per-splat table rows (layout of the JAX package's emission
         # table). Floats carry the small ints exactly; the depth key rides

@@ -357,7 +357,7 @@ OWN_LAUNCHES = {"scan": (1, 1), "scan_f32": (1, 1), "scan_max": (1, 1),
                 "stack": (1, 0), "emit": (1, 0), "expand": (1, 0),
                 "fill": (1, 1), "rasterize_fwd": (1, 1),
                 "rasterize_fwd_train": (1, 1),
-                "rasterize_bwd": (2, 1)}
+                "rasterize_bwd": (2, 1), "tile_counts": (1, 0)}
 
 KERNEL_META = {
     "scan": ("brush_tpu_torch/csrc/scan.cu",
@@ -390,6 +390,9 @@ KERNEL_META = {
     "fill": ("brush_tpu_torch/csrc/fill.cu",
              "brush_tpu/ops/scan_pallas.py:111",
              "ops/scan_pallas.py:_fill_kernel"),
+    "tile_counts": ("brush_tpu_torch/csrc/tile_counts.cu",
+                    "none: brush_tpu/ops/tiling.py:153 exact_tile_counts "
+                    "(jnp, fused by XLA)", "none"),
 }
 
 
@@ -2754,6 +2757,13 @@ def kernel_work(launch, got, pairs):
     if name == "fill":
         x, valid = inputs
         return 2 * x.numel() * 4 + valid.numel() * 4, 0, list(x.shape)
+    if name == "tile_counts":
+        # A splat whose bbox holds a tile reads its mean, conic, threshold,
+        # tile_min, tile_max's x and count (40 bytes); another its count.
+        # Every splat writes its mask (int64) and count.
+        bbox = inputs[5]
+        n, live = bbox.numel(), int((bbox > 0).sum())
+        return live * 40 + (n - live) * 4 + n * 12, 0, [n, live]
     if name == "emit":
         _, n, k0, rem_cap, _ = inputs
         s_cap = got[0].numel()
@@ -3602,7 +3612,8 @@ KERNEL_SYMBOLS = (
     ("rasterize_fwd_train", "rasterize_fwd_kernel<true>", ""),
     ("rasterize_bwd", "rasterize_bwd_kernel", ""),
     ("expand", "expand_segments_kernel", ""),
-    ("fill", "fill_rows_kernel", ""))
+    ("fill", "fill_rows_kernel", ""),
+    ("tile_counts", "tile_hits_kernel", ""))
 
 
 def sync_free(torch, what: str, fn):
@@ -4172,10 +4183,12 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         "scan_max": lambda inp: lambda: torch.cummax(inp[0], dim=0),
         "expand": repeat_columns,
     }
-    # The plain rasterizers and emission are slow at full width, the plain
-    # expansion and fill at 30M slots: time them over fewer calls.
-    plain_iters = {"emit": 2, "rasterize_fwd": 1, "rasterize_fwd_train": 1,
-                   "rasterize_bwd": 1, "expand": 2, "fill": 2}
+    # The plain rasterizers, emission and tile counts are slow at full
+    # width, the plain expansion and fill at 30M slots: time them over
+    # fewer calls.
+    plain_iters = {"emit": 2, "tile_counts": 2, "rasterize_fwd": 1,
+                   "rasterize_fwd_train": 1, "rasterize_bwd": 1, "expand": 2,
+                   "fill": 2}
 
     def measure(name, launches, time_plain=True):
         r = dict(ms=0.0, device_ms=0.0, plain_ms=0.0 if time_plain else None,

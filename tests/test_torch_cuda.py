@@ -77,7 +77,7 @@ from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.models.splats import from_raw
 from brush_tpu_torch.ops import (
-    emit_cuda, expand_cuda, rasterize_cuda, scan_cuda)
+    emit_cuda, expand_cuda, rasterize_cuda, scan_cuda, tile_counts_cuda)
 from brush_tpu_torch.ops.capacity import plan_caps
 from brush_tpu_torch.ops.tiling_key import _pack2f16, tile_key_bits
 from brush_tpu_torch.render import (
@@ -87,6 +87,8 @@ from brush_tpu_torch.render import (
     render_with_refine,
 )
 from brush_tpu_torch.utils.synthetic import bench_splats
+from tile_count_rows import CASES as TILE_COUNT_CASES
+from tile_count_rows import tile_count_rows
 
 
 @pytest.fixture
@@ -681,6 +683,200 @@ def test_train_render_kernels_match_plain(scene, cuda):
             f"{scale:.3g}")
     flips = int((grads[6].cpu() != ref[6]).sum())
     assert flips <= max(2, grads[6].numel() // 1000), flips
+
+
+def _look_at(pos, img, fov=1.0):
+    """A camera at `pos` looking at the origin, world +y down the image
+    (the viewer's orbit pose)."""
+    from brush_tpu_torch.data.colmap import _rotmat_to_quat
+    fwd = -np.asarray(pos, np.float64) / np.linalg.norm(pos)
+    right = np.cross([0.0, 1.0, 0.0], fwd)
+    right /= np.linalg.norm(right)
+    rot = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+    return Camera(position=np.asarray(pos, np.float64),
+                  rotation=_rotmat_to_quat(rot), fov_x=fov,
+                  fov_y=fov * img[1] / img[0])
+
+
+def _orbit(k, n, radius=18.0, elevation=0.3):
+    """Pose k of n on the benchmark's orbit: yaw evenly over the circle,
+    elevation by the golden ratio's sequence."""
+    yaw = 2.0 * np.pi * k / n
+    el = elevation * (2.0 * ((k * 0.6180339887498949) % 1.0) - 1.0)
+    return np.array([radius * np.cos(el) * np.sin(yaw), radius * np.sin(el),
+                     -radius * np.cos(el) * np.cos(yaw)])
+
+
+def _random_splats(n, seed, dev):
+    """Splats of scales log-uniform in [0.002, 0.5] in a 12 x 12 x 12 box:
+    most cover a few tiles, and near the camera the largest far more than
+    32."""
+    rng = np.random.default_rng(seed)
+    return from_raw(
+        rng.uniform(-6.0, 6.0, (n, 3)).astype(np.float32),
+        rng.uniform(np.log(0.002), np.log(0.5), (n, 3)).astype(np.float32),
+        rng.normal(0, 1, (n, 4)).astype(np.float32),
+        rng.normal(0, 0.3, (n, 1, 3)).astype(np.float32),
+        rng.normal(0.0, 2.0, n).astype(np.float32), device=dev)
+
+
+def _project(s, cam, img, dev):
+    from brush_tpu_torch.ops.projection import project_splats
+    with torch.no_grad():
+        return project_splats(s.means, s.log_scales, s.quats,
+                              s.sh_coeffs[:, :1], s.raw_opacities,
+                              camera_inputs(cam, img, device=dev), img,
+                              sh_degree=0)
+
+
+def _hold_counts(proj):
+    """The kernel's mask and count against the plain version on the same
+    projected rows, bit for bit; returns the counts."""
+    from brush_tpu_torch.ops import tiling
+    with kernels.capture() as launches:
+        mask, counts = tiling.exact_tile_counts(proj)
+    assert [launch.name for launch in launches] == ["tile_counts"]
+    assert launches[0].check() == 0.0
+    want = tiling.exact_tile_counts_plain(proj)
+    assert kernels.same_bits((mask, counts), want) == 0.0
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img", [(1920, 1080), (3200, 1800)])
+def test_tile_counts_kernel_matches_plain_on_random_scenes(img, cuda):
+    """300,007 random splats (not a multiple of the kernel's block) seen
+    from three poses between 6 and 18 units out: some splats pass 32 tiles,
+    and many lie behind the camera or off screen (count 0)."""
+    s = _random_splats(300_007, 11, cuda)
+    seen_tail = False
+    for k, radius in enumerate((6.0, 10.0, 18.0)):
+        counts = _hold_counts(_project(s, _look_at(_orbit(k, 3, radius),
+                                                   img), img, cuda))
+        assert int((counts > 0).sum()) > 1000
+        seen_tail |= bool((counts > 32).any())
+    assert seen_tail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["1m_1080p", "2m_1800p"])
+def test_tile_counts_kernel_matches_plain_on_bench_scenes(scene, cuda):
+    """The benchmark's scenes (the bench generator, 1M splats at 1920x1080
+    and 2M at 3200x1800) at four poses of its orbit."""
+    n, img = {"1m_1080p": (1_000_000, (1920, 1080)),
+              "2m_1800p": (2_000_000, (3200, 1800))}[scene]
+    s = bench_splats(n, sh_degree=0, seed=7, device=cuda)
+    for k in (0, 31, 62, 93):
+        counts = _hold_counts(_project(s, _look_at(_orbit(k, 120), img), img,
+                                       cuda))
+        assert int((counts > 0).sum()) > n // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TILE_COUNT_CASES)
+def test_tile_counts_kernel_matches_plain_on_edge_rows(case, cuda):
+    """The edge rows of tests/tile_count_rows.py (bbox counts 0-150, bbox
+    widths 1 and 40-60, means on tile edges, zero denominators, non-finite
+    conics on culled rows, every row dead; 1001 rows): bit for bit against
+    the plain version on the card, and against the plain version on the
+    CPU from the same threshold words, which tests/test_torch_render.py
+    holds to the JAX package. Then the first 0, 1, 255 and 257 rows."""
+    rows = {k: torch.from_numpy(v) for k, v in tile_count_rows(case).items()}
+    host = (rows["mean2d"], rows["conic"],
+            torch.log(torch.clamp_min(rows["opac"], 1e-30) * 255.0),
+            rows["tile_min"], rows["tile_max"], rows["num_tiles_bbox"])
+    dev = tuple(x.to(cuda) for x in host)
+    assert _same(tile_counts_cuda.tile_counts, *dev) == 0.0
+    got = tile_counts_cuda.tile_counts(*dev)
+    want = tile_counts_cuda.tile_counts_plain(*host)
+    assert kernels.same_bits(tuple(t.cpu() for t in got), want) == 0.0
+    for m in (0, 1, 255, 257):
+        got = tile_counts_cuda.tile_counts(*(x[:m] for x in dev))
+        assert got[0].shape == (m,) and kernels.same_bits(
+            tuple(t.cpu() for t in got),
+            tile_counts_cuda.tile_counts_plain(*(x[:m] for x in host))) == 0.0
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_counts_cuda.tile_counts(
+            torch.zeros((2, 8), device=cuda).T, *(x[:8] for x in dev[1:]))
+
+
+@pytest.mark.cuda
+def test_tile_counts_kernel_replays_in_a_captured_graph(cuda):
+    """`exact_tile_counts` (the threshold's operations and the kernel)
+    captured once in a CUDA graph, then replayed on the rows of three
+    poses copied into its inputs: each replay's mask and count equal the
+    plain version's on those rows."""
+    from brush_tpu_torch.ops import tiling
+    img = (1920, 1080)
+    s = _random_splats(100_003, 12, cuda)
+    projs = [_project(s, _look_at(_orbit(k, 3, 10.0), img), img, cuda)
+             for k in range(3)]
+    names = ("mean2d", "conic", "opac", "tile_min", "tile_max",
+             "num_tiles_bbox")
+    static = dataclasses.replace(
+        projs[0], **{f: getattr(projs[0], f).clone() for f in names})
+    tiling.exact_tile_counts(static)          # builds the library
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tiling.exact_tile_counts(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tiling.exact_tile_counts(static)
+    for p in projs[1:] + projs[:1]:
+        for f in names:
+            getattr(static, f).copy_(getattr(p, f))
+        graph.replay()
+        want = tiling.exact_tile_counts_plain(p)
+        torch.cuda.synchronize()
+        assert kernels.same_bits(out, want) == 0.0
+    del graph
+
+
+@pytest.mark.cuda
+def test_frame_and_step_with_plain_tile_counts_equal_the_kernels(
+        monkeypatch, cuda):
+    """A forward frame and a training step on the card, with the counts
+    from the kernel and then from the plain version (forced here alone, by
+    patching `tiling.exact_tile_counts`): the frame, the step's loss and
+    both renders' aux bit for bit; the state after the step within the
+    backward's BWD_RTOL rule (`chip_smoke.hold_steps`), which two runs of
+    the same step need too (its per-splat sums are f64 atomics)."""
+    from chip_smoke import hold_steps
+    from brush_tpu_torch.ops import tiling
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.train.trainer import train_step_impl
+    state, views, rcfg, fwd, _, _ = _graph_case(cuda)
+    params = tuple(state.splats.params().values())
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    tcfg = TrainConfig()
+
+    def run():
+        with kernels.capture() as launches:
+            frame, aux = render(*params, views[0][0], bg, fwd)
+            stepped, stats, s_aux = train_step_impl(
+                _twin_state(state), views[1][1], tcfg, rcfg)
+        torch.cuda.synchronize()
+        return frame, aux, stepped, stats, s_aux, {x.name for x in launches}
+
+    k_frame, k_aux, k_state, k_stats, k_saux, k_names = run()
+    monkeypatch.setattr(tiling, "exact_tile_counts",
+                        tiling.exact_tile_counts_plain)
+    p_frame, p_aux, p_state, p_stats, p_saux, p_names = run()
+    assert "tile_counts" in k_names and "tile_counts" not in p_names
+    assert torch.equal(p_frame.view(torch.int32), k_frame.view(torch.int32))
+    assert torch.equal(p_stats.loss.view(torch.int32),
+                       k_stats.loss.view(torch.int32))
+    for got, want in ((p_aux, k_aux), (p_saux, k_saux)):
+        for f in dataclasses.fields(want):
+            w, g = getattr(want, f.name), getattr(got, f.name)
+            if torch.is_tensor(w):
+                assert kernels.same_bits(g, w) == 0.0, f.name
+    lrs = dict(means=tcfg.lr_mean * float(state.median_scale),
+               log_scales=tcfg.lr_scale, quats=tcfg.lr_rotation,
+               sh_coeffs=tcfg.lr_coeffs_dc, raw_opacities=tcfg.lr_opac)
+    hold_steps(torch, p_state, k_state, lrs, 1)
 
 
 def _slot_soas(spans, img, n, rng, gid=None):

@@ -2,11 +2,13 @@
 against the JAX package (jitted on the CPU, its Pallas rasterizer in
 interpret mode), on the same numpy inputs carried across with `convert`.
 
-  * tile binning: `exact_tile_counts` and `build_intersections(
-    with_bwd_info=False)` fed the SAME ProjectedSplats — counts, tile
-    ranges and chunk bookkeeping exact, each tile's diet slots equal as a
-    multiset (torch.sort and XLA's sorting network order depth ties
-    differently, so slot positions inside a tile may differ).
+  * tile binning: `exact_tile_counts` (also on the edge rows of
+    tests/tile_count_rows.py, which the card's kernel is held to) and
+    `build_intersections(with_bwd_info=False)` fed the SAME
+    ProjectedSplats — counts, tile ranges and chunk bookkeeping exact,
+    each tile's diet slots equal as a multiset (torch.sort and XLA's
+    sorting network order depth ties differently, so slot positions inside
+    a tile may differ).
   * the whole slice: port `render` vs JAX `render(use_pallas=True,
     forward_only=True)` on the gsplat fixture and on a synthetic scene with
     a non-zero background: p99.9 of |d| <= 1e-4 and max <= 2/255 (the two
@@ -34,17 +36,23 @@ from safetensors.numpy import load_file
 from brush_tpu.camera import Camera as JCamera
 from brush_tpu.models import splats as jsplats
 from brush_tpu.ops import capacity as jcapacity
+from brush_tpu.ops import projection as jprojection
 from brush_tpu.ops import tiling as jtiling
 from brush_tpu.ops import tiling_key as jtk
 from brush_tpu.ops.projection import project_splats as j_project_splats
 from brush_tpu.utils.synthetic import bench_splats as j_bench_splats
 
-from brush_tpu_torch import convert
+from tile_count_rows import CASES as TILE_COUNT_CASES
+from tile_count_rows import IMG as TILE_COUNT_IMG
+from tile_count_rows import projected_fields, tile_count_rows
+
+from brush_tpu_torch import convert, kernels
 from brush_tpu_torch import render as trender
 from brush_tpu_torch.camera import Camera as TCamera
 from brush_tpu_torch.models import splats as tsplats
 from brush_tpu_torch.ops import capacity as tcapacity
 from brush_tpu_torch.ops import projection as tprojection
+from brush_tpu_torch.ops import tile_counts_cuda
 from brush_tpu_torch.ops import tiling as ttiling
 from brush_tpu_torch.ops import tiling_key as ttk
 from brush_tpu_torch.utils import synthetic as tsynthetic
@@ -106,16 +114,51 @@ def _to_torch_proj(jproj) -> tprojection.ProjectedSplats:
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("scene", list(SCENES))
+def _rows_proj(case):
+    """JAX and port ProjectedSplats holding one case of
+    tests/tile_count_rows.py."""
+    fields = projected_fields(tile_count_rows(case))
+    jproj = jprojection.ProjectedSplats(
+        **{k: jnp.asarray(v) for k, v in fields.items()})
+    return jproj, _to_torch_proj(jproj)
+
+
+@pytest.mark.parametrize("scene", list(SCENES) + list(TILE_COUNT_CASES))
 def test_exact_tile_counts_match_jax(scene):
-    params, cam, img, deg, _, _ = SCENES[scene]()
-    jproj, _ = _jax_proj(params, cam, img, deg)
+    """On the two scenes' projections and on the edge rows the card's
+    kernel is also held to (tests/tile_count_rows.py): mask and count
+    exact."""
+    if scene in SCENES:
+        params, cam, img, deg, _, _ = SCENES[scene]()
+        jproj, _ = _jax_proj(params, cam, img, deg)
+        tproj = _to_torch_proj(jproj)
+    else:
+        jproj, tproj = _rows_proj(scene)
     mask_j, counts_j = jax.jit(jtiling.exact_tile_counts)(jproj)
-    mask_t, counts_t = ttiling.exact_tile_counts(_to_torch_proj(jproj))
+    mask_t, counts_t = ttiling.exact_tile_counts(tproj)
     np.testing.assert_array_equal(mask_t.numpy(),
                                   np.asarray(mask_j).astype(np.int64))
     np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
-    assert int(np.asarray(counts_j).sum()) > 0
+    assert (int(np.asarray(counts_j).sum()) > 0) == (scene != "all_dead")
+
+
+def test_exact_tile_counts_take_the_plain_path_on_the_cpu():
+    """CPU tensors never reach the kernel: the counts and a whole binning
+    leave the launch counter at 0 and equal the plain version bit for bit;
+    the wrapper refuses the dtypes and shapes the kernel does not take."""
+    _, proj = _rows_proj("bbox_counts")
+    got = ttiling.exact_tile_counts(proj)
+    ttiling.build_intersections(proj, TILE_COUNT_IMG, 1 << 16,
+                                with_bwd_info=False)
+    assert kernels.LAUNCHES["tile_counts"] == 0
+    assert kernels.same_bits(got, ttiling.exact_tile_counts_plain(proj)) == 0
+    args = ttiling._count_inputs(proj)
+    with pytest.raises(ValueError, match="mean2d"):
+        tile_counts_cuda.tile_counts(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="num_tiles_bbox"):
+        tile_counts_cuda.tile_counts(*args[:5], args[5].long())
+    with pytest.raises(ValueError, match="conic"):
+        tile_counts_cuda.tile_counts(args[0], args[1][:-1], *args[2:])
 
 
 def _tile_slot_multiset(soa_words, ranges):
