@@ -83,6 +83,15 @@ def is_fisheye(model: CameraModel) -> bool:
     return isinstance(model, (KannalaBrandt4, RadialTangential8, ThinPrismFisheye))
 
 
+_LENS_KINDS = {Pinhole: "pinhole", KannalaBrandt4: "kb4",
+               RadialTangential8: "rt8", ThinPrismFisheye: "tpf"}
+
+
+def lens_kind(model: CameraModel) -> str:
+    """The lens's short name, as the tracing counters give it."""
+    return _LENS_KINDS[type(model)]
+
+
 # --- KB4 distortion polynomial (camera.rs:118-171) ---
 
 

@@ -10,6 +10,11 @@ runs the differentiable math on inputs sanitized by that mask, so a splat
 failing ANY gate is an inert unit splat with finite math everywhere. This
 slice takes no gradient, but the next one differentiates through it, so
 the structure and every field are ported as they are.
+
+Tracing (utils/tracing.py): the lens's projection and its Jacobian are the
+stage `project.lens` (with device marks, so eager paths only), and each
+projection counts `project.lens.<kind>` (camera.lens_kind: an eager call
+or a graph's capture; a replay runs no Python).
 """
 
 from __future__ import annotations
@@ -19,7 +24,12 @@ from typing import NamedTuple
 
 import torch
 
-from brush_tpu_torch.camera import CameraModel, Pinhole, is_fisheye
+from brush_tpu_torch.camera import (
+    CameraModel,
+    Pinhole,
+    is_fisheye,
+    lens_kind,
+)
 from brush_tpu_torch.constants import (
     ALPHA_CUTOFF_MID,
     COV2D_ENTRY_CLAMP,
@@ -35,6 +45,7 @@ from brush_tpu_torch.constants import (
 from brush_tpu_torch.ops import camera_proj
 from brush_tpu_torch.ops.sh import sh_to_color
 from brush_tpu_torch.utils.device import device_constant
+from brush_tpu_torch.utils.tracing import count, stage
 
 
 class CameraInputs(NamedTuple):
@@ -132,8 +143,10 @@ def _project_math(means, log_scales, quats, sh_coeffs, raw_opacities,
         ]
         for i in range(3)
     ]
-    jac = camera_proj.projection_jacobian(mean_c, cam.pinhole,
-                                          cam.clamp_limits, model)
+    with stage("project.lens", device=True):
+        jac = camera_proj.projection_jacobian(mean_c, cam.pinhole,
+                                              cam.clamp_limits, model)
+        mean2d = camera_proj.project(mean_c, cam.pinhole, model)
     j = [[jac[:, a, b] for b in range(3)] for a in range(2)]
     v = [
         [j[a][0] * ns[0][k] + j[a][1] * ns[1][k] + j[a][2] * ns[2][k]
@@ -172,8 +185,6 @@ def _project_math(means, log_scales, quats, sh_coeffs, raw_opacities,
         torch.zeros_like(det))
     conic = torch.stack([b11 * inv_det, -c01 * inv_det, b00 * inv_det],
                         dim=-1)
-
-    mean2d = camera_proj.project(mean_c, cam.pinhole, model)
 
     # --- bbox extent (helpers.rs compute_bbox_extent:80-90) ---
     power_threshold = torch.log(torch.clamp_min(opac, 1e-30) * 255.0)
@@ -250,6 +261,7 @@ def project_splats(
     model: CameraModel = Pinhole(),
     mip_splatting: bool = False,
 ) -> ProjectedSplats:
+    count(f"project.lens.{lens_kind(model)}")
     # Pass 1: gates only, on detached inputs.
     _, ok, chan_finite = _project_math(
         means.detach(), log_scales.detach(), quats.detach(),

@@ -53,7 +53,15 @@ its step, with device marks from its first enqueue to its end; inside it
 `run.load` (the loader and the batch's views; `run.loader_empty` counts
 the turns that found no view ready), `run.upload` (the pinned uploads),
 `run.readback` (the overflow read one step behind) and, at a log step,
-`run.message` (its reads, telemetry and the slot's copy).
+`run.message` (its reads, telemetry and the slot's copy); each turn counts
+`run.lens.<kind>`, the lens of the view it trains.
+
+Every render of a dataset view goes through that view's own lens
+(`RenderConfig.model` from `camera.model`): the turn's step, the LOD
+steps and, in `eval_views`, each eval view; the LOD scoring renders its
+views through the first one's. A step graph is keyed by its RenderConfig,
+so a dataset of one lens captures one step graph, and one that mixes
+lenses gets a graph of each lens in turn (the cache holds one).
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from brush_tpu_torch.camera import fov_to_focal
+from brush_tpu_torch.camera import fov_to_focal, lens_kind
 from brush_tpu_torch.data.dataloader import SceneLoader
 from brush_tpu_torch.data.formats import Dataset, LoadConfig, load_dataset
 from brush_tpu_torch.data.scene import AlphaMode, image_dims
@@ -515,8 +523,9 @@ def train_process(
         rcfg=RenderConfig(
             img_size=image_dims(ds.train.vfs, first.image_path,
                                 lcfg.max_resolution),
-            sh_degree=pcfg.sh_degree, isect_cap=pcfg.init_isect_cap,
-            chunk_cap=pcfg.init_chunk_cap, use_pallas=pcfg.use_pallas))
+            sh_degree=pcfg.sh_degree, model=first.camera.model,
+            isect_cap=pcfg.init_isect_cap, chunk_cap=pcfg.init_chunk_cap,
+            use_pallas=pcfg.use_pallas))
     t_start = time.perf_counter()
     try:
         while loop.it < tcfg.total_train_iters:
@@ -529,9 +538,9 @@ def train_process(
                             count("run.loader_empty")
                         views = [next(loader)]
                     if lead and batched:
-                        # B same-sized views (datasets are near-uniform;
-                        # odd sizes fall back to repeating until the batch
-                        # fills).
+                        # B views of one size and lens (datasets are near-
+                        # uniform; odd ones fall back to repeating until the
+                        # batch fills).
                         view = views[0]
                         tries = 0
                         while (len(views) < pcfg.views_per_batch
@@ -539,7 +548,8 @@ def train_process(
                             v = next(loader)
                             tries += 1
                             if (v.img_size == view.img_size
-                                    and v.has_alpha == view.has_alpha):
+                                    and v.has_alpha == view.has_alpha
+                                    and v.camera.model == view.camera.model):
                                 views.append(v)
                         if len(views) < pcfg.views_per_batch:
                             # Padding by repetition biases the mean-loss
@@ -548,7 +558,8 @@ def train_process(
                                 message=f"batch padded by repeating a view "
                                         f"({len(views)}/"
                                         f"{pcfg.views_per_batch} distinct; "
-                                        f"mixed image sizes in dataset?) — "
+                                        f"mixed image sizes or lenses in "
+                                        f"dataset?) — "
                                         f"the mean-loss gradient is biased "
                                         f"toward the repeat")))
                         while len(views) < pcfg.views_per_batch:
@@ -576,7 +587,9 @@ def train_process(
                     else:
                         batch = _scene_batch(view, upload)
                 loop = dataclasses.replace(loop, rcfg=dataclasses.replace(
-                    loop.rcfg, img_size=view.img_size))
+                    loop.rcfg, img_size=view.img_size,
+                    model=view.camera.model))
+                count(f"run.lens.{lens_kind(view.camera.model)}")
                 loop, stats, overflows = _step_turn(
                     loop, batch, tcfg, view.has_alpha, alpha_is_mask,
                     batched=batched, lpips_model=lpips_model, share=share)
@@ -718,7 +731,8 @@ def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,
     w, h = image_dims(ds.train.vfs, score_views[0].image_path,
                       lcfg.max_resolution, subscale=2)
     score_rcfg = RenderConfig(
-        img_size=(w, h), sh_degree=pcfg.sh_degree, isect_cap=isect_cap,
+        img_size=(w, h), sh_degree=pcfg.sh_degree,
+        model=score_views[0].camera.model, isect_cap=isect_cap,
         chunk_cap=chunk_cap, use_pallas=pcfg.use_pallas)
     cams = [camera_inputs(v.camera, (w, h), device=upload.dev)
             for v in score_views]
@@ -740,7 +754,8 @@ def _bake_lod_level(state: TrainState, ds: Dataset, lcfg: LoadConfig,
         for _ in range(tcfg.lod_refine_steps):
             view = next(lod_loader)
             rcfg = RenderConfig(img_size=view.img_size,
-                                sh_degree=pcfg.sh_degree, isect_cap=isect_cap,
+                                sh_degree=pcfg.sh_degree,
+                                model=view.camera.model, isect_cap=isect_cap,
                                 use_pallas=pcfg.use_pallas)
             batch = _scene_batch(view, upload)
             if steps is not None:

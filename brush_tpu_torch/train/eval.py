@@ -52,6 +52,8 @@ def eval_views(splats: Splats, views, rcfg: RenderConfig,
                save_dir: str | None = None, step: int = 0) -> EvalStats:
     """`views`: iterable of (camera, gt_packed [H, W] packed words) pairs;
     the ground truth is a tensor on the splats' device or a host array.
+    Each view renders through its camera's own lens (`rcfg.model` is
+    replaced by `camera.model`).
     With `save_dir`, each rendered view is saved as a PNG (eval.rs:56-63)."""
     psnrs, ssims = [], []
     folded = splats.fold_min_scale()
@@ -66,6 +68,7 @@ def eval_views(splats: Splats, views, rcfg: RenderConfig,
         return _eval_step(*arrays, cam, gt_packed, rcfg)
 
     for i, (camera, gt_packed) in enumerate(views):
+        rcfg = dataclasses.replace(rcfg, model=camera.model)
         cam = camera_inputs(camera, rcfg.img_size, device=dev)
         if not torch.is_tensor(gt_packed):
             gt_packed = loss_mod.gt_tensor(gt_packed, device=dev)

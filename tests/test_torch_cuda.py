@@ -48,7 +48,10 @@ under sync debug mode "error"; a RenderGraph's frames equal eager ones bit
 for bit; StepGraphs steps (plain, with the LPIPS term, over two stacked
 views) and `train_process` on StepGraphs (with LPIPS weights, with two
 views a batch) are held to the eager ones; freeing graphs on one thread
-waits for a capture on another. The refine on a RefineGraph equals the
+waits for a capture on another; StepGraphs steps through a
+KannalaBrandt4 lens equal eager ones, and `train_process` over an
+OPENCV_FISHEYE scene trains every turn through the lens on one step
+graph, held to its eager run. The refine on a RefineGraph equals the
 eager refine bit for bit (the generator too, after a refine that
 resamples); the DP step on a graph over a one-process NCCL group (its
 all_reduces captured) is held to the eager DP step and to the graphed
@@ -1445,21 +1448,26 @@ def test_space_parallel_render_over_two_processes_on_one_card(tmp_path,
 # --------------------------------------------------------------------------
 
 
-def _graph_case(dev):
+def _graph_case(dev, fisheye=False):
     """1,500 splats at 96x64 over two views with a rendered ground truth:
     (splat state seeded 3, [(CameraInputs, SceneBatch)], training and
-    forward-only RenderConfigs, the view centres and focals)."""
+    forward-only RenderConfigs, the view centres and focals). `fisheye`:
+    the views a KannalaBrandt4 lens of a 2.2 rad field, nearer."""
+    from brush_tpu_torch.camera import KannalaBrandt4, Pinhole
     from brush_tpu_torch.ops.loss import pack_gt
     from brush_tpu_torch.train.trainer import SceneBatch, init_train_state
     img = (96, 64)
-    rcfg = RenderConfig(img_size=img, sh_degree=1, isect_cap=1 << 14,
-                        use_pallas=True)
-    fwd = RenderConfig(img_size=img, sh_degree=1, isect_cap=1 << 14,
-                       use_pallas=True, forward_only=True)
+    model = (KannalaBrandt4(-0.03, -0.004, 0.0006, -0.0001) if fisheye
+             else Pinhole())
+    rcfg = RenderConfig(img_size=img, sh_degree=1, model=model,
+                        isect_cap=1 << 14, use_pallas=True)
+    fwd = dataclasses.replace(rcfg, forward_only=True)
     truth = bench_splats(1500, sh_degree=1, seed=5, device=dev)
-    cams = [Camera(position=np.array([x, 0.0, -18.0]),
+    fov, z = ((2.2, 1.5), -9.0) if fisheye else ((1.0, 0.7), -18.0)
+    cams = [Camera(position=np.array([x, 0.0, z]),
                    rotation=np.array([1.0, 0.0, 0.0, 0.0]),
-                   fov_x=1.0, fov_y=0.7) for x in (0.0, 0.8)]
+                   fov_x=fov[0], fov_y=fov[1], model=model)
+            for x in (0.0, 0.8)]
     views = []
     for cam in cams:
         ci = camera_inputs(cam, img, device=dev)
@@ -1542,12 +1550,12 @@ def test_render_graph_frame_equals_the_eager_frame(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["plain", "lpips", "batched"])
+@pytest.mark.parametrize("kind", ["plain", "lpips", "batched", "kb4"])
 def test_step_graph_steps_match_eager_steps(kind, cuda):
     """3 steps on StepGraphs (the warm-up step, then 2 replays) against 3
     eager `train_step_impl` steps from the same state and generator, plain,
-    with the LPIPS term (weight 0.5, `random_lpips`) or over two stacked
-    views (`batched=True`): losses and every state tensor within the
+    with the LPIPS term (weight 0.5, `random_lpips`), over two stacked
+    views (`batched=True`) or through a KannalaBrandt4 lens: losses and every state tensor within the
     backward's BWD_RTOL rule (`chip_smoke.hold_steps`), the generator's
     state equal, one capture; the donated state is the graph's own, and
     the copied-out aux of a step survives the next. With LPIPS the rule's
@@ -1560,7 +1568,7 @@ def test_step_graph_steps_match_eager_steps(kind, cuda):
     from brush_tpu_torch.models.lpips import random_lpips
     from brush_tpu_torch.train.config import TrainConfig
     from brush_tpu_torch.train.trainer import stack_batches, train_step_impl
-    state, views, rcfg, _, _, _ = _graph_case(cuda)
+    state, views, rcfg, _, _, _ = _graph_case(cuda, fisheye=kind == "kb4")
     tcfg, kw = TrainConfig(), {}
     batches = [views[k % 2][1] for k in range(3)]
     if kind == "lpips":
@@ -2077,7 +2085,8 @@ def test_recorder_counts_graphs_and_times_turns_on_the_card(tmp_path,
     and a replay a step after the first, each replay a `graphs.replay`
     with device marks inside its `run.turn`, every turn with device marks
     whose spans come in order; a RenderGraph's frames count `render`
-    captures and replays, and an eviction."""
+    captures and replays, and an eviction, and project the pinhole lens
+    only in a capture's warm-up and the capture."""
     import functools
 
     from brush_tpu_torch import graphs, process
@@ -2124,7 +2133,60 @@ def test_recorder_counts_graphs_and_times_turns_on_the_card(tmp_path,
             for ci, _ in views:
                 cache.get(render, fwd, n)(*(p[:n] for p in params), ci, bg)
         snap = rec.snapshot()
+    # Each capture's warm-up and the capture itself project (and count
+    # the lens); a replay runs no Python.
     assert snap["counters"] == {"graphs.capture.render": 2,
                                 "graphs.replay.render": 2,
-                                "graphs.evict.render": 1}
+                                "graphs.evict.render": 1,
+                                "project.lens.pinhole": 4}
     assert snap["stages"]["graphs.replay"]["device_count"] == 2
+
+
+@pytest.mark.cuda
+def test_fisheye_dataset_trains_on_one_step_graph(tmp_path, monkeypatch,
+                                                  cuda):
+    """`train_process` over an OPENCV_FISHEYE COLMAP scene on the card:
+    every turn trains through the lens (`run.lens.kb4`), on one captured
+    step graph replayed after the first step, and the run's losses are
+    those of the same run with every program eager, within 1e-3 relative
+    (the rule of `test_train_process_with_growth_and_lod_on_graphs_matches_
+    eager`)."""
+    import functools
+    import struct
+
+    from brush_tpu_torch import process
+    from brush_tpu_torch.data import dataloader
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.utils import tracing
+    root = tmp_path / "scene"
+    _card_scene(root)
+    with open(root / "sparse" / "0" / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 5, 32, 32))         # OPENCV_FISHEYE
+        f.write(struct.pack("<8d", 20.0, 20.0, 16.0, 16.0,
+                            -0.03, -0.004, 0.0006, -0.0001))
+    monkeypatch.setattr(process, "SceneLoader", functools.partial(
+        dataloader.SceneLoader, n_threads=1))
+    steps = 6
+
+    def losses():
+        pcfg = process.ProcessConfig(
+            eval_every=0, export_every=0, log_every=1, init_count=0,
+            sh_degree=1, export_path=str(tmp_path / "out_{iter}.ply"))
+        with tracing.record_stages() as rec:
+            msgs = list(process.train_process(
+                str(root), TrainConfig(total_train_iters=steps,
+                                       refine_every=1000),
+                LoadConfig(max_resolution=32), pcfg, device="cuda"))
+            counters = rec.snapshot()["counters"]
+        return [m.data["loss"] for m in msgs if m.kind == "step"], counters
+
+    graphed, c = losses()
+    assert c["graphs.capture.step"] == 1
+    assert c["graphs.replay.step"] == steps - 1
+    assert c["run.lens.kb4"] == steps and "run.lens.pinhole" not in c
+    _eager(monkeypatch)
+    eager, c = losses()
+    assert "graphs.capture.step" not in c and c["run.lens.kb4"] == steps
+    assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(graphed, eager))

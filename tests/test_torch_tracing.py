@@ -189,7 +189,8 @@ def test_render_pose_records_the_frame_stages():
     """Two frames: a `viewer.frame` each (unit = the frame's number)
     holding `viewer.lock`, `viewer.fold`, `viewer.camera` and
     `viewer.copy`; a frame that waited for another render's lock counts
-    `viewer.lock_contended`."""
+    `viewer.lock_contended`, and each frame's projection (eager on the
+    CPU) counts the viewer's pinhole lens."""
     from brush_tpu_torch.utils.synthetic import bench_splats
     from brush_tpu_torch.viewer.service import Slot, ViewerState
     slot = Slot()
@@ -215,7 +216,8 @@ def test_render_pose_records_the_frame_stages():
         snap = rec.snapshot()
     frames = _by_name(snap, "viewer.frame")
     assert [e["unit"] for e in frames] == [0, 1]
-    assert snap["counters"] == {"viewer.lock_contended": 1}
+    assert snap["counters"] == {"viewer.lock_contended": 1,
+                                "project.lens.pinhole": 2}
     for name in ("viewer.lock", "viewer.fold", "viewer.camera",
                  "viewer.copy"):
         got = _by_name(snap, name)
