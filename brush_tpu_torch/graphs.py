@@ -308,11 +308,13 @@ def free_pools() -> None:
 
 def _warm_up(body):
     """Run `body()` once eagerly on a side stream (PyTorch's rule before a
-    capture), its kernel launches counted but kept out of any open
-    `kernels.capture()` (the capture's own launches go there)."""
+    capture), its kernel launches counted but recorded nowhere: not in an
+    open `kernels.capture()` (the capture's own launches go there), and
+    not in a list of their own, whose inputs would keep every launch's
+    buffers (the binning's, the gradients') alive to the step's end."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side), stages_off(), kernels.capture():
+    with torch.cuda.stream(side), stages_off(), kernels.capture(record=False):
         out = body()
     torch.cuda.current_stream().wait_stream(side)
     return out

@@ -26,15 +26,18 @@ from typing import Callable, NamedTuple
 # package since the emission kernel took over the remainder expansion: the
 # 30M-slot stress run of the binning primitives drives them.
 # `tile_counts` replaces no TPU kernel: it computes the binning's exact tile
-# counts, which the JAX package leaves to XLA.
+# counts, which the JAX package leaves to XLA. Nor do `project_fwd` and
+# `project_bwd`, the pinhole projection and its backward (XLA's there too).
 KERNEL_NAMES = ("scan", "stack", "emit", "rasterize_fwd",
                 "rasterize_fwd_train", "rasterize_bwd", "scan_f32",
-                "scan_max", "expand", "fill", "tile_counts")
+                "scan_max", "expand", "fill", "tile_counts", "project_fwd",
+                "project_bwd")
 # The kernels a forward-only render launches, and those one training step
-# launches.
-SERVE_PATH = ("tile_counts", "scan", "stack", "emit", "rasterize_fwd")
-TRAIN_PATH = ("tile_counts", "scan", "stack", "emit", "rasterize_fwd_train",
-              "rasterize_bwd")
+# launches (through a pinhole lens).
+SERVE_PATH = ("project_fwd", "tile_counts", "scan", "stack", "emit",
+              "rasterize_fwd")
+TRAIN_PATH = ("project_fwd", "tile_counts", "scan", "stack", "emit",
+              "rasterize_fwd_train", "rasterize_bwd", "project_bwd")
 # The kernels the stress run of the binning primitives launches.
 STRESS_PATH = ("scan", "scan_f32", "stack", "expand", "fill")
 
@@ -75,10 +78,13 @@ def note_launch(name: str, replay: Callable, compare: Callable,
 
 
 @contextlib.contextmanager
-def capture():
-    """Collect a `Launch` for every kernel launch in the block."""
+def capture(record: bool = True):
+    """Collect a `Launch` for every kernel launch in the block. With
+    `record=False` the block's launches are counted and recorded nowhere,
+    not even in a capture open around the block (a `Launch` holds its
+    inputs, and with them their memory, as long as its list lives)."""
     global _captured
-    prev, _captured = _captured, []
+    prev, _captured = _captured, ([] if record else None)
     try:
         yield _captured
     finally:

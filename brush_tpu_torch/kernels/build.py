@@ -58,6 +58,11 @@ SIGNATURES = {
     "brush_fill_tile_items": [],
     "brush_fill_rows": [_P, _P, _I, _L, _P, _P, _L, _P],
     "brush_tile_counts": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P],
+    "brush_project_fwd": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L, _I,
+                          _I, _I, _I] + [_P] * 13,
+    "brush_project_bwd": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
+                          _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _I]
+    + [_P] * 6,
 }
 
 _lock = threading.Lock()

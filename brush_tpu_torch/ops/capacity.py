@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from brush_tpu_torch.camera import Pinhole
-from brush_tpu_torch.ops.projection import CameraInputs, project_splats
+from brush_tpu_torch.ops.project_cuda import project
+from brush_tpu_torch.ops.projection import CameraInputs
 from brush_tpu_torch.ops.tiling import exact_tile_counts
 from brush_tpu_torch.utils.device import resolve_device
 
@@ -65,9 +66,9 @@ def plan_caps(
     with torch.no_grad():
         sh0 = torch.zeros((means.shape[0], 1, 3), dtype=torch.float32,
                           device=dev)
-        proj = project_splats(means, log_scales, quats, sh0, raw_opacities,
-                              cam, img_size, sh_degree=0, model=model,
-                              mip_splatting=mip_splatting)
+        proj = project(means, log_scales, quats, sh0, raw_opacities, cam,
+                       img_size, sh_degree=0, model=model,
+                       mip_splatting=mip_splatting)
         _, cnt = exact_tile_counts(proj)
         cnt = cnt.to(torch.int64)
         rems = torch.stack([torch.clamp_min(cnt - k, 0).sum()

@@ -11,6 +11,10 @@ failing ANY gate is an inert unit splat with finite math everywhere. This
 slice takes no gradient, but the next one differentiates through it, so
 the structure and every field are ported as they are.
 
+`project_splats` is the plain version of the CUDA projection
+(ops/project_cuda.py `project`, which the render calls): the CPU's path,
+every fisheye lens's, and the yardstick the kernels are held to.
+
 Tracing (utils/tracing.py): the lens's projection and its Jacobian are the
 stage `project.lens` (with device marks, so eager paths only), and each
 projection counts `project.lens.<kind>` (camera.lens_kind: an eager call
@@ -261,6 +265,37 @@ def project_splats(
     model: CameraModel = Pinhole(),
     mip_splatting: bool = False,
 ) -> ProjectedSplats:
+    """Project every splat with PyTorch operations, on any device and
+    through any lens, differentiable under autograd: the plain version
+    of the CUDA projection (ops/project_cuda.py), and the CPU's and the
+    fisheye lenses' path."""
+    return _project_plain(means, log_scales, quats, sh_coeffs, raw_opacities,
+                          cam, img_size, sh_degree, model, mip_splatting)[0]
+
+
+def project_splats_flags(means, log_scales, quats, sh_coeffs, raw_opacities,
+                         cam: CameraInputs, img_size, *, sh_degree: int,
+                         model: CameraModel = Pinhole(),
+                         mip_splatting: bool = False):
+    """`project_splats` and what its gates decided, as the CUDA forward
+    writes it: (ProjectedSplats, flags [N] uint8 from `gate_flags`)."""
+    proj, chan_finite = _project_plain(
+        means, log_scales, quats, sh_coeffs, raw_opacities, cam, img_size,
+        sh_degree, model, mip_splatting)
+    return proj, gate_flags(proj.visible, chan_finite)
+
+
+def gate_flags(visible: torch.Tensor, chan_finite: torch.Tensor):
+    """[N] uint8: bit 0 the splat is visible, bit 1 + c its colour
+    channel c's SH sum on the raw coefficients was finite."""
+    bits = torch.cat([visible[:, None], chan_finite], dim=1).to(torch.uint8)
+    return (bits[:, 0] | (bits[:, 1] << 1) | (bits[:, 2] << 2)
+            | (bits[:, 3] << 3))
+
+
+def _project_plain(means, log_scales, quats, sh_coeffs, raw_opacities,
+                   cam: CameraInputs, img_size, sh_degree, model,
+                   mip_splatting):
     count(f"project.lens.{lens_kind(model)}")
     # Pass 1: gates only, on detached inputs.
     _, ok, chan_finite = _project_math(
@@ -299,4 +334,4 @@ def project_splats(
                                    torch.zeros_like(proj.num_tiles_bbox)),
         max_radius=torch.where(visible, proj.max_radius,
                                torch.zeros_like(proj.max_radius)),
-    )
+    ), chan_finite

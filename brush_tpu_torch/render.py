@@ -8,7 +8,9 @@ Three configurations run:
     configuration the viewer, eval and the benchmark render with. The whole
     frame runs without autograd and the image carries no gradients.
   * training: `RenderConfig(use_pallas=True, forward_only=False)`.
-    Projection runs under autograd, binning on detached values, and the
+    Projection is differentiable (on the card through a pinhole, the
+    `torch.autograd.Function` of ops/project_cuda.py; elsewhere under
+    autograd), binning runs on detached values, and the
     rasterizer is the `torch.autograd.Function` of ops/rasterize_cuda.py,
     whose backward hands the per-splat gradients back to projection.
     `render_with_refine` threads the two holders whose gradients carry the
@@ -36,7 +38,8 @@ import torch
 from brush_tpu_torch.camera import Camera, CameraModel, Pinhole, is_fisheye
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.ops import rasterize_torch
-from brush_tpu_torch.ops.projection import CameraInputs, project_splats
+from brush_tpu_torch.ops.project_cuda import project
+from brush_tpu_torch.ops.projection import CameraInputs
 from brush_tpu_torch.ops.rasterize_cuda import (
     rasterize_forward,
     rasterize_train,
@@ -167,7 +170,7 @@ def _render_impl(means, log_scales, quats, sh_coeffs, raw_opacities, cam, bg,
     bg = bg.to(torch.float32)
     with torch.set_grad_enabled(torch.is_grad_enabled() and not fwd_only):
         with stage("project", device=True):
-            proj = project_splats(
+            proj = project(
                 means, log_scales, quats, sh_coeffs, raw_opacities, cam,
                 cfg.img_size, sh_degree=cfg.sh_degree, model=cfg.model,
                 mip_splatting=cfg.mip_splatting)

@@ -357,7 +357,8 @@ OWN_LAUNCHES = {"scan": (1, 1), "scan_f32": (1, 1), "scan_max": (1, 1),
                 "stack": (1, 0), "emit": (1, 0), "expand": (1, 0),
                 "fill": (1, 1), "rasterize_fwd": (1, 1),
                 "rasterize_fwd_train": (1, 1),
-                "rasterize_bwd": (2, 1), "tile_counts": (1, 0)}
+                "rasterize_bwd": (2, 1), "tile_counts": (1, 0),
+                "project_fwd": (1, 0), "project_bwd": (1, 0)}
 
 KERNEL_META = {
     "scan": ("brush_tpu_torch/csrc/scan.cu",
@@ -393,6 +394,12 @@ KERNEL_META = {
     "tile_counts": ("brush_tpu_torch/csrc/tile_counts.cu",
                     "none: brush_tpu/ops/tiling.py:153 exact_tile_counts "
                     "(jnp, fused by XLA)", "none"),
+    "project_fwd": ("brush_tpu_torch/csrc/project.cu",
+                    "none: brush_tpu/ops/projection.py project_splats (jnp, "
+                    "fused by XLA)", "none"),
+    "project_bwd": ("brush_tpu_torch/csrc/project_bwd.cu",
+                    "none: XLA's gradient of brush_tpu/ops/projection.py "
+                    "project_splats", "none"),
 }
 
 
@@ -2764,6 +2771,28 @@ def kernel_work(launch, got, pairs):
         bbox = inputs[5]
         n, live = bbox.numel(), int((bbox > 0).sum())
         return live * 40 + (n - live) * 4 + n * 12, 0, [n, live]
+    if name == "project_fwd":
+        # Every row: its means, the SH floats its degree uses and its
+        # opacity (the colour channels' finiteness is an output even of a
+        # culled row), and the 70 bytes it writes; a row that passes the
+        # opacity gate also reads its log-scales and quaternion.
+        means, _, _, sh, raw, _, _, degree, _ = inputs
+        n = raw.numel()
+        sig = torch.sigmoid(raw)
+        opaque = int((sig >= 1.0 / 255.0).sum())
+        sh_bytes = 12 * (degree + 1) ** 2
+        return (n * (12 + sh_bytes + 4 + 70) + opaque * 28, 0,
+                [n, opaque, int(got[0].visible.sum())])
+    if name == "project_bwd":
+        # A visible row reads its row (means, log-scales, quaternion, the
+        # degree's SH, opacity) and the 36 bytes of cotangents; every row
+        # reads its flags and writes its gradients (the SH's whole K).
+        rows, flags, degree = inputs[:5], inputs[7], inputs[12]
+        n = flags.numel()
+        live = int((flags & 1).sum())
+        k = rows[3].shape[1]
+        return (live * (48 + 12 * (degree + 1) ** 2 + 36)
+                + n * (1 + 44 + 12 * k), 0, [n, live])
     if name == "emit":
         _, n, k0, rem_cap, _ = inputs
         s_cap = got[0].numel()
@@ -3613,7 +3642,9 @@ KERNEL_SYMBOLS = (
     ("rasterize_bwd", "rasterize_bwd_kernel", ""),
     ("expand", "expand_segments_kernel", ""),
     ("fill", "fill_rows_kernel", ""),
-    ("tile_counts", "tile_hits_kernel", ""))
+    ("tile_counts", "tile_hits_kernel", ""),
+    ("project_fwd", "project_fwd_kernel", ""),
+    ("project_bwd", "project_bwd_kernel", ""))
 
 
 def sync_free(torch, what: str, fn):
@@ -3810,8 +3841,9 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     }, calls=3, repeats=3)
     log("[graph] serve frame replay, host us a call: "
         + json.dumps({k: round(v, 1) for k, v in frame_host_us.items()}))
+    # Three replays: a trace now and then drops an op.
     frame_prof = replay_profile(torch, "serve frame",
-                                lambda: frame(*params, cams[0], bg))
+                                lambda: frame(*params, cams[0], bg), runs=3)
     for name in kernels.SERVE_PATH:
         check(frame_prof["kernels"].get(name, 0) > 0,
               f"the replayed frame launched no {name}")
@@ -4139,8 +4171,53 @@ def train_order_ms(torch, launch) -> dict:
     return res
 
 
+def phase_project(torch) -> dict:
+    """The projection's kernels at the shapes of the benchmark's cells, for
+    the kernel phase: a training render's projection and backward over the
+    train cells' rows (1M live splats of the bench scene in a capacity of
+    2^21, SH degree 3, 1920x1080, random cotangents), and the viewer's
+    forward at 1M splats (1920x1080) and at 2M (3200x1800). Returns, by
+    path, the launch counters and the captured launches."""
+    from brush_tpu_torch import kernels
+    from brush_tpu_torch.ops.project_cuda import project
+    from brush_tpu_torch.render import camera_inputs
+    from brush_tpu_torch.utils.synthetic import bench_splats
+
+    _, cam = next(iter(views(1, YAW)))
+    out = {}
+    for path, count, capacity, img, train in (
+            ("project_train", N_SPLATS, 1 << 21, IMG_SIZE, True),
+            ("project_view_1m", N_SPLATS, None, IMG_SIZE, False),
+            ("project_view_2m", 2 * N_SPLATS, None, (3200, 1800), False)):
+        s = bench_splats(count, sh_degree=SH_DEGREE, seed=SEED,
+                         capacity=capacity)
+        rows = [t.detach().requires_grad_(train) for t in (
+            s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)]
+        ci = camera_inputs(cam, img)
+        n = rows[0].shape[0]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        cots = [torch.randn((n,) + shape, generator=gen, device="cuda")
+                for shape in ((2,), (3,), (3,), ())]
+        kernels.reset_launches()
+        with torch.set_grad_enabled(train), kernels.capture() as caps:
+            proj = project(*rows, ci, img, sh_degree=SH_DEGREE)
+            if train:
+                total = sum((getattr(proj, o) * c).sum() for o, c in zip(
+                    ("mean2d", "conic", "color", "opac"), cots))
+                torch.autograd.grad(total, rows)
+        torch.cuda.synchronize()
+        want = ("project_fwd", "project_bwd") if train else ("project_fwd",)
+        check(sorted(c.name for c in caps) == sorted(want),
+              f"{path}: launched {[c.name for c in caps]}")
+        out[path] = dict(launches=dict(kernels.LAUNCHES), captured=list(caps))
+        log(f"[project] {path}: {n} rows, {int(proj.visible.sum())} visible "
+            f"at {img[0]}x{img[1]}, launches {want}")
+        del proj, rows, s
+    return out
+
+
 def phase_kernels(torch, serve, train, direct, stress, grow, loop,
-                  init_lod, proc, viewer, lpips, dp, space, graph):
+                  init_lod, proc, viewer, lpips, dp, space, graph, project):
     """Replay every launch of the first served frame, of the first training
     step, of the direct calls, of the stress run, of two growth steps (the
     overflowing first, and the first at the grown capacities), of two loop
@@ -4186,7 +4263,8 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
     # The plain rasterizers, emission and tile counts are slow at full
     # width, the plain expansion and fill at 30M slots: time them over
     # fewer calls.
-    plain_iters = {"emit": 2, "tile_counts": 2, "rasterize_fwd": 1,
+    plain_iters = {"emit": 2, "tile_counts": 2, "project_fwd": 2,
+                   "project_bwd": 2, "rasterize_fwd": 1,
                    "rasterize_fwd_train": 1, "rasterize_bwd": 1, "expand": 2,
                    "fill": 2}
 
@@ -4259,6 +4337,9 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
 
     # path -> (its counters, its captured launches by kernel, runs counted)
     paths = {
+        # The projection's kernels at the benchmark cells' shapes first.
+        **{p: (r["launches"], by_name(r["captured"]), 1)
+           for p, r in project.items()},
         "serve": (serve["launches"], by_name(serve["captured"]),
                   serve["frames"]),
         "train": (train["launches"], by_name(train["captured"]),
@@ -4567,9 +4648,10 @@ def _run_phases(torch, work: str) -> int:
             "--multi-card` on a machine of several) was not run")
     graph = phase_graph(torch, serve, train, loop, proc, init_lod, space,
                         dp)
+    project = phase_project(torch)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
                                 loop, init_lod, proc, viewer, lpips, dp,
-                                space, graph)
+                                space, graph, project)
     profiled = phase_profile(torch, "serving frame", serve["frame"],
                              serve["stages"], N_VIEWS)
     profiled_train = phase_profile(torch, "training step", train["step"],

@@ -2138,7 +2138,8 @@ def test_recorder_counts_graphs_and_times_turns_on_the_card(tmp_path,
     assert snap["counters"] == {"graphs.capture.render": 2,
                                 "graphs.replay.render": 2,
                                 "graphs.evict.render": 1,
-                                "project.lens.pinhole": 4}
+                                "project.lens.pinhole": 4,
+                                "project.route.cuda": 4}
     assert snap["stages"]["graphs.replay"]["device_count"] == 2
 
 
@@ -2190,3 +2191,209 @@ def test_fisheye_dataset_trains_on_one_step_graph(tmp_path, monkeypatch,
     eager, c = losses()
     assert "graphs.capture.step" not in c and c["run.lens.kb4"] == steps
     assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(graphed, eager))
+
+
+# --------------------------------------------------------------------------
+# The projection's kernels (csrc/project.cu, csrc/project_bwd.cu)
+# --------------------------------------------------------------------------
+
+
+def _proj_rows(params, cam, img, dev, degree=3):
+    """The five row arrays on `dev` (SH padded to 25 coefficients for
+    degree 4) and the view's CameraInputs."""
+    params = list(params)
+    if degree == 4:
+        params[3] = np.pad(params[3], ((0, 0), (0, 9), (0, 0)))
+    return ([torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+             for p in params], camera_inputs(cam, img, device=dev))
+
+
+def _hold_projection(rows, ci, img, degree, mip, seed):
+    """The forward kernel against `project_splats_flags` (compare_forward:
+    bit for bit but the colour), the backward kernel against
+    `project_backward_plain` (compare_backward) and against autograd of
+    `project_splats` on the card (within 1e-5 of each array's largest
+    entry), for random cotangents. Returns the visible mask."""
+    from brush_tpu_torch.ops import project_cuda, projection
+    with kernels.capture() as launches:
+        got = project_cuda.project_forward(*rows, ci, img, sh_degree=degree,
+                                           mip_splatting=mip)
+    assert [x.name for x in launches] == ["project_fwd"]
+    launches[0].check()
+    proj, flags = got
+    n = rows[0].shape[0]
+    gen = torch.Generator(device=rows[0].device).manual_seed(seed)
+    cots = [torch.randn((n,) + s, generator=gen, device=rows[0].device)
+            for s in ((2,), (3,), (3,), ())]
+    with kernels.capture() as launches:
+        grads = project_cuda.project_backward(
+            *rows, ci, img, flags, *cots, sh_degree=degree,
+            mip_splatting=mip)
+    assert [x.name for x in launches] == ["project_bwd"]
+    launches[0].check()
+    tp = [r.clone().requires_grad_(True) for r in rows]
+    plain = projection.project_splats(*tp, ci, img, sh_degree=degree,
+                                      mip_splatting=mip)
+    total = sum((getattr(plain, o) * c).sum()
+                for o, c in zip(("mean2d", "conic", "color", "opac"), cots))
+    want = torch.autograd.grad(total, tp)
+    for g, w, name in zip(grads, want, project_cuda._GRAD_FIELDS):
+        d = float((g - w).abs().max())
+        assert d <= max(1e-5 * float(w.abs().max()), 1e-8), (name, d)
+    return proj.visible
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mip", [False, True], ids=["nomip", "mip"])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["gsplat", "bench_half_dead", "edges"])
+def test_project_kernels_match_plain_and_autograd(case, degree, mip, cuda):
+    """Both projection kernels on the cases of tests/projection_rows.py
+    (the gsplat fixtures; the bench scene with half its rows dead; splats
+    behind the near plane, past the Jacobian's clamp and at the colour
+    clamp), SH degrees 0-4, mip compensation on and off."""
+    import projection_rows
+    params, cam, img = projection_rows.case(case)
+    rows, ci = _proj_rows(params, cam, img, cuda, degree)
+    vis = _hold_projection(rows, ci, img, degree, mip, seed=degree)
+    assert bool(vis.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (f, v) for f in ("means", "log_scales", "quats", "sh", "raw_opacities")
+    for v in ("nan", "inf", "-inf")])
+def test_project_kernels_match_plain_on_poisoned_rows(field, value, cuda):
+    """Rows of one input set to NaN or +-inf, whole and entry by entry:
+    the kernels' gates, unit splats, colour scrub and zero gradients
+    against the plain version and autograd."""
+    import projection_rows
+    params, cam, img = projection_rows.poisoned(field, value)
+    rows, ci = _proj_rows(params, cam, img, cuda)
+    vis = _hold_projection(rows, ci, img, 3, field == "quats", seed=7)
+    assert int(vis.sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mip", [False, True], ids=["nomip", "mip"])
+def test_project_kernels_match_plain_at_the_train_cells_rows(mip, cuda):
+    """2^21 rows of the bench scene at SH degree 3, the second half dead
+    (the train cells' capacity), from the bench camera at 1920x1080:
+    visible, depth, the tile bbox and count, mean2d, conic, opac, the
+    threshold, max_radius and the flags bit for bit, the colour within the
+    SH sum's rounding (compare_forward); the backward as above."""
+    import projection_rows
+    params = projection_rows.bench_rows(1 << 20, 1 << 21, seed=3)
+    img = (1920, 1080)
+    rows, ci = _proj_rows(params, projection_rows.bench_camera(), img, cuda)
+    vis = _hold_projection(rows, ci, img, 3, mip, seed=5)
+    assert 100_000 < int(vis.sum()) <= 1 << 20
+    assert not bool(vis[1 << 20:].any())
+
+
+@pytest.mark.cuda
+def test_project_kernels_replay_in_a_captured_graph(cuda):
+    """`project` forward and its backward (autograd's thread launches the
+    backward kernel onto the capture stream) captured once in a CUDA
+    graph, then replayed on two other scenes copied into its inputs: each
+    replay's outputs and gradients equal the eager call's bit for bit."""
+    import projection_rows
+    from brush_tpu_torch.ops import project_cuda
+    img = (640, 360)
+    cam = projection_rows.bench_camera()
+    scenes = [_proj_rows(projection_rows.bench_rows(20_000, 32_768, s),
+                         cam, img, cuda)[0] for s in range(3)]
+    ci = camera_inputs(cam, img, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cots = [torch.randn((32_768,) + s, generator=gen, device=cuda)
+            for s in ((2,), (3,), (3,), ())]
+    outs = ("mean2d", "conic", "color", "opac")
+
+    def run(rows):
+        proj = project_cuda.project(*rows, ci, img, sh_degree=3)
+        total = sum((getattr(proj, o) * c).sum() for o, c in zip(outs, cots))
+        return (proj.visible, proj.depth, proj.mean2d, proj.conic,
+                proj.color, proj.opac, proj.tile_min, proj.tile_max,
+                proj.num_tiles_bbox, *torch.autograd.grad(total, rows))
+
+    static = [r.clone().requires_grad_(True) for r in scenes[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        got = run(static)
+    for rows in scenes[1:] + scenes[:1]:
+        with torch.no_grad():
+            for s, r in zip(static, rows):
+                s.copy_(r)
+        graph.replay()
+        want = run([r.clone().requires_grad_(True) for r in rows])
+        torch.cuda.synchronize()
+        assert kernels.same_bits(got, want) == 0.0
+    del graph
+
+
+@pytest.mark.cuda
+def test_train_step_and_viewer_frame_project_through_the_kernels(tmp_path,
+                                                                 cuda):
+    """One `train_process` step on a pinhole COLMAP scene launches both
+    projection kernels and counts `project.route.cuda` only; one
+    `render_pose` frame launches the forward alone."""
+    from brush_tpu_torch import process
+    from brush_tpu_torch.data.formats import LoadConfig
+    from brush_tpu_torch.train.config import TrainConfig
+    from brush_tpu_torch.utils import tracing
+    from brush_tpu_torch.viewer.service import Slot, ViewerState
+    root = tmp_path / "scene"
+    _card_scene(root)
+    pcfg = process.ProcessConfig(
+        eval_every=0, export_every=0, log_every=1, init_count=0,
+        sh_degree=1, export_path=str(tmp_path / "out_{iter}.ply"))
+    kernels.reset_launches()
+    with tracing.record_stages() as rec:
+        list(process.train_process(
+            str(root), TrainConfig(total_train_iters=1, refine_every=1000),
+            LoadConfig(max_resolution=32), pcfg, device="cuda"))
+        c = rec.snapshot()["counters"]
+    assert kernels.LAUNCHES["project_fwd"] >= 1
+    assert kernels.LAUNCHES["project_bwd"] >= 1
+    assert c["project.route.cuda"] >= 1 and "project.route.torch" not in c
+    slot = Slot()
+    slot.set(0, bench_splats(5000, sh_degree=1, seed=2, device="cuda"))
+    state = ViewerState(slot, 1, device="cuda")
+    kernels.reset_launches()
+    with tracing.record_stages() as rec:
+        frame = state.render_pose(np.array([0.0, 0.0, -18.0]), 0.0, 0.0, 160,
+                                  96, 0)
+        c = rec.snapshot()["counters"]
+    assert frame.shape == (96, 160, 3) and frame.max() > 0
+    assert kernels.LAUNCHES["project_fwd"] >= 1
+    assert kernels.LAUNCHES["project_bwd"] == 0
+    assert c["project.route.cuda"] >= 1 and "project.route.torch" not in c
+
+
+@pytest.mark.cuda
+def test_fisheye_view_projects_through_pytorch(cuda):
+    """A KannalaBrandt4 view on the card takes `project_splats` (its
+    Jacobian is forward-mode AD): `project.route.torch`, no launch of the
+    projection's kernels, forward or backward."""
+    from brush_tpu_torch.utils import tracing
+    state, views, rcfg, _, _, _ = _graph_case(cuda, fisheye=True)
+    s = state.splats
+    params = [p.detach().requires_grad_(True) for p in (
+        s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)]
+    kernels.reset_launches()
+    with tracing.record_stages() as rec:
+        img, _ = render(*params, views[0][0], torch.zeros(3, device=cuda),
+                        rcfg)
+        img.sum().backward()
+        c = rec.snapshot()["counters"]
+    assert c["project.route.torch"] == 1 and "project.route.cuda" not in c
+    assert c["project.lens.kb4"] == 1
+    assert kernels.LAUNCHES["project_fwd"] == 0
+    assert kernels.LAUNCHES["project_bwd"] == 0
+    assert all(p.grad is not None and bool(p.grad.isfinite().all())
+               for p in params)

@@ -27,6 +27,7 @@ from brush_tpu_torch import convert
 from brush_tpu_torch.ops import camera_proj as tproj
 from brush_tpu_torch.ops import projection as tprojection
 from brush_tpu_torch.ops import sh as tsh
+from tests import projection_rows
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -211,3 +212,75 @@ def test_project_splats_gradients_match_jax_vjp(name, kw):
         assert np.abs(w).max() > 0, what
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), (
             what, float(np.abs(g - w).max()), float(np.abs(w).max()))
+
+
+# --------------------------------------------------------------------------
+# The closed-form backward (`project_backward_plain`, the specification of
+# the CUDA backward kernel) against autograd of `project_splats`.
+# --------------------------------------------------------------------------
+
+
+def _hold_backward_plain(params, cam, img, degree, mip, seed):
+    """Every input gradient of `project_backward_plain` within 1e-5 of its
+    array's largest entry under autograd's (floor 1e-8): the two sum the
+    same terms in other orders. Culled splats get exact zeros in both.
+    Returns the forward's visible mask."""
+    from brush_tpu_torch.ops import project_cuda
+    from brush_tpu_torch.render import camera_inputs
+    ci = camera_inputs(cam, img, device="cpu")
+    tp = [torch.from_numpy(p.copy()).requires_grad_(True) for p in params]
+    proj, flags = tprojection.project_splats_flags(
+        *tp, ci, img, sh_degree=degree, mip_splatting=mip)
+    n = params[0].shape[0]
+    rng = np.random.default_rng(seed)
+    cots = [torch.from_numpy(rng.normal(0, 1, (n,) + s).astype(np.float32))
+            for s in ((2,), (3,), (3,), ())]
+    total = sum((getattr(proj, o) * c).sum()
+                for o, c in zip(("mean2d", "conic", "color", "opac"), cots))
+    want = torch.autograd.grad(total, tp)
+    got = project_cuda.project_backward_plain(
+        *(p.detach() for p in tp), ci, img, flags, *cots, sh_degree=degree,
+        mip_splatting=mip)
+    vis = proj.visible.numpy()
+    assert np.array_equal(flags.numpy() & 1, vis)
+    for g, w, what in zip(got, want, project_cuda._GRAD_FIELDS):
+        g, w = g.numpy(), w.numpy()
+        assert g.shape == w.shape, what
+        assert np.isfinite(g).all() and np.isfinite(w).all(), what
+        assert not g[~vis].any() and not w[~vis].any(), what
+        tol = max(1e-5 * np.abs(w).max(), 1e-8)
+        assert np.abs(g - w).max() <= tol, (
+            what, float(np.abs(g - w).max()), float(np.abs(w).max()))
+    return vis
+
+
+@pytest.mark.parametrize("mip", [False, True], ids=["nomip", "mip"])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", projection_rows.CASES)
+def test_project_backward_plain_matches_autograd(case, degree, mip):
+    params, cam, img = projection_rows.case(case)
+    vis = _hold_backward_plain(params, cam, img, degree, mip, seed=degree)
+    assert 0 < vis.sum() < len(vis) or case == "gsplat"
+    if case == "bench_half_dead":
+        assert not vis[len(vis) // 2:].any()
+    if case == "edges":
+        means = params[0]
+        assert not vis[0:8].any()                   # behind the near plane
+        lim = tcam.Camera.jacobian_clamp_limits(cam, img)
+        ratio = means[8:40, 0] / means[8:40, 2]
+        past = (ratio < lim[0]) | (ratio > lim[1])
+        assert (vis[8:40] & past).sum() >= 8        # past the clamp, seen
+        assert vis[48:52].all()                     # colour at the clamp
+
+
+@pytest.mark.parametrize("field,value", projection_rows.POISONS)
+def test_project_backward_plain_matches_autograd_on_poisoned_rows(field,
+                                                                  value):
+    params, cam, img = projection_rows.poisoned(field, value)
+    mip = field in ("log_scales", "quats")
+    vis = _hold_backward_plain(params, cam, img, 3, mip, seed=11)
+    # A -inf log-scale is a zero scale: finite, and the blur keeps the
+    # splat; every other poison culls its rows.
+    if field != "sh" and (field, value) != ("log_scales", "-inf"):
+        assert not vis[:24].any()
+    assert vis.sum() > 100

@@ -207,7 +207,7 @@ def test_render_pose_records_the_frame_stages():
         t = threading.Thread(target=frame)
         t.start()
         deadline = time.monotonic() + 30
-        while (not rec.snapshot()["counters"]
+        while ("viewer.lock_contended" not in rec.snapshot()["counters"]
                and time.monotonic() < deadline):
             time.sleep(0.001)
         state.lock.release()
@@ -217,7 +217,8 @@ def test_render_pose_records_the_frame_stages():
     frames = _by_name(snap, "viewer.frame")
     assert [e["unit"] for e in frames] == [0, 1]
     assert snap["counters"] == {"viewer.lock_contended": 1,
-                                "project.lens.pinhole": 2}
+                                "project.lens.pinhole": 2,
+                                "project.route.torch": 2}
     for name in ("viewer.lock", "viewer.fold", "viewer.camera",
                  "viewer.copy"):
         got = _by_name(snap, name)
