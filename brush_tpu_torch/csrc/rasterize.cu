@@ -25,13 +25,13 @@
 // Design. The unit of work is one part of a tile: an 8x4 block of 32
 // pixels, one a lane of one warp. A persistent grid (as many blocks as fit
 // on the card) takes parts from an atomic counter, warp by warp, over the
-// tiles in the order `order` gives, or in tile order where none is given
-// (the wrappers give none. The training variant, medians of 3 turns, in
-// tile order against longest span first with the sort that forms the
-// order and without it: 0.43512 against 0.46835 and 0.43790 ms at the
-// train cell, 0.51622 against 0.52351 and 0.49203 at loop step 9, 0.52604
-// against 0.53040 and 0.50075 at loop step 23; the sort alone is 4 kernels
-// and 3 copies, 0.0248 ms; NVIDIA H100 80GB HBM3, 700 W). A warp stages its
+// tiles in tile order. Longest span first read no faster, with the sort
+// that forms the order or without it (the training variant, medians of 3
+// turns, tile order against longest first with and without the sort:
+// 0.43512 against 0.46835 and 0.43790 ms at the train cell, 0.51622
+// against 0.52351 and 0.49203 at loop step 9, 0.52604 against 0.53040 and
+// 0.50075 at loop step 23; the sort alone is 4 kernels and 3 copies,
+// 0.0248 ms; NVIDIA H100 80GB HBM3, 700 W). A warp stages its
 // next 32 slots itself in its own corner of shared memory (a lane loads one slot; the diet variant decodes its
 // f16 pairs there with __half2float on the raw 16 bits, bit-exact like the
 // JAX package's _f16_to_f32), so warps never wait on each other: a warp
@@ -94,7 +94,6 @@ template <bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 rasterize_fwd_kernel(const uint32_t* __restrict__ soa, int64_t stride,
                      const int32_t* __restrict__ ranges,
-                     const int32_t* __restrict__ order,
                      const float* __restrict__ bg, float* __restrict__ out,
                      int32_t* __restrict__ part_useful,
                      int32_t* __restrict__ scratch, int n_tiles,
@@ -118,7 +117,7 @@ rasterize_fwd_kernel(const uint32_t* __restrict__ soa, int64_t stride,
     if (lane == 0) item = atomicAdd(counter, 1);
     item = __shfl_sync(kFull, item, 0);
     if (item >= n_items) break;
-    const int t = order != nullptr ? order[item / kParts] : item / kParts;
+    const int t = item / kParts;
     const int q = item % kParts;
     const int p = part_pixel(q, lane);
     const int start = ranges[2 * t];
@@ -247,8 +246,8 @@ int grid_size() {
 
 template <bool kTrain>
 int launch(const void* soa, int64_t stride, const void* ranges,
-           const void* order, const void* bg, void* out, void* part_useful,
-           void* scratch, int n_tiles, int tile_bw, void* stream) {
+           const void* bg, void* out, void* part_useful, void* scratch,
+           int n_tiles, int tile_bw, void* stream) {
   if (n_tiles <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const size_t words = kTrain ? 1 + static_cast<size_t>(n_tiles) : 1;
@@ -258,8 +257,8 @@ int launch(const void* soa, int64_t stride, const void* ranges,
       std::min(grid_size<kTrain>(), (items + kWarps - 1) / kWarps);
   rasterize_fwd_kernel<kTrain><<<grid, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(soa), stride,
-      static_cast<const int32_t*>(ranges), static_cast<const int32_t*>(order),
-      static_cast<const float*>(bg), static_cast<float*>(out),
+      static_cast<const int32_t*>(ranges), static_cast<const float*>(bg),
+      static_cast<float*>(out),
       static_cast<int32_t*>(part_useful), static_cast<int32_t*>(scratch),
       n_tiles, tile_bw);
   return brush_last_error();
@@ -269,29 +268,27 @@ int launch(const void* soa, int64_t stride, const void* ranges,
 
 // soa: [>= 6, stride] 32-bit words (diet layout: rows 0,1 tile-relative f32
 // x, y; rows 2..5 f16 pairs (c00,c01) (c11,opac) (r,g) (b,0)).
-// ranges: [n_tiles, 2] int32 raw [start, end). order: [n_tiles] int32, a
-// permutation of the tiles (the order parts are handed out in), or null for
-// tile order. bg: [3] f32.
+// ranges: [n_tiles, 2] int32 raw [start, end). bg: [3] f32.
 // out: [n_tiles, 4, 1024] f32. scratch: 1 int32 (cleared here).
 BRUSH_EXPORT int brush_rasterize_fwd_diet(const void* soa, int64_t stride,
                                           const void* ranges,
-                                          const void* order, const void* bg,
-                                          void* out, void* scratch,
-                                          int n_tiles, void* stream) {
-  return launch<false>(soa, stride, ranges, order, bg, out, nullptr, scratch,
+                                          const void* bg, void* out,
+                                          void* scratch, int n_tiles,
+                                          void* stream) {
+  return launch<false>(soa, stride, ranges, bg, out, nullptr, scratch,
                        n_tiles, 1, stream);
 }
 
 // soa: [>= 9, stride] f32 (training layout: rows 0,1 absolute x, y; 2..4
-// conic; 5 opacity; 6..8 rgb). ranges, order, bg as above. tile_bw: tiles
+// conic; 5 opacity; 6..8 rgb). ranges, bg as above. tile_bw: tiles
 // per image row. out: [n_tiles, 8, 1024] f32. part_useful: [n_tiles, 32]
 // int32, every entry written. scratch: 1 + n_tiles int32 (cleared here).
 BRUSH_EXPORT int brush_rasterize_fwd_train(const void* soa, int64_t stride,
                                            const void* ranges,
-                                           const void* order, const void* bg,
-                                           void* out, void* part_useful,
-                                           void* scratch, int n_tiles,
-                                           int tile_bw, void* stream) {
-  return launch<true>(soa, stride, ranges, order, bg, out, part_useful,
-                      scratch, n_tiles, tile_bw, stream);
+                                           const void* bg, void* out,
+                                           void* part_useful, void* scratch,
+                                           int n_tiles, int tile_bw,
+                                           void* stream) {
+  return launch<true>(soa, stride, ranges, bg, out, part_useful, scratch,
+                      n_tiles, tile_bw, stream);
 }

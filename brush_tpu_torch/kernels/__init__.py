@@ -1,4 +1,8 @@
-"""Hand-written Hopper kernels: launch counters and the shared library.
+"""Hand-written Hopper kernels: their table, launch counters and the shared
+library.
+
+`KERNELS` holds each kernel's facts (source, device name, device ops a
+call); tests/test_torch_kernels.py holds every row to the tree.
 
 `LAUNCHES` holds one plain integer per kernel. A wrapper adds one to its
 entry where it launches its kernel on the card, and nowhere else, so a run
@@ -20,6 +24,21 @@ import contextlib
 import threading
 from typing import Callable, NamedTuple
 
+
+class Kernel(NamedTuple):
+    """One kernel's facts. `source`: its file under csrc/. `symbol`: (a
+    substring of its device name in a profiler trace, a second substring
+    where one template serves several kernels, else ""). `launches` and
+    `memsets`: the device ops a call of its wrapper runs, its own launches
+    and at most that many memsets (scratch cleared: look-back status words,
+    work counters, the f64 sums), and nothing else."""
+
+    source: str
+    symbol: tuple[str, str]
+    launches: int
+    memsets: int
+
+
 # `scan` is the int32 sum of the binning; `scan_f32` and `scan_max` are the
 # other two variants of the same kernel.
 # `expand` and `fill` lie on no render or training path, as in the JAX
@@ -28,10 +47,27 @@ from typing import Callable, NamedTuple
 # `tile_counts` replaces no TPU kernel: it computes the binning's exact tile
 # counts, which the JAX package leaves to XLA. Nor do `project_fwd` and
 # `project_bwd`, the pinhole projection and its backward (XLA's there too).
-KERNEL_NAMES = ("scan", "stack", "emit", "rasterize_fwd",
-                "rasterize_fwd_train", "rasterize_bwd", "scan_f32",
-                "scan_max", "expand", "fill", "tile_counts", "project_fwd",
-                "project_bwd")
+# The backward's two launches are its gradient kernel and the launch that
+# rounds its f64 sums to f32; a trace counts a call of it by its first.
+KERNELS = {
+    "scan": Kernel("scan.cu", ("scan_rows_kernel", "SumU32"), 1, 1),
+    "stack": Kernel("stack.cu", ("stack_rows_kernel", ""), 1, 0),
+    "emit": Kernel("emit.cu", ("emit_slots_kernel", ""), 1, 0),
+    "rasterize_fwd": Kernel("rasterize.cu",
+                            ("rasterize_fwd_kernel<false>", ""), 1, 1),
+    "rasterize_fwd_train": Kernel("rasterize.cu",
+                                  ("rasterize_fwd_kernel<true>", ""), 1, 1),
+    "rasterize_bwd": Kernel("rasterize_bwd.cu", ("rasterize_bwd_kernel", ""),
+                            2, 1),
+    "scan_f32": Kernel("scan.cu", ("scan_rows_kernel", "SumF32"), 1, 1),
+    "scan_max": Kernel("scan.cu", ("scan_rows_kernel", "MaxI32"), 1, 1),
+    "expand": Kernel("expand.cu", ("expand_segments_kernel", ""), 1, 0),
+    "fill": Kernel("fill.cu", ("fill_rows_kernel", ""), 1, 1),
+    "tile_counts": Kernel("tile_counts.cu", ("tile_hits_kernel", ""), 1, 0),
+    "project_fwd": Kernel("project.cu", ("project_fwd_kernel", ""), 1, 0),
+    "project_bwd": Kernel("project_bwd.cu", ("project_bwd_kernel", ""), 1, 0),
+}
+KERNEL_NAMES = tuple(KERNELS)
 # The kernels a forward-only render launches, and those one training step
 # launches (through a pinhole lens).
 SERVE_PATH = ("project_fwd", "tile_counts", "scan", "stack", "emit",

@@ -23,8 +23,8 @@ kernel. Two choices of the port:
     (`jax.checkpoint`); the port lets autograd keep them. At 1920x1080 that
     is the 15 moment maps (124 MB), their 15 blurred maps and about a dozen
     3-channel intermediates (25 MB each): one forward and backward of the
-    loss peaks 745 MiB above its inputs on an NVIDIA H100 80GB HBM3
-    (`chip_smoke.py`, train phase), freed after the backward. That is
+    loss peaks 745 MiB above its inputs on an NVIDIA H100 80GB HBM3,
+    freed after the backward. That is
     little on an 80 GB card, and it saves the second blur.
 
 The maximum and clamp gradients split evenly at ties, as XLA's do (a flat

@@ -22,8 +22,8 @@ beside it (port of `brush_tpu/ops/rasterize_pallas.py`).
 The unit of work of the forward kernels is one part of a tile, an 8x4
 block of 32 pixels (`TILE_PARTS` of them a tile), one a lane of one warp;
 of the backward, two parts stacked. A persistent grid takes them from an
-atomic counter over the tiles in tile order (a longest-first order, with
-the sort that forms it, read no faster); a warp stages its own
+atomic counter over the tiles in tile order (longest span first read no
+faster: csrc/rasterize.cu has the figures); a warp stages its own
 batches of slots in shared memory and leaves its part once its pixels are
 done, and every pixel blends front to back with the sequential
 T *= (1 - alpha). The backward replays only its parts' useful slots and
@@ -256,25 +256,17 @@ def rasterize_forward(soa, tile_ranges, bg, img_size):
     soa = soa.contiguous()
     tile_ranges = tile_ranges.contiguous()
     bg = bg.contiguous()
-    out = _launch_diet(soa, tile_ranges, bg, n_tiles, None)
-    kernels.note_launch("rasterize_fwd", _replay, compare, soa, tile_ranges,
-                        bg, img_size)
-    return out
-
-
-def _launch_diet(soa, tile_ranges, bg, n_tiles, order):
-    """Launch the diet kernel on checked, contiguous inputs, handing parts
-    out in tile order (`order` None) or in `order`'s (int32 [T])."""
     # The tiles and, in the word after them, the kernel's work counter
     # (cleared by the C call): one allocation.
     words = torch.empty(n_tiles * OUT_ROWS * TILE_PIX + 1,
                         dtype=torch.float32, device=soa.device)
     err = build.library().brush_rasterize_fwd_diet(
-        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(),
-        None if order is None else order.data_ptr(), bg.data_ptr(),
+        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(), bg.data_ptr(),
         words.data_ptr(), words[-1:].data_ptr(), n_tiles,
         build.stream_ptr(soa.device))
     build.check(err, "rasterize_forward")
+    kernels.note_launch("rasterize_fwd", _replay, compare, soa, tile_ranges,
+                        bg, img_size)
     return words[:-1].view(n_tiles, OUT_ROWS, TILE_PIX)
 
 
@@ -344,8 +336,8 @@ def rasterize_forward_train(soa, tile_ranges, bg, img_size):
                         device=soa.device)
     part_useful = words[:n_tiles * TILE_PARTS].view(n_tiles, TILE_PARTS)
     err = build.library().brush_rasterize_fwd_train(
-        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(), None,
-        bg.data_ptr(), out.data_ptr(), words.data_ptr(),
+        soa.data_ptr(), soa.shape[1], tile_ranges.data_ptr(), bg.data_ptr(),
+        out.data_ptr(), words.data_ptr(),
         words[n_tiles * TILE_PARTS:].data_ptr(), n_tiles,
         _tile_grid(img_size)[0], build.stream_ptr(soa.device))
     build.check(err, "rasterize_forward_train")

@@ -6,14 +6,13 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build   — compiles the CUDA kernels of brush_tpu_torch/csrc with nvcc
-             (one process per source, all at once) and loads them.
+             (one process per source, all at once) and loads them; logs
+             each kernel's register use.
 2. serve   — the port's serving path through its user entry points:
              `bench_splats` -> `fold_min_scale` -> `plan_caps` ->
              `render(RenderConfig(use_pallas=True, forward_only=True))`
-             over 3 views; asserts no capacity overflow and a finite,
-             non-empty image; prints the median ms per frame (CUDA events,
-             untraced frames), the host's time to enqueue a frame, and the
-             per-stage split (separate traced frames). The launch counters
+             over 3 views, then 12 frames more; asserts no capacity
+             overflow and a finite, non-empty image. The launch counters
              are zeroed just before this phase and read just after it:
              every kernel of the path must have launched.
 3. golden  — renders the gsplat golden fixture tests/data/basic_case
@@ -21,13 +20,12 @@ Phases, each of which must pass (any failure exits non-zero):
 4. train   — the training path: `init_train_state` on the same 1M scene,
              a ground truth rendered from a second scene, and
              `train_step(state, batch, TrainConfig(), RenderConfig(
-             use_pallas=True))`: one warm-up step, then timed steps with no
-             synchronize inside; asserts no overflow, finite loss,
-             parameters and moments, the step count, refine statistics
-             and that every parameter array moved; prints step ms, host
-             enqueue ms, the stage split and peak memory. Counters zeroed
-             before, read after: every kernel of the training path must
-             have launched.
+             use_pallas=True))`: 1 + 5 steps with no synchronize inside;
+             asserts no overflow, finite loss, parameters and moments, the
+             step count, refine statistics and that every parameter array
+             moved; logs the eager per-stage split of two traced steps.
+             Counters zeroed before, read after: every kernel of the
+             training path must have launched.
 5. golden-train — gradients of a render of the golden fixture through the
              CUDA path, held to tests/data/torch_train_golden.npz (the JAX
              package's oracle gradients; the card's machine has no JAX).
@@ -52,21 +50,19 @@ Phases, each of which must pass (any failure exits non-zero):
              leave the means unchanged, the host reports the overflow one
              step late with `isect_cap = _next_pow2(needed * 1.3)`, the
              first refine doubles the capacity to 2^21 (`_grow_state`),
-             and the state is finite afterwards. Prints each step's ms.
-             The launches of step 1 (overflowing) and of step 4 (the first
-             at the grown capacities) are kept for the kernel phase.
+             and the state is finite afterwards. The launches of step 1
+             (overflowing) and of step 4 (the first at the grown
+             capacities) are kept for the kernel phase.
 9. loop    — the training loop at full width: the 1M scene in a capacity of
              2^21, three views with rendered ground truth,
              `TrainConfig(refine_every=8)`, 24 turns of `process.loop_step`
              (a `train_step`, the one-step-behind overflow check, capacity
              growth, `refine_step` at steps 8, 16 and 24). Asserts each
-             refine's
-             bookkeeping, an inert dead tail, a zero refine record after a
-             refine, finite parameters, moments and losses, `step == 24`,
-             and that no step overflowed once the host had grown the
-             capacities. Prints step and refine times and peak memory. The
-             launches of step 1 and of step 9 (the first after a refine)
-             are kept for the kernel phase.
+             refine's bookkeeping, an inert dead tail, a zero refine record
+             after a refine, finite parameters, moments and losses,
+             `step == 24`, and that no step overflowed once the host had
+             grown the capacities. The launches of step 1 and of step 9
+             (the first after a refine) are kept for the kernel phase.
 10. eval   — `eval_views` over the three views before and after the loop,
              and of the ground truth's own scene (PSNR above 60 dB, SSIM
              within 1e-3 of 1); each evaluation renders through a
@@ -78,7 +74,7 @@ Phases, each of which must pass (any failure exits non-zero):
              eagerly from the same seed, the sums within 2 * BWD_RTOL of
              the largest; `decimate_to_count` to half: finite scores, the
              live count halved, the kept set the top-scoring set; a scoring
-             view's replay reading (host us, device ops). One eager
+             view's replay launching every training kernel. One eager
              scoring view's launches and the graph's capture are kept for
              the kernel phase, as are those of one view of the evaluation
              after the loop.
@@ -90,24 +86,22 @@ Phases, each of which must pass (any failure exits non-zero):
              eval every 12 on the 2 held-out views, a checkpoint at 24, the
              final export and one LOD level. Counters zeroed before, read
              after: every training kernel and the diet forward must have
-             launched. Asserts the message kinds, finite losses, no
-             overflow after the host grew the capacities, the final PLY
-             equal bit for bit to the checkpoint's folded live rows, the
-             checkpoint restoring the step-24 state and generator bit for
-             bit, the LOD level at half the splats, a compressed export a
-             third of the size or less, the eval PSNR not falling by more
-             than 0.5 dB; then resumes to step 26 and runs the CLI for 2
-             steps at 960 px. Prints the turn's median wall time beside the
-             loop phase's step, the time to first step, eval, export,
-             checkpoint and LOD times, peak memory and the ground-truth
-             upload's host time (pageable against pinned). Every turn
-             must run on `StepGraphs` and every refine on `RefineGraphs`;
-             the launches of the first capture after the first refine are
-             kept for the kernel phase. The LOD bake again from its input,
-             one loader thread: on graphs (its captures kept) and eagerly
-             with the graphed run's scores, the baked states held by
-             `hold_steps`, the scoring sums within 2 * BWD_RTOL; the LOD
-             step graph's replay reading.
+             launched. Asserts the pinned ground-truth upload equal to the
+             pageable one, the message kinds, finite losses, no overflow
+             after the host grew the capacities, the final PLY equal bit
+             for bit to the checkpoint's folded live rows, the checkpoint
+             restoring the step-24 state and generator bit for bit, the LOD
+             level at half the splats, a compressed export a third of the
+             size or less, the eval PSNR not falling by more than 0.5 dB;
+             then resumes to step 26 and runs the CLI for 2 steps at 960
+             px. Every turn must run on `StepGraphs` and every refine on
+             `RefineGraphs`; the launches of the first capture after the
+             first refine are kept for the kernel phase. The LOD bake again
+             from its input, one loader thread: on graphs (its captures
+             kept) and eagerly with the graphed run's scores, the baked
+             states held by `hold_steps`, the scoring sums within
+             2 * BWD_RTOL; the LOD step graph's replay launching every
+             training kernel.
 13. live   — on the process phase's dataset, `train_process(slot=...,
              on_message=...)` for 6 steps while `serve(slot=..., bus=...)`
              runs: /render fetched from another thread while training
@@ -119,37 +113,36 @@ Phases, each of which must pass (any failure exits non-zero):
              with {"device": "cuda"} for 2 steps of the process dataset at
              960 px: `step` and `export` messages and the export written;
              a second call cancelled from its first callback returns after
-             one message. Prints the run's wall time.
+             one message.
 15. viewer — the served scene written to a PLY and `serve(path)` on the
              card: /info, then /render at 1920x1080 for the orbit pose, a
              pose from q= and fovy=, and one with scale= and bg=: each JPEG
              1920x1080, each `render_pose` frame equal bit for bit to a
              direct `render` with the viewer's RenderConfig and its JPEG the
              /render answer; /splats of 16 + 59 x 4 x 10^6 bytes; /brush.js.
-             Prints the request's and `render_pose`'s median ms and each
-             pose's `num_isects` against the viewer's fixed `isect_cap` of
-             2^20 (slots past it are dropped, as in the JAX viewer). The
-             frames are replays of the RenderGraph the first /render
-             captures; that capture's launches are kept for the kernel
-             phase.
+             Logs each pose's `num_isects` against the viewer's fixed
+             `isect_cap` of 2^20 (slots past it are dropped, as in the JAX
+             viewer). The frames are replays of the RenderGraph the first
+             /render captures; that capture's launches are kept for the
+             kernel phase.
 16. lpips  — `random_lpips(0)` of two 256x256 images on the card within
              `LPIPS_RTOL` of the CPU, where TF32 convolutions must miss that
              bar; the weights written to an .npz and read with
              `load_lpips(ProcessConfig.lpips_weights)`; 1 + 3 `train_step`s
              of the train cell with `lpips_loss_weight=0.5`: finite losses
              and parameters, step 1's loss above the train phase's (same
-             state, view and generator), step ms, peak MiB and a traced
-             step's stages. The first step's launches are kept.
+             state, view and generator). The first step's launches are
+             kept.
 17. space  — the strip-sharded render at the serve cell: view 0 in
              `SPACE_STRIPS` strips from `strip_camera_inputs`, each with its
              own `plan_caps`, assembled and held to the full frame (coverage
              within `TIE_ALPHA_TOL`, the colour mean within
              `TIE_RGB_MEAN_TOL`: tied depth keys may blend in another order
-             in a strip); strip ms against the frame's, each strip's
-             `num_isects` against its cap; strip 1's launches kept. Each
-             strip again on a RenderGraph: equal to its eager render bit
-             for bit, timed, a replay under sync debug mode; strip 1's
-             capture kept; the replay reading.
+             in a strip); each strip's `num_isects` against its cap; strip
+             1's launches kept. Each strip again on a RenderGraph: equal to
+             its eager render bit for bit, a replay under sync debug mode,
+             a replay launching every serving kernel; strip 1's capture
+             kept.
 18. dp     — view-sharded training at the train cell (B = 2 views):
              (a) over a one-process NCCL group: the eager DP step
              (`train_step_impl` with the group's share), 3 steps held to
@@ -158,83 +151,71 @@ Phases, each of which must pass (any failure exits non-zero):
              kept); `make_dp_train_step`, which runs on a StepGraph over
              NCCL (the all_reduces captured; its capture kept): 3 steps
              held to the batched step by the same rule and to the eager DP
-             step by `hold_steps` (bit for bit reported), 5 timed replays,
-             a replay under sync debug mode and its reading; the graphed
-             batched step, 3 steps, against it; the strips' `run` over the
-             group (one strip, the frame's all_reduce captured) equal to
-             the eager `run` bit for bit, timed; (b) 2 child processes of this script on the
-             card over gloo (`--child ranks`): bit-identical replicas after
-             every step, each held to (a)'s reference, a refine and one more
-             step, the steps eager (gloo cannot be captured, and each says
-             so), then the strips' `run` of the space phase's strips on a
-             graph (the render captured, the gloo all_reduce eager), equal
-             to the strips rendered here bit for bit; (c) a 2-process
+             step by `hold_steps` (bit for bit reported), a replay under
+             sync debug mode, a replay launching every training kernel;
+             the graphed batched step, 3 steps, against it; the strips'
+             `run` over the group (one strip, the frame's all_reduce
+             captured) equal to the eager `run` bit for bit; (b) 2 child
+             processes of this script on the card over gloo (`--child
+             ranks`): bit-identical replicas after every step, each held to
+             (a)'s reference, a refine and one more step, the steps eager
+             (gloo cannot be captured, and each says so), then the strips'
+             `run` of the space phase's strips on a graph (the render
+             captured, the gloo all_reduce eager), equal to the strips
+             rendered here bit for bit; (c) a 2-process
              `torch.distributed.run` launch of `cli.main` on the process
              phase's dataset (`--child cli`, 6 steps, refine at 3): one
              export, finite losses, no overflow after growth, equal final
-             states, the steps eager (gloo). Prints step ms, each process's
-             peak MiB, wall times. With more than one card the multi-card
-             case runs after it (below); with one, a line says it did not.
+             states, the steps eager (gloo). With more than one card the
+             multi-card case runs after it (below); with one, a line says
+             it did not.
 19. graph  — the JAX package's compiled, donated programs as CUDA graphs
              (brush_tpu_torch/graphs.py). An eager serve frame, training
              step and first loop turn under sync debug mode "error" (no
              copy from the host, no read back); the serve cell's frame as
              a RenderGraph, equal bit for bit to the eager frame for each
-             view, 12 timed replays (CUDA events, host ms a replay) and a
-             profiled replay (device ops, busy ms, each kernel's launches
-             by device name); the train cell's 1 + 5 steps on StepGraphs
-             against 1 + 5 eager steps from the same state (losses and
-             every state tensor within the backward's BWD_RTOL rule, the
-             generator equal), timed, and a profiled replay; the loop cell
-             (24 `loop_step` turns on StepGraphs in a capacity of 2^21,
-             refines at 8, 16, 24: finite after each, no overflow after
-             growth, eval PSNR within 0.05 dB of the eager loop's); the
-             process phase's turns on StepGraphs; the loop cell's refine
-             (the state one step before its last refine) on a RefineGraph,
-             each replay equal to eager `refine_step` bit for bit
-             (statistics and generator too), one under sync debug mode,
-             timed against eager, with its reading; a table of every
-             graph's host us of `replay()` beside its device ops a replay.
-             Replays under sync debug mode too. The frame's and the step's
-             capture launches are kept for the kernel phase.
-20. kernels — each kernel against its plain PyTorch version, on the card,
-             on the inputs the serving frame, the training step, the direct
-             calls, the stress run, two growth steps, two loop steps, an
-             evaluation view, a LOD scoring view, a process step, a viewer
-             frame, an LPIPS step, a DP step, a strip, the graph frame's
-             and step's captures and this slice's graphs' captures (the DP
-             step over NCCL, a scoring view, the LOD bake, a strip) gave
-             it (scan, stack, emit, expand
-             and fill bit-exact; the forward rasterizers within a few ulps;
-             the backward within 1e-5 of each gradient row's largest entry;
-             the f32 scan within 1e-6 of the running sum of |x|), with its
-             time (CUDA events over back-to-back calls, `ms`, which a small
-             kernel's host call rate can set), its device time (the device
-             ops of the same calls under torch.profiler, `device_ms`: a
-             call must run its own kernels (one, the backward two) and at
-             most its memsets (none for the stack, emit and expand, one
-             for the others); a
-             trace that dropped them is taken again, and a reading of zero
-             fails the phase), the plain
-             version's time, a library call's where one computes the same
-             function, and its bound on the card; the int32 scan's and the
-             diet forward's wrapper host time a call, piece by piece
-             (`wrapper_us`); the diet kernel's device time in tile order
-             and longest tile first; and, for each backward launch, the
-             per-slot reduce the backward used to need after it (an
-             [11, S] zero-fill and `index_add_` of the plain per-slot
-             gradients), timed at the same shapes beside the fused kernel;
-             the training forward in tile order against longest tile
-             first at the train cell and loop steps 9 and 23.
-21. profile — frames, training steps, loop steps and refines (of the
-             state one step before the loop's last refine, so the refine
-             selects and splits) under torch.profiler: the device's busy
-             time, its idle share and the top device ops.
+             view, and a profiled replay (each kernel's launches by device
+             name); the train cell's 1 + 5 steps on StepGraphs against
+             1 + 5 eager steps from the same state (losses and every state
+             tensor within the backward's BWD_RTOL rule, the generator
+             equal), and a profiled replay; the loop cell (24 `loop_step`
+             turns on StepGraphs in a capacity of 2^21, refines at 8, 16,
+             24: finite after each, no overflow after growth, eval PSNR
+             within 0.05 dB of the eager loop's); the process phase's
+             turns on StepGraphs; the loop cell's refine (the state one
+             step before its last refine) on a RefineGraph, each replay
+             equal to eager `refine_step` bit for bit (statistics and
+             generator too), one under sync debug mode. Replays under sync
+             debug mode too. The frame's and the step's capture launches
+             are kept for the kernel phase.
+20. project — the projection's two kernels at the benchmark cells' shapes:
+             a training render's rows (1M live in a capacity of 2^21) with
+             its backward, the 1M and the 2M (3200x1800) frames.
+21. kernels — each kernel against its plain PyTorch version, on the card,
+             on the inputs the projection phase, the serving frame, the
+             training step, the direct calls, the stress run, two growth
+             steps, two loop steps, an evaluation view, a LOD scoring view,
+             a process step, a viewer frame, an LPIPS step, a DP step, a
+             strip, and the graphs' captures (frame, step, the DP step over
+             NCCL, a scoring view, the LOD bake, a strip) gave it (scan,
+             stack, emit, expand, fill and the projection's forward
+             bit-exact; the forward rasterizers within a few ulps; the
+             backwards within 1e-5 of each gradient row's largest entry;
+             the f32 scan within 1e-6 of the running sum of |x|); per path,
+             its time (CUDA events over back-to-back calls, `ms`, which a
+             small kernel's host call rate can set), its device time (the
+             device ops of the same calls under torch.profiler,
+             `device_ms`: a call must run its own kernels and at most its
+             memsets, `kernels.KERNELS`; a trace that dropped them is taken
+             again, and a reading of zero fails the phase), a library
+             call's times where one computes the same function, and its
+             bound on the card (`bound_ms`, `bound_by`).
 
-The last lines are the `kernels` JSON, the card's name and power limit
-from nvidia-smi, and the result JSON. No GPU, or no brush_tpu_torch next to
-this script: exit 2 with no result. `--child ranks|cli|cli-eager ...` runs
-one of the script's own child processes.
+The last lines are the JSON of what each phase's checks decided on, the
+`kernels` JSON, the card's name and power limit from nvidia-smi, and the
+result JSON. No GPU, or no brush_tpu_torch next to this script: exit 2 with
+no result. `--child ranks|cli|cli-eager ...` runs one of the script's own
+child processes.
 
     python3 chip_smoke.py --multi-card   # on a machine of 2 or more cards
 
@@ -242,7 +223,7 @@ runs the multi-card case alone: the process cell's dataset, then the CLI
 under `torchrun --nproc-per-node N` (one card a process, NCCL, N views a
 step) on graphs and eagerly, 12 steps, refine every 3, one loader thread:
 each run's replicas equal, the graphed losses within 1e-3 of the eager
-ones, turn ms by rank.
+ones.
 """
 
 from __future__ import annotations
@@ -251,7 +232,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -269,10 +249,9 @@ SH_DEGREE = 3
 SEED = 42
 N_VIEWS = 3
 YAW = 0.3
-FRAMES = 12          # timed frames after the warm-up
-TRAIN_STEPS = 5      # timed training steps after the warm-up step
+FRAMES = 12          # frames after the warm-up
+TRAIN_STEPS = 5      # training steps after the first
 ITERS = 20           # launches per kernel timing
-ORDER_ROUNDS = 3     # turns of the training rasterizers' tile-order timing
 STRESS_SLOTS = 30_000_000   # slots of the stress run (over N_SPLATS owners)
 LOOP_CAPACITY = 1 << 21     # splat capacity of the loop phase
 LOOP_STEPS = 24
@@ -295,7 +274,7 @@ GROW_CAPTURED_STEPS = (1, GROW_REFINE_EVERY + 1)
 PROCESS_VIEWS = 8
 PROCESS_STEPS = 24
 # The live view: `train_process` steps over the process dataset while the
-# viewer serves; the C ABI's run; the LPIPS term's timed steps after its
+# viewer serves; the C ABI's run; the LPIPS term's steps after its
 # captured first.
 LIVE_STEPS = 6
 FFI_STEPS = 2
@@ -305,7 +284,6 @@ LPIPS_STEPS = 3
 DP_VIEWS = 2
 DP_STEPS = 3
 DP_CAPTURED_STEP = 2
-DP_TIMED = 5        # replays of the graphed DP step timed after the check
 MULTI_STEPS = 12    # steps of the multi-card CLI run (more than one card)
 DP_RANKS = 2
 DP_CLI_STEPS = 6
@@ -348,61 +326,6 @@ RASTER_OPS_PER_PAIR = 27
 BWD_REPLAY_OPS_PER_PAIR = 21
 BWD_BLEND_OPS_PER_PAIR = 54
 
-# Device ops a call of each kernel's wrapper may run: (its own launches, the
-# most memsets). The backward's two launches are its gradient kernel and
-# the launch that rounds its f64 sums to f32; the memsets clear a kernel's
-# scratch (look-back status words, work counters, the f64 sums). Every
-# entry of `KERNEL_NAMES` needs a row.
-OWN_LAUNCHES = {"scan": (1, 1), "scan_f32": (1, 1), "scan_max": (1, 1),
-                "stack": (1, 0), "emit": (1, 0), "expand": (1, 0),
-                "fill": (1, 1), "rasterize_fwd": (1, 1),
-                "rasterize_fwd_train": (1, 1),
-                "rasterize_bwd": (2, 1), "tile_counts": (1, 0),
-                "project_fwd": (1, 0), "project_bwd": (1, 0)}
-
-KERNEL_META = {
-    "scan": ("brush_tpu_torch/csrc/scan.cu",
-             "brush_tpu/ops/scan_pallas.py:43", "ops/scan_pallas.py:_scan_kernel"),
-    "stack": ("brush_tpu_torch/csrc/stack.cu",
-              "brush_tpu/ops/scan_pallas.py:167",
-              "ops/scan_pallas.py:_stack_kernel"),
-    "emit": ("brush_tpu_torch/csrc/emit.cu",
-             "brush_tpu/ops/emit_pallas.py:133", "ops/emit_pallas.py:_emit_kernel"),
-    "rasterize_fwd": ("brush_tpu_torch/csrc/rasterize.cu",
-                      "brush_tpu/ops/rasterize_pallas.py:152",
-                      "ops/rasterize_pallas.py:_fwd_kernel(fwd_only=True)"),
-    "rasterize_fwd_train": ("brush_tpu_torch/csrc/rasterize.cu",
-                            "brush_tpu/ops/rasterize_pallas.py:152",
-                            "ops/rasterize_pallas.py:_fwd_kernel"
-                            "(fwd_only=False)"),
-    "rasterize_bwd": ("brush_tpu_torch/csrc/rasterize_bwd.cu",
-                      "brush_tpu/ops/rasterize_pallas.py:431",
-                      "ops/rasterize_pallas.py:_bwd_kernel with "
-                      "_reduce_grads_sorted (:814)"),
-    "scan_f32": ("brush_tpu_torch/csrc/scan.cu",
-                 "brush_tpu/ops/scan_pallas.py:43",
-                 "ops/scan_pallas.py:_scan_kernel (f32 sum)"),
-    "scan_max": ("brush_tpu_torch/csrc/scan.cu",
-                 "brush_tpu/ops/scan_pallas.py:43",
-                 "ops/scan_pallas.py:_scan_kernel (int32 max)"),
-    "expand": ("brush_tpu_torch/csrc/expand.cu",
-               "brush_tpu/ops/expand_pallas.py:49",
-               "ops/expand_pallas.py:_expand_kernel"),
-    "fill": ("brush_tpu_torch/csrc/fill.cu",
-             "brush_tpu/ops/scan_pallas.py:111",
-             "ops/scan_pallas.py:_fill_kernel"),
-    "tile_counts": ("brush_tpu_torch/csrc/tile_counts.cu",
-                    "none: brush_tpu/ops/tiling.py:153 exact_tile_counts "
-                    "(jnp, fused by XLA)", "none"),
-    "project_fwd": ("brush_tpu_torch/csrc/project.cu",
-                    "none: brush_tpu/ops/projection.py project_splats (jnp, "
-                    "fused by XLA)", "none"),
-    "project_bwd": ("brush_tpu_torch/csrc/project_bwd.cu",
-                    "none: XLA's gradient of brush_tpu/ops/projection.py "
-                    "project_splats", "none"),
-}
-
-
 class PhaseError(RuntimeError):
     pass
 
@@ -416,12 +339,10 @@ def check(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
-def time_ms(torch, fn, iters: int, warm: bool = True) -> float:
+def time_ms(torch, fn, iters: int) -> float:
     """Mean device time of `fn` over `iters` back-to-back calls (CUDA
-    events, after one warm-up call unless `warm` is False: the caller has
-    just run it)."""
-    if warm:
-        fn()
+    events, after one warm-up call)."""
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -494,146 +415,6 @@ def device_time(torch, fn, iters: int, traces: int = 3, own: int = 1) -> dict:
     return median
 
 
-def scan_wrapper_us(torch, x, calls: int = 200, repeats: int = 5) -> dict:
-    """Host time, in microseconds a call, of the int32 scan's wrapper
-    (`cumsum_rows`) on `x` and of its pieces: the checks and `contiguous`,
-    the output's and the scratch's allocations, the stream handle and the
-    C call (memset and launch, on buffers made once); `rest` (the dtype
-    check, the scratch size, the library lookup, the launch count) is the
-    call less those. Beside them, two alternatives (output and scratch as
-    views of one allocation; the stream object in place of the raw handle)
-    and `torch.cumsum` with int32 output. Each is run `calls` times back to
-    back, few enough that the launch queue never fills, so the host's time
-    is read; the median of `repeats` runs."""
-    from brush_tpu_torch import kernels
-    from brush_tpu_torch.kernels import build
-    from brush_tpu_torch.ops import scan_cuda
-
-    rows, length = x.shape
-    n = rows * length
-    words = scan_cuda.scan_scratch_words(rows, length,
-                                         scan_cuda.scan_tile_items())
-    out = torch.empty_like(x)
-    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
-    lib = build.library()
-    stream = build.stream_ptr(x.device)
-
-    def one_allocation():
-        buf = torch.empty(-(-n // 4) * 4 + 2 * words, dtype=x.dtype,
-                          device=x.device)
-        return buf[:n].view(rows, length), buf.data_ptr()
-
-    pieces = {
-        "call": lambda: scan_cuda.cumsum_rows(x),
-        "checks": lambda: (kernels.require_cuda("cumsum_rows", x),
-                           x.contiguous()),
-        "empty_out": lambda: torch.empty_like(x),
-        "empty_scratch": lambda: torch.empty(words, dtype=torch.int64,
-                                             device=x.device),
-        "stream": lambda: build.stream_ptr(x.device),
-        "c_call": lambda: lib.brush_scan_rows_i32(
-            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words, rows,
-            length, stream),
-        "one_allocation": one_allocation,
-        "stream_object": lambda: torch.cuda.current_stream(
-            x.device).cuda_stream,
-        "torch_cumsum": lambda: torch.cumsum(x, dim=1, dtype=x.dtype),
-    }
-    us = host_us(torch, pieces, calls, repeats)
-    us["rest"] = us["call"] - sum(us[k] for k in (
-        "checks", "empty_out", "empty_scratch", "stream", "c_call"))
-    return us
-
-
-def tile_order(torch, tile_ranges):
-    """Longest span first: the tiles in descending slot span, ties in tile
-    order (a stable sort), int32 [T]. The rasterizer kernels take tiles in
-    tile order; this is the order they were timed against."""
-    spans = tile_ranges[:, 1] - tile_ranges[:, 0]
-    return torch.sort(spans, descending=True, stable=True).indices.to(
-        torch.int32)
-
-
-def diet_wrapper_us(torch, inputs, calls: int = 200,
-                    repeats: int = 5) -> dict:
-    """Host time, in microseconds a call, of the diet forward's wrapper
-    (`rasterize_forward`) on a launch's inputs and of its pieces: the
-    checks and `contiguous`, the one allocation (tiles and work counter),
-    the stream handle and the C call (memset and launch); `rest` is the
-    call less those. Beside them, `tile_order` (the sort and int32 cast a
-    longest-first order would add). Timed as `scan_wrapper_us` does."""
-    from brush_tpu_torch import kernels
-    from brush_tpu_torch.kernels import build
-    from brush_tpu_torch.ops import rasterize_cuda as rc
-
-    soa, ranges, bg, img_size = inputs
-    n_tiles = ranges.shape[0]
-    words = torch.empty(n_tiles * rc.OUT_ROWS * rc.TILE_PIX + 1,
-                        dtype=torch.float32, device=soa.device)
-    lib = build.library()
-    stream = build.stream_ptr(soa.device)
-    pieces = {
-        "call": lambda: rc.rasterize_forward(*inputs),
-        "checks": lambda: (
-            rc._check("rasterize_forward", soa, torch.int32, rc.DIET_WORDS,
-                      ranges, bg, img_size),
-            kernels.require_cuda("rasterize_forward", soa, ranges, bg),
-            soa.contiguous(), ranges.contiguous(), bg.contiguous()),
-        "empty": lambda: torch.empty(n_tiles * rc.OUT_ROWS * rc.TILE_PIX + 1,
-                                     dtype=torch.float32, device=soa.device),
-        "stream": lambda: build.stream_ptr(soa.device),
-        "c_call": lambda: lib.brush_rasterize_fwd_diet(
-            soa.data_ptr(), soa.shape[1], ranges.data_ptr(), None,
-            bg.data_ptr(), words.data_ptr(), words[-1:].data_ptr(), n_tiles,
-            stream),
-        "tile_order": lambda: tile_order(torch, ranges),
-    }
-    us = host_us(torch, pieces, calls, repeats)
-    us["rest"] = us["call"] - sum(us[k] for k in (
-        "checks", "empty", "stream", "c_call"))
-    return us
-
-
-def diet_order_ms(torch, launch) -> dict:
-    """Device ms a call of the diet kernel on a launch's inputs with its
-    parts handed out in tile order (as the wrapper does) and longest tile
-    first (`tile_order`), this with and without the sort that forms the
-    order; the longest-first tiles held to the plain version too."""
-    from brush_tpu_torch.ops import rasterize_cuda as rc
-
-    soa, ranges, bg, _ = launch.inputs
-    n_tiles = ranges.shape[0]
-    order = tile_order(torch, ranges)
-    sorted_first = rc._launch_diet(soa, ranges, bg, n_tiles, order)
-    launch.compare(sorted_first, rc.rasterize_forward_plain(*launch.inputs))
-    del sorted_first
-    ms = {
-        "tile_order": lambda: rc._launch_diet(soa, ranges, bg, n_tiles, None),
-        "longest_first": lambda: rc._launch_diet(soa, ranges, bg, n_tiles,
-                                                 order),
-        "longest_first_with_sort": lambda: rc._launch_diet(
-            soa, ranges, bg, n_tiles, tile_order(torch, ranges)),
-    }
-    return {k: device_time(torch, fn, ITERS)["ms"] for k, fn in ms.items()}
-
-
-def host_us(torch, pieces, calls: int, repeats: int) -> dict:
-    """Median over `repeats` runs of each piece's host time, microseconds a
-    call over `calls` back-to-back calls."""
-    us = {}
-    for name, fn in pieces.items():
-        runs = []
-        for _ in range(repeats):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            runs.append((time.perf_counter() - t0) / calls * 1e6)
-        us[name] = sorted(runs)[repeats // 2]
-    torch.cuda.synchronize()
-    return us
-
-
 def read_safetensors(path: str) -> dict:
     """Minimal reader of the safetensors format (f32 tensors)."""
     with open(path, "rb") as f:
@@ -657,19 +438,6 @@ def first_run(captured, n_runs: int):
     return list(captured[:len(captured) // n_runs])
 
 
-def held_mib(torch, captured) -> float:
-    """MiB of device memory the captured launches' inputs keep alive."""
-    seen, todo = {}, [launch.inputs for launch in captured]
-    while todo:
-        x = todo.pop()
-        if torch.is_tensor(x):
-            store = x.untyped_storage()
-            seen[store.data_ptr()] = store.nbytes()
-        elif isinstance(x, (tuple, list)):
-            todo.extend(x)
-    return sum(seen.values()) / 2 ** 20
-
-
 def views(n_views: int, yaw: float):
     """The bench camera (bench.py:35-37) and copies orbited about the scene
     by +-yaw, +-2*yaw, ... around the vertical axis, looking at the origin."""
@@ -690,15 +458,11 @@ def views(n_views: int, yaw: float):
 
 def phase_build():
     from brush_tpu_torch.kernels import build
-    t0 = time.perf_counter()
     build.library()
-    secs = time.perf_counter() - t0
-    log(f"[build] kernels ready in {secs:.3f} s "
-        f"(nvcc build: {build.BUILD_SECONDS}); sources {build.CSRC}")
+    log(f"[build] kernels ready; sources {build.CSRC}")
     for line in build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build]   {line.strip()}")
-    return secs
 
 
 def phase_serve(torch):
@@ -706,10 +470,8 @@ def phase_serve(torch):
     from brush_tpu_torch.ops.capacity import plan_caps
     from brush_tpu_torch.render import RenderConfig, camera_inputs, render
     from brush_tpu_torch.utils.synthetic import bench_splats
-    from brush_tpu_torch.utils.tracing import record_stages, stage_ms
 
     img = IMG_SIZE
-    t0 = time.perf_counter()
     splats = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED)
     s = splats.fold_min_scale()
     params = (s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)
@@ -725,16 +487,15 @@ def phase_serve(torch):
         plans.append((angle, ci, cfg))
         log(f"[serve] view yaw={angle:+.2f} rad: expand_k0={k0} "
             f"isect_cap={cap} slots={N_SPLATS * k0 + cap}")
-    torch.cuda.synchronize()
     log(f"[serve] scene {N_SPLATS} splats sh{SH_DEGREE} at "
-        f"{img[0]}x{img[1]}, set-up {time.perf_counter() - t0:.3f} s")
+        f"{img[0]}x{img[1]}")
 
     kernels.reset_launches()
     captured = None
     n_frames = 0
     isects = []
-    # Warm-up: one frame per view (the first also records every kernel's
-    # inputs for the kernel phase), then the timed frames.
+    # One frame per view (the first also records every kernel's inputs for
+    # the kernel phase), then FRAMES more.
     for i, (angle, ci, cfg) in enumerate(plans):
         if i == 0:
             with kernels.capture() as cap_list:
@@ -759,50 +520,17 @@ def phase_serve(torch):
             f"bbox_tail={int(aux.num_bbox_tail)} "
             f"max_per_tile={int(aux.max_isects_per_tile)} "
             f"alpha_mean={float(alpha.mean()):.4f} coverage={cover:.4f}")
-    def frame(f):
-        _, ci, cfg = plans[f % len(plans)]
-        return render(*params, ci, bg, cfg)
-
-    # Timed frames, untraced: device time from CUDA events around each
-    # frame, and the host's time to enqueue it (nothing in a frame waits
-    # for the card, so a host that enqueues slower than the card runs
-    # leaves the card idle).
-    events, host_ms = [], []
     for f in range(FRAMES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        out, _ = frame(f)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        events.append((start, end))
+        _, ci, cfg = plans[f % len(plans)]
+        out, _ = render(*params, ci, bg, cfg)
     torch.cuda.synchronize()
     n_frames += FRAMES
-    check(bool(torch.isfinite(out).all()), "non-finite pixels (timed run)")
-    ms = [a.elapsed_time(b) for a, b in events]
-    # Traced frames: one CUDA event pair per stage gives the stage split.
-    traced = 2 * len(plans)
-    with record_stages() as recs:
-        for f in range(traced):
-            frame(f)
-        torch.cuda.synchronize()
-        stages = {k: v / traced for k, v in stage_ms(recs).items()}
-    n_frames += traced
+    check(bool(torch.isfinite(out).all()), "non-finite pixels (later frame)")
     launches = dict(kernels.LAUNCHES)
-    log(f"[serve] frames={FRAMES} median_ms={statistics.median(ms):.4f} "
-        f"min_ms={min(ms):.4f} max_ms={max(ms):.4f} "
-        f"fps={1000.0 / statistics.median(ms):.3f} "
-        f"host_enqueue_median_ms={statistics.median(host_ms):.4f}")
-    log(f"[serve] per-stage ms/frame over {traced} traced frames (CUDA "
-        f"events on the stream; sum {sum(stages.values()):.4f}): "
-        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     log(f"[serve] launches over {n_frames} frames: {json.dumps(launches)}")
     for name in kernels.SERVE_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
-    return dict(median_ms=statistics.median(ms), stages=stages,
-                host_ms=statistics.median(host_ms), launches=launches,
-                frames=n_frames, captured=captured, frame=frame,
+    return dict(launches=launches, frames=n_frames, captured=captured,
                 splats=splats, plans=plans, isects=isects)
 
 
@@ -844,7 +572,6 @@ def phase_train(torch, serve):
 
     img = IMG_SIZE
     _, ci, serve_cfg = serve["plans"][0]
-    t0 = time.perf_counter()
     # Ground truth: another random scene through the forward-only render,
     # so the gradients are those of a real image and not of noise.
     other = bench_splats(N_SPLATS, sh_degree=SH_DEGREE,
@@ -864,52 +591,29 @@ def phase_train(torch, serve):
     gt_rgb, _ = loss_mod.unpack_gt(gt_packed)
     self_ssim = float(loss_mod.ssim(gt_rgb, gt_packed))
     check(abs(self_ssim - 1.0) < 1e-5, f"ssim(x, x) = {self_ssim}")
-    # What autograd keeps for the loss: peak over one forward + backward.
-    pred = torch.rand((img[1], img[0], 3), device="cuda", requires_grad=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    loss_mod.image_loss(pred, gt_packed, loss_mod.ImageLossConfig()).backward()
-    torch.cuda.synchronize()
-    loss_peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    del pred, gt_rgb
+    del gt_rgb
 
     tcfg = TrainConfig()
     rcfg = RenderConfig(img_size=img, sh_degree=SH_DEGREE,
                         isect_cap=serve_cfg.isect_cap,
                         expand_k0=serve_cfg.expand_k0, use_pallas=True)
     state0 = init_train_state(serve["splats"], SEED)
-    torch.cuda.synchronize()
     log(f"[train] scene {N_SPLATS} splats sh{SH_DEGREE} at {img[0]}x{img[1]}"
         f", expand_k0={rcfg.expand_k0} isect_cap={rcfg.isect_cap}, ground "
-        f"truth from seed {SEED + 1}, ssim(gt, gt)={self_ssim:.7f}, loss "
-        f"forward+backward peak {loss_peak_mb:.1f} MiB, median_scale="
-        f"{float(state0.median_scale):.4f}, set-up "
-        f"{time.perf_counter() - t0:.3f} s")
+        f"truth from seed {SEED + 1}, ssim(gt, gt)={self_ssim:.7f}, "
+        f"median_scale={float(state0.median_scale):.4f}")
 
     kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     with kernels.capture() as cap_list:
         state, stats, aux = train_step(state0, batch, tcfg, rcfg)
     captured = list(cap_list)
-    torch.cuda.synchronize()
     all_stats = [stats]
-    events, host_ms = [], []
     for _ in range(TRAIN_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
         state, stats, aux = train_step(state, batch, tcfg, rcfg)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        events.append((start, end))
         all_stats.append(stats)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     n_steps = 1 + TRAIN_STEPS
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    ms = [a.elapsed_time(b) for a, b in events]
 
     losses = [float(st.loss) for st in all_stats]
     check(not any(bool(st.overflowed) for st in all_stats),
@@ -928,37 +632,28 @@ def phase_train(torch, serve):
         check(moved[name] > 0, f"no entry of {name} changed")
     check(float(state.refine.visible_count.max()) > 0, "nothing visible")
     check(float(state.refine.refine_weight.max()) > 0, "no refine weight")
-    log(f"[train] steps={TRAIN_STEPS} median_ms={statistics.median(ms):.4f} "
-        f"min_ms={min(ms):.4f} max_ms={max(ms):.4f} "
-        f"host_enqueue_median_ms={statistics.median(host_ms):.4f} "
-        f"peak_memory_MiB={peak_mb:.1f}")
     log(f"[train] losses {[round(x, 6) for x in losses]} visible="
         f"{int(aux.num_visible)} remainder={int(aux.num_isects)}/"
         f"{rcfg.isect_cap} num_chunks={int(aux.num_chunks)} "
         f"splats_blended_in_some_step="
         f"{int((state.refine.visible_count > 0).sum())} entries moved "
         + json.dumps(moved))
+    log(f"[train] launches over {n_steps} steps: {json.dumps(launches)}")
+    for name in kernels.TRAIN_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched")
 
-    def step_fn(_):
-        return train_step(state, batch, tcfg, rcfg)
-
+    # The eager per-stage split (CUDA events a stage) of two traced steps.
     traced = 2
     with record_stages() as recs:
-        for i in range(traced):
-            step_fn(i)
+        for _ in range(traced):
+            train_step(state, batch, tcfg, rcfg)
         torch.cuda.synchronize()
         stages = {k: v / traced for k, v in stage_ms(recs).items()}
     log(f"[train] per-stage ms/step over {traced} traced steps (CUDA events; "
         f"`backward` contains `rasterize_bwd` and `reduce`): "
         + json.dumps({k: round(v, 4) for k, v in stages.items()}))
-    log(f"[train] launches over {n_steps} steps: {json.dumps(launches)}")
-    for name in kernels.TRAIN_PATH:
-        check(launches[name] > 0, f"kernel {name} was not launched")
-    return dict(median_ms=statistics.median(ms), stages=stages,
-                host_ms=statistics.median(host_ms), launches=launches,
-                steps=n_steps, captured=captured, step=step_fn,
-                peak_mb=peak_mb, loss_peak_mb=loss_peak_mb, losses=losses,
-                batch=batch)
+    return dict(stages=stages, launches=launches, steps=n_steps,
+                captured=captured, losses=losses, batch=batch)
 
 
 def phase_golden_train(torch):
@@ -1181,7 +876,6 @@ def phase_grow(torch, serve, train):
     img = IMG_SIZE
     serve_cfg = serve["plans"][0][2]
     cam = views(N_VIEWS, YAW)[0][1]
-    t0 = time.perf_counter()
     splats = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED,
                           capacity=GROW_CAPACITY)
     cap0 = serve["isects"][0] // 4
@@ -1194,27 +888,21 @@ def phase_grow(torch, serve, train):
                           device="cuda")
     loop = LoopState(state=init_train_state(splats, SEED), rcfg=rcfg)
     start = loop.state.splats.means.clone()
-    torch.cuda.synchronize()
     log(f"[grow] scene {N_SPLATS} splats in a capacity of {GROW_CAPACITY} "
         f"({N_SPLATS / GROW_CAPACITY:.3f} full), isect_cap={cap0} (a quarter "
         f"of the served frame's {serve['isects'][0]}), refine every "
-        f"{GROW_REFINE_EVERY}; set-up {time.perf_counter() - t0:.3f} s")
+        f"{GROW_REFINE_EVERY}")
 
     kernels.reset_launches()
-    events, stats_all, kinds, messages = [], [], [], []
+    stats_all, kinds, messages = [], [], []
     means, capacity = [], []     # each step's means and splat capacity
     captured = []
     for i in range(GROW_STEPS):
-        start_ev = torch.cuda.Event(enable_timing=True)
-        end_ev = torch.cuda.Event(enable_timing=True)
-        start_ev.record()
         with (kernels.capture() if i + 1 in GROW_CAPTURED_STEPS
               else contextlib.nullcontext([])) as cap_list:
             loop, stats, msgs = loop_step(loop, train["batch"], tcfg,
                                           centers, focals)
         captured += cap_list
-        end_ev.record()
-        events.append((start_ev, end_ev))
         stats_all.append(stats)
         kinds.append([m.kind for m in msgs])
         messages += msgs
@@ -1222,12 +910,11 @@ def phase_grow(torch, serve, train):
         capacity.append(loop.state.splats.capacity)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    ms = [a.elapsed_time(b) for a, b in events]
     flags = [bool(st.overflowed) for st in stats_all]
     losses = [float(st.loss) for st in stats_all]
     overflow = next((m for m in messages if m.kind == "overflow"), None)
     refines = [m for m in messages if m.kind == "refine"]
-    log(f"[grow] steps={GROW_STEPS} step_ms={[round(t, 4) for t in ms]} "
+    log(f"[grow] steps={GROW_STEPS} "
         f"overflowed={flags} messages={kinds} capacity={capacity} "
         f"losses={[round(x, 6) for x in losses]}")
     check(overflow is not None, "no overflow message")
@@ -1237,7 +924,7 @@ def phase_grow(torch, serve, train):
         log(f"[grow] refine at step {m.iter}: " + json.dumps(m.data))
     log(f"[grow] launches over {GROW_STEPS} steps: {json.dumps(launches)}; "
         f"{len(captured)} launches of steps {list(GROW_CAPTURED_STEPS)} kept "
-        f"for the kernel phase ({held_mib(torch, captured):.1f} MiB)")
+        f"for the kernel phase")
 
     state = loop.state
     check(flags == [True, True] + [False] * (GROW_STEPS - 2),
@@ -1277,7 +964,7 @@ def phase_grow(torch, serve, train):
         f"{state.splats.capacity} at the first refine, {n_alive} live, "
         f"state finite")
     return dict(launches=launches, captured=captured, steps=GROW_STEPS,
-                step_ms=ms, overflow=overflow.data,
+                overflow=overflow.data,
                 isect_cap=loop.rcfg.isect_cap,
                 capacity=state.splats.capacity)
 
@@ -1315,18 +1002,15 @@ def phase_eval(torch, what, splats, truths, rcfg, bar=None, keep=False):
     from brush_tpu_torch.train.eval import eval_views
     graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
-    t0 = time.perf_counter()
     with kernels.capture() as cap_list:
         stats = eval_views(splats, [(cam, gt) for cam, _, gt in truths], rcfg)
-    secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     captured = list(cap_list) if keep else []
     del cap_list
     check(not keep or captured, "the evaluation's capture recorded nothing")
     log(f"[eval] {what}: psnr={stats.psnr:.4f} dB ssim={stats.ssim:.6f} "
         f"per view psnr {[round(x, 4) for x in stats.per_view_psnr]} ssim "
-        f"{[round(x, 6) for x in stats.per_view_ssim]} "
-        f"({secs * 1e3 / len(truths):.1f} ms a view with its host reads)")
+        f"{[round(x, 6) for x in stats.per_view_ssim]}")
     check(len(stats.per_view_psnr) == len(truths), "a view is missing")
     check(not any(np.isnan(stats.per_view_psnr + stats.per_view_ssim)),
           "eval metric is NaN")
@@ -1355,10 +1039,8 @@ def phase_loop(torch, serve):
     from brush_tpu_torch.train.refine import refine_step
     from brush_tpu_torch.train.trainer import SceneBatch, init_train_state
     from brush_tpu_torch.utils.synthetic import bench_splats
-    from brush_tpu_torch.utils.tracing import record_stages, stage_ms
 
     img = IMG_SIZE
-    t0 = time.perf_counter()
     cams = views(N_VIEWS, YAW)
     teacher = bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED + 1)
     truths = _ground_truths(torch, teacher, cams)
@@ -1378,11 +1060,10 @@ def phase_loop(torch, serve):
                            dtype=torch.float32, device="cuda")
     focals = torch.tensor([cam.focal(img)[0] for cam, _, _ in truths],
                           dtype=torch.float32, device="cuda")
-    torch.cuda.synchronize()
     log(f"[loop] scene {N_SPLATS} splats in a capacity of {LOOP_CAPACITY}, "
         f"sh{SH_DEGREE}, {img[0]}x{img[1]}, {N_VIEWS} views, refine every "
         f"{REFINE_EVERY}, expand_k0={rcfg.expand_k0} isect_cap="
-        f"{rcfg.isect_cap}; set-up {time.perf_counter() - t0:.3f} s")
+        f"{rcfg.isect_cap}")
 
     # The ground truth's own scene evaluates to itself: the same render and
     # the same 8-bit rounding on both sides. The bar (60 dB, 1e-3) leaves
@@ -1395,50 +1076,33 @@ def phase_loop(torch, serve):
 
     loop = LoopState(state=init_train_state(student, SEED), rcfg=rcfg)
     kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    events, all_stats, messages, alive_before = [], [], [], {}
+    all_stats, messages, alive_before = [], [], {}
     # The kernel phase replays the launches of the first step (a capacity
     # whose second half is dead) and of the first step after a refine (a
     # scene the refine has permuted and grown).
     captured_steps = (1, REFINE_EVERY + 1)
     captured = []
-    # The training forward's launch of the last step without a refine (the
-    # loop's deepest scene), for the kernel phase's tile-order timing.
-    late_step, late = LOOP_STEPS - 1, []
-    with record_stages() as recs:
-        for i in range(LOOP_STEPS):
-            if (i + 1) % REFINE_EVERY == 0:
-                alive_before[i + 1] = loop.state.splats.n_alive
-            if i + 1 == LOOP_STEPS:
-                # One train_step short of the state the last refine sees:
-                # its record holds the steps since the refine before.
-                before_last_refine = loop.state
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            with (kernels.capture() if i + 1 in captured_steps + (late_step,)
-                  else contextlib.nullcontext([])) as cap_list:
-                loop, stats, msgs = loop_step(loop, batches[i % N_VIEWS],
-                                              tcfg, centers, focals)
-            if i + 1 == late_step:
-                late = [c for c in cap_list if c.name == "rasterize_fwd_train"]
-            else:
-                captured += cap_list
-            end.record()
-            events.append((start, end))
-            all_stats.append(stats)
-            messages += msgs
-            if any(m.kind == "refine" for m in msgs):
-                rec = loop.state.refine
-                check(not bool(rec.refine_weight.any() | rec.visible_count.any()
-                               | rec.max_radius.any()),
-                      "refine record not zero after a refine")
-        torch.cuda.synchronize()
-        stages = stage_ms(recs)
+    for i in range(LOOP_STEPS):
+        if (i + 1) % REFINE_EVERY == 0:
+            alive_before[i + 1] = loop.state.splats.n_alive
+        if i + 1 == LOOP_STEPS:
+            # One train_step short of the state the last refine sees: its
+            # record holds the steps since the refine before.
+            before_last_refine = loop.state
+        with (kernels.capture() if i + 1 in captured_steps
+              else contextlib.nullcontext([])) as cap_list:
+            loop, stats, msgs = loop_step(loop, batches[i % N_VIEWS], tcfg,
+                                          centers, focals)
+        captured += cap_list
+        all_stats.append(stats)
+        messages += msgs
+        if any(m.kind == "refine" for m in msgs):
+            rec = loop.state.refine
+            check(not bool(rec.refine_weight.any() | rec.visible_count.any()
+                           | rec.max_radius.any()),
+                  "refine record not zero after a refine")
+    torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    held_mb = held_mib(torch, captured + late)
-    ms = [a.elapsed_time(b) for a, b in events]
     state = loop.state
 
     refines = [m for m in messages if m.kind == "refine"]
@@ -1482,16 +1146,8 @@ def phase_loop(torch, serve):
                   f"{name}.{which} not finite")
             check(not bool(mom[n_alive:].any()),
                   f"{name}.{which} not zero in the dead tail")
-    plain = [t for i, t in enumerate(ms) if (i + 1) % REFINE_EVERY]
-    log(f"[loop] steps={LOOP_STEPS} step_median_ms="
-        f"{statistics.median(plain):.4f} (steps without a refine; min "
-        f"{min(plain):.4f} max {max(plain):.4f}) refine_steps_ms="
-        f"{[round(ms[i - 1], 4) for i in refine_steps]} refine_ms="
-        f"{stages.get('refine', 0.0) / len(refines):.4f} (device time of "
-        f"`refine_step`, mean of {len(refines)}) peak_memory_MiB="
-        f"{peak_mb:.1f} (of it {held_mb:.1f} MiB are kernel inputs of steps "
-        f"{list(captured_steps) + [late_step]}, kept for the kernel phase) "
-        f"capacity={cap} live={n_alive} overflowed_steps="
+    log(f"[loop] steps={LOOP_STEPS} capacity={cap} live={n_alive} "
+        f"overflowed_steps="
         f"{[i + 1 for i, f in enumerate(flags) if f]} isect_cap="
         f"{loop.rcfg.isect_cap}")
     log(f"[loop] losses {[round(x, 6) for x in losses]}")
@@ -1503,25 +1159,21 @@ def phase_loop(torch, serve):
                           truths, dataclasses.replace(
                               eval_cfg, isect_cap=loop.rcfg.isect_cap),
                           keep=True)
-    # The refine the profile phase runs: it must select something.
+    # The refine the graph phase holds to eager: it must select something.
     _, rstats = refine_step(before_last_refine, tcfg, centers, focals)
-    profiled_refine = dict(
+    graph_refine = dict(
         live=int(before_last_refine.splats.n_alive),
         added=int(rstats.num_added), pruned=int(rstats.num_pruned),
         grad_grown=int(rstats.num_grad_grown), total=int(rstats.total_splats))
-    check(profiled_refine["added"] > 0, "the profiled refine selects nothing")
-    log(f"[loop] the refine the profile phase runs (the state one step "
-        f"before the last refine, its record of steps "
+    check(graph_refine["added"] > 0, "the graphed refine selects nothing")
+    log(f"[loop] the refine the graph phase holds to eager (the state one "
+        f"step before the last refine, its record of steps "
         f"{LOOP_STEPS - REFINE_EVERY + 1}-{LOOP_STEPS - 1}): "
-        + json.dumps(profiled_refine))
-    return dict(step_median_ms=statistics.median(plain),
-                refine_ms=stages.get("refine", 0.0) / len(refines),
-                refine_step_ms=[ms[i - 1] for i in refine_steps],
-                peak_mb=peak_mb, held_mb=held_mb,
-                launches=launches, captured=captured, late_captured=late,
+        + json.dumps(graph_refine))
+    return dict(launches=launches, captured=captured,
                 eval_launches=ev_after["launches"],
                 eval_captured=ev_after["captured"],
-                profiled_refine=profiled_refine,
+                graph_refine=graph_refine,
                 steps=LOOP_STEPS, losses=losses,
                 refines=[m.data for m in refines],
                 overflows=[m.data for m in overflows],
@@ -1531,11 +1183,7 @@ def phase_loop(torch, serve):
                           before=ev_before["ssim"], after=ev_after["ssim"]),
                 state=state, rcfg=loop.rcfg, truths=truths,
                 before_last_refine=before_last_refine, tcfg=tcfg,
-                centers=centers, focals=focals,
-                step=lambda i: loop_step(loop, batches[i % N_VIEWS], tcfg,
-                                         centers, focals),
-                refine=lambda _: refine_step(before_last_refine, tcfg,
-                                             centers, focals))
+                centers=centers, focals=focals)
 
 
 def phase_init_lod(torch, loop):
@@ -1553,17 +1201,13 @@ def phase_init_lod(torch, loop):
     _, ci, _ = truths[0]
     kernels.reset_launches()
     rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
     random_init = create_random_splats(INIT_RANDOM, cams, rng,
                                        sh_degree=SH_DEGREE)
-    t_random = time.perf_counter() - t0
     points = rng.normal(0.0, [3.0, 2.0, 5.0], (INIT_POINTS, 3)).astype(
         np.float32)
-    t0 = time.perf_counter()
     cloud_init = to_init_splats(points).with_sh_degree(SH_DEGREE)
-    t_cloud = time.perf_counter() - t0
-    for what, s, secs in (("create_random_splats", random_init, t_random),
-                          ("to_init_splats", cloud_init, t_cloud)):
+    for what, s in (("create_random_splats", random_init),
+                    ("to_init_splats", cloud_init)):
         k0, cap = plan_caps(s.means, s.log_scales, s.quats, s.raw_opacities,
                             ci, IMG_SIZE)
         img, aux = render(
@@ -1577,8 +1221,8 @@ def phase_init_lod(torch, loop):
               and bool(torch.isfinite(img).all()),
               f"{what}: visible={visible} remainder={int(aux.num_isects)}"
               f"/{cap}")
-        log(f"[init-lod] {what}: {int(s.n_alive)} splats in {secs:.3f} s on "
-            f"the host, visible={visible} coverage="
+        log(f"[init-lod] {what}: {int(s.n_alive)} splats, visible={visible} "
+            f"coverage="
             f"{float((img[..., 3] > 1.0 / 255.0).float().mean()):.4f}")
 
     # LOD scoring of the trained scene, as the process bakes a level: the
@@ -1591,11 +1235,7 @@ def phase_init_lod(torch, loop):
     splats = loop["state"].splats
     n_alive = int(splats.n_alive)
     score_cams = [ci for _, ci, _ in truths[:LOD_VIEWS]]
-    secs = {}
     for how in ("graph", "eager"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
             if how == "eager":
                 stack.enter_context(wrapped(graphs, "capturable",
@@ -1603,10 +1243,7 @@ def phase_init_lod(torch, loop):
             cap_list = stack.enter_context(kernels.capture())
             h = pup_hessians(splats, score_cams, loop["rcfg"], SEED,
                              n_probes=LOD_PROBES)
-        torch.cuda.synchronize()
-        secs[how] = time.perf_counter() - t0
         if how == "graph":
-            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
             h_graph, graph_captured = h, list(cap_list)
         else:
             h_eager = h
@@ -1614,8 +1251,6 @@ def phase_init_lod(torch, loop):
             # probe) go to the kernel phase, as do the graph's capture's.
             captured = first_run(cap_list, LOD_VIEWS)
         del cap_list
-    t_scores = secs["graph"]
-    held_mb = held_mib(torch, captured + graph_captured)
     h_top = float(h_eager.abs().max())
     h_diff = float((h_graph - h_eager).abs().max())
     check(h_diff <= 2.0 * BWD_RTOL * h_top + BWD_ATOL,
@@ -1623,17 +1258,16 @@ def phase_init_lod(torch, loop):
           f"{h_diff:.3g} (largest entry {h_top:.3g})")
     scores = scores_from_hessians(h_graph)
     del h_eager
-    # One scoring view's graph alone: its replay's host time and size.
+    # One scoring view's graph alone: its replay's kernels.
     folded = splats.fold_min_scale()
     rng = torch.Generator(device="cuda")
     rng.manual_seed(SEED)
     view = _graphed_views(folded, loop["rcfg"], rng, LOD_PROBES, False)
     view(0, score_cams[0])
-    score_reading = graph_reading(
-        torch, "PUP scoring view", view.graph.replay,
-        lambda: view(1, score_cams[1]))
+    score_replay = replay_profile(torch, "PUP scoring view",
+                                  lambda: view(1, score_cams[1]))
     for name in kernels.TRAIN_PATH:
-        check(score_reading["kernels"].get(name, 0) > 0,
+        check(score_replay["kernels"].get(name, 0) > 0,
               f"the replayed scoring view launched no {name}")
     del view, folded
     graphs.free_pools()
@@ -1657,25 +1291,20 @@ def phase_init_lod(torch, loop):
           "the kept set is not the top-scoring set")
     launches = dict(kernels.LAUNCHES)
     log(f"[init-lod] scoring views on a graph against eager: sums within "
-        f"{h_diff:.3g} (largest entry {h_top:.3g}); {secs['graph']:.3f} s "
-        f"graphed (its capture included), {secs['eager']:.3f} s eager")
+        f"{h_diff:.3g} (largest entry {h_top:.3g})")
     log(f"[init-lod] pup_scores over {LOD_VIEWS} views x {LOD_PROBES} "
-        f"probes on {n_alive} live splats: {t_scores:.3f} s, peak "
-        f"{peak_mb:.1f} MiB; {int(seen.sum())} splats score above the "
-        f"floor (the peak includes {held_mb:.1f} MiB of "
-        f"kernel inputs kept for the kernel phase), min "
+        f"probes on {n_alive} live splats: {int(seen.sum())} splats score "
+        f"above the floor, min "
         f"{float(live[seen].min()):.3f} max "
         f"{float(live.max()):.3f}; kept {keep} "
         f"(lowest kept score {float(top[-1]):.3f}); launches "
         f"{json.dumps(launches)}")
     for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
         check(launches[name] > 0, f"kernel {name} was not launched")
-    return dict(launches=launches, captured=captured, pup_seconds=t_scores,
-                pup_eager_seconds=secs["eager"], pup_peak_mb=peak_mb,
+    return dict(launches=launches, captured=captured,
                 pup_sums_max_abs_diff=h_diff, pup_sums_largest=h_top,
                 graph_captured=graph_captured,
-                graph_counts=counted(graph_captured),
-                score_reading=score_reading)
+                graph_counts=counted(graph_captured))
 
 
 def write_colmap_scene(root: str, cams, focal: float, pngs) -> None:
@@ -1725,20 +1354,6 @@ def wrapped(module, name: str, wrap):
         setattr(module, name, real)
 
 
-def timed(torch, sink: list):
-    """A wrapper factory: each call's wall seconds, up to the end of its
-    device work, go to `sink`."""
-    def wrap(real):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            out = real(*a, **k)
-            torch.cuda.synchronize()
-            sink.append(time.perf_counter() - t0)
-            return out
-        return run
-    return wrap
-
-
 def phase_process(torch, loop, work: str):
     """`train_process` from a COLMAP dataset the phase writes to
     work/scene, at full width: eval, checkpoint, export, the LOD bake,
@@ -1760,7 +1375,6 @@ def write_process_dataset(torch, work: str):
     from brush_tpu_torch.io import ply
     from brush_tpu_torch.utils.synthetic import bench_splats
 
-    t0 = time.perf_counter()
     w, h = IMG_SIZE
     focal = (w / 2.0) / np.tan(0.5)          # the serve camera's fov_x, 1.0
     cams = [(a, Camera(position=c.position, rotation=c.rotation,
@@ -1781,7 +1395,7 @@ def write_process_dataset(torch, work: str):
     log(f"[process] dataset: {PROCESS_VIEWS} views {w}x{h} PINHOLE f="
         f"{focal:.4f}, init.ply of {N_SPLATS} splats "
         f"({os.path.getsize(os.path.join(data, 'init.ply')) / 2**20:.1f} "
-        f"MiB); written in {time.perf_counter() - t0:.3f} s")
+        f"MiB)")
     return data, pngs
 
 
@@ -1790,16 +1404,14 @@ def phase_multicard(torch, work: str, data: str) -> dict:
     (NCCL), on the process cell's dataset: B = N views a step, one each,
     `MULTI_STEPS` steps, refine every `DP_CLI_REFINE_EVERY`, one loader
     thread; on graphs, then with every program eager. Each run's replicas
-    equal; the graphed run's losses within 1e-3 of the eager run's; turn
-    ms by rank (host clock between turns, the turns with no refine after
-    them and no capture in them)."""
+    equal; the graphed run's losses within 1e-3 of the eager run's."""
     n = torch.cuda.device_count()
     res = {}
     for mode in ("cli", "cli-eager"):
         out = os.path.join(work, f"multi_{mode}")
         os.makedirs(out)
         export = os.path.join(out, "multi_{iter}.ply")
-        secs = run_children(torch, mode, [
+        run_children(torch, mode, [
             out, data, "--views-per-batch", str(n), "--total-train-iters",
             str(MULTI_STEPS), "--refine-every", str(DP_CLI_REFINE_EVERY),
             "--eval-every", "0", "--log-every", "1", "--export-path",
@@ -1814,24 +1426,12 @@ def phase_multicard(torch, work: str, data: str) -> dict:
                   f"{mode} rank {r}: rc {c['rc']} backend {c['backend']}, "
                   f"final state equal to rank 0's: "
                   f"{c['digest'] == ranks[0]['digest']}")
-        # Turns with no refine after them and no capture in them (the
-        # first, and the first after the first refine, capture on graphs).
-        turn_ms = [[(b - a) * 1e3 for i, (a, b) in enumerate(
-            zip(c["turns"], c["turns"][1:]), start=1)
-            if i % DP_CLI_REFINE_EVERY and i not in (
-                1, DP_CLI_REFINE_EVERY + 1)] for c in ranks]
-        res[mode] = dict(seconds=secs, losses=ranks[0]["losses"],
+        res[mode] = dict(losses=ranks[0]["losses"],
                          step_kind=ranks[0]["step_kind"],
-                         digest=ranks[0]["digest"],
-                         turn_median_ms=[statistics.median(t)
-                                         for t in turn_ms],
-                         peak_mib=[c["peak_mib"] for c in ranks])
+                         digest=ranks[0]["digest"])
         log(f"[multicard] {mode}: torchrun --nproc-per-node {n}, NCCL, "
-            f"{n} views a step ({ranks[0]['step_kind']}): {secs:.1f} s; "
-            f"losses {ranks[0]['losses']}; turn median ms by rank "
-            f"{[round(x, 3) for x in res[mode]['turn_median_ms']]}; peak "
-            f"MiB {[round(x, 1) for x in res[mode]['peak_mib']]}; "
-            f"replicas equal")
+            f"{n} views a step ({ranks[0]['step_kind']}): losses "
+            f"{ranks[0]['losses']}; replicas equal")
     g, e = res["cli"], res["cli-eager"]
     check(g["step_kind"] == "graphs" and e["step_kind"] == "eager",
           f"step kinds {g['step_kind']}, {e['step_kind']}")
@@ -1861,39 +1461,12 @@ def _process_run(torch, loop, work):
     rgb = pngs[0].astype(np.uint32)
     packed = rgb[..., 0] | (rgb[..., 1] << 8) | (rgb[..., 2] << 16) | (
         np.uint32(255) << 24)
-    # The host's share of a ground-truth upload: a copy from pageable
-    # memory against the pinned staging buffers of `PinnedUpload`, on an
-    # idle card (20 calls) and behind 50 ms of queued device work (a call
-    # each of 5 turns, median), as a training step leaves the queue; and
-    # of a small tensor made from a list on the card (as the trainer makes
-    # its background colour).
+    # A ground-truth upload through the pinned staging buffers of
+    # `PinnedUpload` equals the copy from pageable memory.
     upload = process.PinnedUpload("cuda")
-    words = packed.view(np.int32)
-    upload_ms = {}
-    for how, fn in (("pageable", lambda: gt_tensor(packed, device="cuda")),
-                    ("pinned", lambda: upload(words)),
-                    ("list_to_tensor", lambda: torch.tensor(
-                        [0.0, 0.0, 0.0], device="cuda"))):
-        fn()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        upload_ms[how] = (time.perf_counter() - t1) * 1e3 / 20
-        busy = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(100_000_000)      # ~50 ms at 1.98 GHz
-            t1 = time.perf_counter()
-            fn()
-            busy.append((time.perf_counter() - t1) * 1e3)
-        upload_ms[how + "_behind_queued_work"] = statistics.median(busy)
-        torch.cuda.synchronize()
-    check(torch.equal(upload(words), gt_tensor(packed, device="cuda")),
+    check(torch.equal(upload(packed.view(np.int32)),
+                      gt_tensor(packed, device="cuda")),
           "the pinned upload differs")
-    log(f"[process] ground-truth upload, host ms a call ({packed.nbytes} "
-        f"bytes): " + json.dumps({k: round(v, 4)
-                                  for k, v in upload_ms.items()}))
 
     # --- the run ---
     tcfg = TrainConfig(total_train_iters=PROCESS_STEPS,
@@ -1906,15 +1479,13 @@ def _process_run(torch, loop, work):
                          ckpt_every=PROCESS_STEPS, ckpt_dir=ckpt_dir,
                          export_path=os.path.join(out, "out_{iter}.ply"),
                          use_pallas=True, sh_degree=SH_DEGREE, seed=SEED)
-    turns, flags, captured, final = [], [], [], {}
+    flags, captured, final = [], [], {}
     graphed = []      # (the turn ran on StepGraphs, its captures so far)
     refined = []      # each refine turn ran on RefineGraphs
     baked = []        # the LOD bake's arguments, its state a copy
-    secs = dict(eval=[], export=[], save=[], lod=[])
 
     def step_turn(real):
         def run(loop_state, *a, **k):
-            turns.append(time.perf_counter())
             it = loop_state.it + 1
             # The launches of the first capture after the first refine
             # (the layout its 3D filter floor makes is a new key).
@@ -1950,27 +1521,15 @@ def _process_run(torch, loop, work):
     # frames capture their own, so the counters count them.
     graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_mb = torch.cuda.memory_allocated() / 2 ** 20
-    t_call = time.perf_counter()
     with contextlib.ExitStack() as stack:
-        for mod, name, wrap in (
-                (process, "_step_turn", step_turn),
-                (process, "_refine_turn", refine_turn),
-                (process, "_run_eval", timed(torch, secs["eval"])),
-                (process, "_export_splats", timed(torch, secs["export"])),
-                (process, "_bake_lod_level",
-                 lambda real: timed(torch, secs["lod"])(bake(real))),
-                (checkpoint, "save_checkpoint", timed(torch, secs["save"]))):
-            stack.enter_context(wrapped(mod, name, wrap))
+        for name, wrap in (("_step_turn", step_turn),
+                           ("_refine_turn", refine_turn),
+                           ("_bake_lod_level", bake)):
+            stack.enter_context(wrapped(process, name, wrap))
         msgs = list(train_process(data, tcfg, lcfg, pcfg,
                                   telemetry_dir=os.path.join(work, "telem")))
     torch.cuda.synchronize()
-    run_secs = time.perf_counter() - t_call
     launches = dict(kernels.LAUNCHES)
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    held_mb = held_mib(torch, captured)
 
     kinds = [m.kind for m in msgs]
     steps = [m for m in msgs if m.kind == "step"]
@@ -2008,13 +1567,7 @@ def _process_run(torch, loop, work):
     # The checkpoint restores the state of step 24 bit for bit, generator
     # included, and the final export is its folded live rows.
     saved = final["state"]
-    ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir,
-                                              checkpoint.STATE_FILE))
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     restored = checkpoint.load_checkpoint(ckpt_dir, saved)
-    torch.cuda.synchronize()
-    load_secs = time.perf_counter() - t1
     check(checkpoint.checkpoint_meta(ckpt_dir) == dict(
         iteration=PROCESS_STEPS, capacity=saved.splats.capacity,
         sh_degree=SH_DEGREE), "checkpoint meta")
@@ -2041,9 +1594,7 @@ def _process_run(torch, loop, work):
     check(lod.num_splats == int(n * 0.5) and np.isfinite(lod.means).all(),
           f"LOD holds {lod.num_splats} of {n}")
     comp_path = os.path.join(out, "state.compressed.ply")
-    t1 = time.perf_counter()
     process._export_splats(comp_path, restored.splats)
-    comp_secs = time.perf_counter() - t1
     comp = ply.load_splat_ply(comp_path)
     raw_bytes, comp_bytes = (os.path.getsize(raw_path),
                              os.path.getsize(comp_path))
@@ -2058,14 +1609,12 @@ def _process_run(torch, loop, work):
     del baked
 
     # --- resume from the checkpoint to step 26 ---
-    t1 = time.perf_counter()
     resumed = list(train_process(
         data, dataclasses.replace(tcfg, lod_levels=0), lcfg,
         dataclasses.replace(pcfg, total_iters=PROCESS_STEPS + 2,
                             resume_from=ckpt_dir, ckpt_every=0, eval_every=0,
                             log_every=1, export_path=os.path.join(
                                 out, "resumed_{iter}.ply"))))
-    resume_secs = time.perf_counter() - t1
     r_steps = [m for m in resumed if m.kind == "step"]
     check([m.iter for m in r_steps] == [PROCESS_STEPS + 1, PROCESS_STEPS + 2]
           and all(np.isfinite(m.data["loss"]) for m in r_steps),
@@ -2073,60 +1622,24 @@ def _process_run(torch, loop, work):
 
     # --- the CLI, in-process ---
     cli_export = os.path.join(out, "cli_{iter}.ply")
-    t1 = time.perf_counter()
     rc = cli.main([data, "--total-train-iters", "2", "--max-resolution",
                    "960", "--eval-every", "0", "--export-path", cli_export])
-    cli_secs = time.perf_counter() - t1
     check(rc == 0 and os.path.exists(cli_export.format(iter=2)),
           f"cli returned {rc}")
 
-    # A turn's wall time: from one `_step_turn` call to the next (host
-    # clock; the loader, the upload, the step and its reads), over the
-    # turns without a refine, eval or checkpoint after their step.
-    busy = {REFINE_EVERY, 2 * REFINE_EVERY, 12}
-    turn_ms = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(turns, turns[1:]),
-                                                       start=1)
-               if i not in busy]
     res = dict(
-        step_median_ms=statistics.median(turn_ms),
-        step_min_ms=min(turn_ms), step_max_ms=max(turn_ms),
-        loop_step_median_ms=loop["step_median_ms"],
-        first_step_s=turns[0] - t_call, run_s=run_secs,
-        eval_ms_per_view=[s * 1e3 / 2 for s in secs["eval"]],
-        export_ms=secs["export"][0] * 1e3, export_mb=raw_bytes / 1e6,
-        lod_export_ms=secs["export"][1] * 1e3,
-        compressed_export_ms=comp_secs * 1e3, compressed_mb=comp_bytes / 1e6,
-        ckpt_save_ms=secs["save"][0] * 1e3, ckpt_load_ms=load_secs * 1e3,
-        ckpt_bytes=ckpt_bytes, lod_bake_s=secs["lod"][0],
-        peak_mib=peak_mb, base_mib=base_mb, held_mib=held_mb,
-        upload_host_ms=upload_ms,
-        resume_s=resume_secs, cli_s=cli_secs, losses=losses,
-        resumed_losses=[m.data["loss"] for m in r_steps], psnr=psnr,
-        ssim=ssim, refines=[m.data for m in refines],
-        overflows=[m.data for m in overflows],
-        live=n, lod_live=lod.num_splats,
+        losses=losses, resumed_losses=[m.data["loss"] for m in r_steps],
+        psnr=psnr, ssim=ssim, refines=[m.data for m in refines],
+        overflows=[m.data for m in overflows], live=n,
+        lod_live=lod.num_splats,
         graphed_turns=sum(g for g, _ in graphed),
         graph_captures=graphed[-1][1], graphed_refines=sum(refined),
         **bake_res)
-    log(f"[process] train_process {PROCESS_STEPS} steps in {run_secs:.3f} s: "
-        f"step_median_ms={res['step_median_ms']:.4f} (host clock between "
-        f"turns, {len(turn_ms)} turns without a refine or eval; min "
-        f"{res['step_min_ms']:.4f} max {res['step_max_ms']:.4f}) against "
-        f"the loop phase's {loop['step_median_ms']:.4f}; time to first step "
-        f"{res['first_step_s']:.3f} s; eval ms a view "
-        f"{[round(x, 3) for x in res['eval_ms_per_view']]} (the first "
-        f"decodes the PNGs); export {res['export_ms']:.3f} ms "
-        f"{res['export_mb']:.3f} MB (LOD {res['lod_export_ms']:.3f} ms, "
-        f"compressed {res['compressed_export_ms']:.3f} ms "
-        f"{res['compressed_mb']:.3f} MB); checkpoint save "
-        f"{res['ckpt_save_ms']:.3f} ms load {res['ckpt_load_ms']:.3f} ms "
-        f"{ckpt_bytes} bytes; LOD bake {res['lod_bake_s']:.3f} s; peak "
-        f"{peak_mb:.1f} MiB, {peak_mb - base_mb:.1f} over the {base_mb:.1f} "
-        f"earlier phases held at its start (of it {held_mb:.1f} MiB kernel "
-        f"inputs of a capture); {res['graphed_turns']} turns on StepGraphs, "
-        f"{res['graph_captures']} captures; resume "
-        f"{resume_secs:.3f} s; cli "
-        f"{cli_secs:.3f} s")
+    log(f"[process] train_process {PROCESS_STEPS} steps: "
+        f"{res['graphed_turns']} turns on StepGraphs, "
+        f"{res['graph_captures']} captures, {res['graphed_refines']} refines "
+        f"on RefineGraphs; export {raw_bytes} bytes, compressed "
+        f"{comp_bytes}")
     log(f"[process] losses {[round(x, 6) for x in losses]} resumed "
         f"{[round(x, 6) for x in res['resumed_losses']]} psnr {psnr} ssim "
         f"{ssim}; live {n}, LOD {lod.num_splats}; refines "
@@ -2142,11 +1655,11 @@ def _bake_graph_against_eager(torch, baked) -> dict:
     and the LOD steps; their captures' launches kept), then eagerly with
     the graphed run's scores (so both decimate alike), the baked states
     held by `hold_steps`; the scoring views' sums of that input graphed
-    against eager; each graph's replay reading."""
+    against eager; a replay of the LOD step graph launching every training
+    kernel."""
     import functools
 
     from brush_tpu_torch import graphs, kernels, process
-    from brush_tpu_torch.data import dataloader
     from brush_tpu_torch.ops.rasterize_cuda import BWD_ATOL, BWD_RTOL
     from brush_tpu_torch.train import lod
 
@@ -2167,27 +1680,18 @@ def _bake_graph_against_eager(torch, baked) -> dict:
     class KeptStepGraphs(process.StepGraphs):
         def clear(self):
             if self.graph is not None:
-                kept.append(self.graph)  # kept for its replay reading
+                kept.append(self.graph)  # kept for its profiled replay
             super().clear()
 
-    secs = {}
     with one_thread(), wrapped(lod, "pup_scores", record), wrapped(
             process, "StepGraphs", lambda real: KeptStepGraphs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with kernels.capture() as cap_list:
             on_graphs = process._bake_lod_level(fresh_copy(torch, state),
                                                 *args, **kw)
-        torch.cuda.synchronize()
-        secs["graph"] = time.perf_counter() - t0
     with one_thread(), wrapped(graphs, "capturable",
                                lambda real: lambda *a: False), wrapped(
             lod, "pup_scores", lambda real: lambda *a, **k: scored["scores"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         eager = process._bake_lod_level(fresh_copy(torch, state), *args, **kw)
-        torch.cuda.synchronize()
-        secs["eager"] = time.perf_counter() - t0
     check(int(on_graphs.splats.n_alive) == int(eager.splats.n_alive),
           "the graphed bake kept another count")
     tcfg = args[3]
@@ -2208,24 +1712,22 @@ def _bake_graph_against_eager(torch, baked) -> dict:
           f"(largest entry {top:.3g})")
     del h_graph, h_eager, on_graphs, eager
     step = kept[0]
-    lod_reading = graph_reading(torch, "LOD step", step.replay,
+    lod_replay = replay_profile(torch, "LOD step",
                                 lambda: step(step.state, step._batch))
     for name in kernels.TRAIN_PATH:
-        check(lod_reading["kernels"].get(name, 0) > 0,
+        check(lod_replay["kernels"].get(name, 0) > 0,
               f"the replayed LOD step launched no {name}")
     del kept, step
     graphs.free_pools()
-    log(f"[process] LOD bake from the run's state, one loader thread: "
-        f"{secs['graph']:.3f} s on graphs (its captures included) against "
-        f"{secs['eager']:.3f} s eager; the baked states within the rule "
+    log(f"[process] LOD bake from the run's state, one loader thread, on "
+        f"graphs against eager: the baked states within the rule "
         f"(bit for bit: {bit_identical}; largest |d| by path "
         + json.dumps({p: float(f"{v:.3g}") for p, v in diffs.items() if v})
         + f"); the scoring sums within {h_diff:.3g} of eager's (largest "
         f"entry {top:.3g})")
-    return dict(bake_graph_s=secs["graph"], bake_eager_s=secs["eager"],
-                bake_bit_identical=bit_identical,
+    return dict(bake_bit_identical=bit_identical,
                 bake_max_abs_diff={p: v for p, v in diffs.items() if v},
-                bake_sums_max_abs_diff=h_diff, lod_reading=lod_reading,
+                bake_sums_max_abs_diff=h_diff,
                 bake_captured=list(cap_list),
                 bake_counts=counted(cap_list))
 
@@ -2275,17 +1777,13 @@ def _viewer_run(torch, work):
     from brush_tpu_torch.viewer.service import Slot, frame_u8, serve
 
     path = os.path.join(work, "scene.ply")
-    t0 = time.perf_counter()
     with open(path, "wb") as f:
         f.write(ply.splats_to_ply_bytes(
             bench_splats(N_SPLATS, sh_degree=SH_DEGREE, seed=SEED)))
-    write_s = time.perf_counter() - t0
     w, h = IMG_SIZE
     slot = Slot()
-    t0 = time.perf_counter()
     server = serve(path, slot=slot, host="127.0.0.1", port=0,
                    sh_degree=SH_DEGREE, blocking=False, device="cuda")
-    load_s = time.perf_counter() - t0
     state = server.viewer_state
     try:
         port = server.server_address[1]
@@ -2359,26 +1857,12 @@ def _viewer_run(torch, work):
             check(body == _jpeg_bytes(frame),
                   f"{name}: /render's JPEG is not render_pose's frame")
             check(frame.std() > 1.0, f"{name}: the frame is flat")
-        # Times: the request (render, host copy, JPEG, HTTP), and
-        # render_pose alone (render and host copy), median of 5 each.
-        pos, kw = poses["orbit"]
-        req_ms, pose_ms = [], []
-        for _ in range(5):
-            t1 = time.perf_counter()
-            _http(port, query(pos, kw))
-            req_ms.append((time.perf_counter() - t1) * 1e3)
-            t1 = time.perf_counter()
-            state.render_pose(pos, 0.0, 0.0, w, h, 0)
-            pose_ms.append((time.perf_counter() - t1) * 1e3)
-        n_frames += 10
         launches = dict(kernels.LAUNCHES)
         for name in kernels.SERVE_PATH:
             check(launches[name] > 0, f"kernel {name} was not launched")
         check(sorted({c.name for c in captured}) == sorted(kernels.SERVE_PATH),
               f"captured {[c.name for c in captured]}")
-        t1 = time.perf_counter()
         raw = _http(port, "/splats")
-        splats_s = time.perf_counter() - t1
         check(len(raw) == 16 + 59 * 4 * N_SPLATS,
               f"/splats has {len(raw)} bytes")
         check(b"class BrushClient" in _http(port, "/brush.js"), "/brush.js")
@@ -2386,20 +1870,10 @@ def _viewer_run(torch, work):
     finally:
         server.shutdown()
         server.server_close()
-    res = dict(request_ms=statistics.median(req_ms),
-               request_ms_all=req_ms,
-               render_pose_ms=statistics.median(pose_ms),
-               render_pose_ms_all=pose_ms, num_isects=isects,
-               isect_cap=state.isect_cap, ply_write_s=write_s,
-               load_s=load_s, splats_s=splats_s, frames=n_frames,
+    res = dict(num_isects=isects, isect_cap=state.isect_cap, frames=n_frames,
                launches=launches, captured=captured)
-    log(f"[viewer] {N_SPLATS} splats sh{SH_DEGREE} from a PLY ({write_s:.3f}"
-        f" s to write, {load_s:.3f} s to load progressively and serve) at "
-        f"{w}x{h}: request_median_ms={res['request_ms']:.4f} (render, host "
-        f"copy, JPEG, HTTP; {[round(x, 3) for x in req_ms]}) "
-        f"render_pose_median_ms={res['render_pose_ms']:.4f} "
-        f"({[round(x, 3) for x in pose_ms]}); /splats "
-        f"{16 + 59 * 4 * N_SPLATS} bytes in {splats_s:.3f} s")
+    log(f"[viewer] {N_SPLATS} splats sh{SH_DEGREE} from a PLY at {w}x{h}; "
+        f"/splats {16 + 59 * 4 * N_SPLATS} bytes")
     log(f"[viewer] num_isects by pose against the fixed isect_cap "
         f"{state.isect_cap}: {json.dumps(isects)} (slots past the cap are "
         f"dropped, as in the JAX viewer); every pose's frame equals a "
@@ -2452,7 +1926,7 @@ def _live_view_run(torch, data: str, work: str):
                     continue
                 t = time.perf_counter()
                 body = _http(port, f"/render?px=0&py=0&pz=-18&w={w}&h={h}")
-                frames.append((t, time.perf_counter(), _jpeg(body).shape))
+                frames.append((t, _jpeg(body).shape))
         except Exception as e:
             errors.append(f"/render: {e!r}")
 
@@ -2469,7 +1943,6 @@ def _live_view_run(torch, data: str, work: str):
     graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
     try:
-        t0 = time.perf_counter()
         msgs = list(train_process(
             data, TrainConfig(total_train_iters=LIVE_STEPS, lod_levels=0),
             LoadConfig(max_resolution=w, eval_split_every=4),
@@ -2501,25 +1974,22 @@ def _live_view_run(torch, data: str, work: str):
     check(any(m["kind"] == "step" for m in heard),
           f"no step message on /events: {heard}")
     during = [f for f in frames if f[0] < t_end]
-    check(during and all(f[2] == (h, w, 3) for f in frames),
+    check(during and all(f[1] == (h, w, 3) for f in frames),
           f"/render during training: {len(during)} of {len(frames)} "
-          f"frames, shapes {sorted({f[2] for f in frames})}")
+          f"frames, shapes {sorted({f[1] for f in frames})}")
     check(len(views) == PROCESS_VIEWS
           and {v["split"] for v in views} == {"train", "eval"},
           f"/views lists {[(v['name'], v['split']) for v in views]}")
     check(gt.shape == (360, 640, 3), f"/gt?view=0 decodes to {gt.shape}")
     for name in kernels.TRAIN_PATH + ("rasterize_fwd",):
         check(launches[name] > 0, f"kernel {name} was not launched")
-    frame_ms = [(b - a) * 1e3 for a, b, _ in frames]
-    res = dict(steps=LIVE_STEPS, run_s=t_end - t0,
-               frames=len(frames), frames_during_training=len(during),
-               frame_ms_median=statistics.median(frame_ms),
+    res = dict(steps=LIVE_STEPS, frames=len(frames),
+               frames_during_training=len(during),
                losses=[m.data["loss"] for m in steps],
                events=[m["kind"] for m in heard], launches=launches)
     log(f"[live] train_process {LIVE_STEPS} steps with serve(slot, bus) "
-        f"running: {res['run_s']:.3f} s; {len(frames)} /render frames of "
-        f"{w}x{h} fetched ({len(during)} while training), request median "
-        f"{res['frame_ms_median']:.3f} ms; /events gave "
+        f"running: {len(frames)} /render frames of {w}x{h} fetched "
+        f"({len(during)} while training); /events gave "
         f"{res['events']}; /views {len(views)} views; /gt?view=0 "
         f"{gt.shape}; launches {json.dumps(launches)}")
     return res
@@ -2537,9 +2007,7 @@ def _ffi_run(torch, data: str, work: str):
     include = sysconfig.get_paths()["include"]
     check(os.path.isfile(os.path.join(include, "Python.h")),
           f"Python.h is not in {include}, where sysconfig says")
-    t0 = time.perf_counter()
     path = native.build_ffi(verbose=False)
-    build_s = time.perf_counter() - t0
     lib = ctypes.CDLL(str(path))
     cb_type = ctypes.CFUNCTYPE(ctypes.c_int32, ctypes.c_char_p,
                                ctypes.c_void_p)
@@ -2562,16 +2030,14 @@ def _ffi_run(torch, data: str, work: str):
         opts = dict(device="cuda", total_train_iters=iters,
                     max_resolution=960, eval_every=0, export_every=0,
                     log_every=1, lod_levels=0, export_path=export)
-        t1 = time.perf_counter()
         rc = lib.brush_train_and_save(data.encode(),
                                       json.dumps(opts).encode(), cb, None)
-        secs = time.perf_counter() - t1
         check(rc == 0, f"brush_train_and_save returned {rc}: "
               f"{lib.brush_last_error().decode()}")
-        return msgs, export.format(iter=iters), secs
+        return msgs, export.format(iter=iters)
 
     kernels.reset_launches()
-    msgs, export, run_s = run(FFI_STEPS, cancel=False)
+    msgs, export = run(FFI_STEPS, cancel=False)
     launches = dict(kernels.LAUNCHES)
     kinds = [m["kind"] for m in msgs]
     check("step" in kinds and "export" in kinds and os.path.exists(export),
@@ -2580,17 +2046,15 @@ def _ffi_run(torch, data: str, work: str):
           "C ABI run: loss not finite")
     for name in kernels.TRAIN_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
-    cancelled, c_export, cancel_s = run(50, cancel=True)
+    cancelled, c_export = run(50, cancel=True)
     check(len(cancelled) == 1 and cancelled[0]["iter"] == 1
           and not os.path.exists(c_export),
           f"the cancelled call went on: {[m['kind'] for m in cancelled]}")
-    res = dict(build_s=build_s, run_s=run_s, cancel_s=cancel_s,
-               kinds=kinds, launches=launches,
+    res = dict(kinds=kinds, launches=launches,
                losses=[m["loss"] for m in msgs if m["kind"] == "step"])
-    log(f"[ffi] libbrush_tpu_torch_ffi.so built in {build_s:.3f} s; "
-        f"brush_train_and_save {FFI_STEPS} steps at 960 px on cuda in "
-        f"{run_s:.3f} s wall (messages {kinds}); a call cancelled from its "
-        f"first callback returned after {cancel_s:.3f} s with 1 message; "
+    log(f"[ffi] libbrush_tpu_torch_ffi.so built; brush_train_and_save "
+        f"{FFI_STEPS} steps at 960 px on cuda (messages {kinds}); a call "
+        f"cancelled from its first callback returned with 1 message; "
         f"launches {json.dumps(launches)}")
     return res
 
@@ -2610,7 +2074,6 @@ def phase_lpips(torch, serve, train):
     from brush_tpu_torch.render import RenderConfig
     from brush_tpu_torch.train.config import TrainConfig
     from brush_tpu_torch.train.trainer import init_train_state, train_step
-    from brush_tpu_torch.utils.tracing import record_stages, stage_ms
 
     # --- the value at 256x256: card against CPU, and under TF32 ---
     rng = np.random.default_rng(SEED)
@@ -2664,27 +2127,17 @@ def phase_lpips(torch, serve, train):
     # generator seed without the term.
     state0 = init_train_state(serve["splats"], SEED)
     kernels.reset_launches()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_mb = torch.cuda.memory_allocated() / 2 ** 20
     with kernels.capture() as cap_list:
         state, stats, aux = train_step(state0, batch, tcfg, rcfg,
                                        lpips_model=model)
     captured = list(cap_list)
-    all_stats, events = [stats], []
+    all_stats = [stats]
     for _ in range(LPIPS_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         state, stats, aux = train_step(state, batch, tcfg, rcfg,
                                        lpips_model=model)
-        end.record()
-        events.append((start, end))
         all_stats.append(stats)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(st.loss) for st in all_stats]
     check(all(np.isfinite(losses)), f"loss not finite: {losses}")
     check(not any(bool(st.overflowed) for st in all_stats), "overflow")
@@ -2695,48 +2148,37 @@ def phase_lpips(torch, serve, train):
         check(bool(torch.isfinite(new).all()), f"{name} not finite")
     for name in kernels.TRAIN_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
-    with record_stages() as recs:
-        train_step(state, batch, tcfg, rcfg, lpips_model=model)
-        torch.cuda.synchronize()
-        stages = stage_ms(recs)
-    res = dict(step_median_ms=statistics.median(ms), step_ms=ms,
-               peak_mib=peak_mb, base_mib=base_mb, losses=losses,
-               term_step1=term, stages=stages, value_cpu=want,
+    res = dict(losses=losses, term_step1=term, value_cpu=want,
                value_cuda=got, value_tf32=tf32, rel_err=err,
                tf32_rel_err=tf32_err, tap_err=tap_err,
                tf32_tap_err=tf32_tap_err, steps=1 + LPIPS_STEPS,
                launches=launches, captured=captured)
     log(f"[lpips] train_step with lpips_loss_weight=0.5 at {IMG_SIZE[0]}x"
-        f"{IMG_SIZE[1]}, {N_SPLATS} splats: step_median_ms="
-        f"{res['step_median_ms']:.4f} ({[round(x, 3) for x in ms]}), peak "
-        f"{peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} over the {base_mb:.1f} "
-        f"held before); losses {[round(x, 6) for x in losses]}, the term "
-        f"added {term:.6f} to step 1's; stages of one traced step "
-        + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+        f"{IMG_SIZE[1]}, {N_SPLATS} splats: losses "
+        f"{[round(x, 6) for x in losses]}, the term added {term:.6f} to "
+        f"step 1's")
     return res
 
 
 def plain_counted(launch, plain):
     """The plain version's result on a launch's inputs, from one run, with
     what `kernel_work` counts from that run: for the rasterizers the
-    (pixel, slot) pairs, for the backward also its per-slot gradients
-    (before the per-splat sum). (result, pairs or None, slot gradients or
-    None)."""
+    (pixel, slot) pairs. (result, pairs or None)."""
     from brush_tpu_torch.ops import rasterize_cuda as rc
     name, inputs = launch.name, launch.inputs
     if name == "rasterize_fwd":
         tiles, pairs = rc.rasterize_forward_plain(*inputs, count_pairs=True)
-        return tiles, (pairs,), None
+        return tiles, (pairs,)
     if name == "rasterize_fwd_train":
         tiles, schedule, pairs = rc.rasterize_forward_train_plain(
             *inputs, count_pairs=True)
-        return (tiles, schedule), (pairs,), None
+        return (tiles, schedule), (pairs,)
     if name == "rasterize_bwd":
         slot_grads, replayed, blended = rc.rasterize_backward_plain(
             *inputs[:6], count_pairs=True)
         return (rc.reduce_slot_grads(slot_grads, inputs[6], inputs[7]),
-                (replayed, blended), slot_grads)
-    return plain(), None, None
+                (replayed, blended))
+    return plain(), None
 
 
 def kernel_work(launch, got, pairs):
@@ -2828,21 +2270,6 @@ def kernel_work(launch, got, pairs):
             + int(blended) * BWD_BLEND_OPS_PER_PAIR,
             [n_tiles, int(useful.sum()), int(useful.max()), int(replayed),
              int(blended)])
-
-
-def slot_reduce_ms(torch, inputs, slot_grads) -> float:
-    """Device time of what the backward ran besides its kernel before it
-    summed per splat itself: the memset of the [11, S] per-slot
-    buffer, and `reduce_slot_grads` (a zeroed [11, n] and the `index_add_`
-    over the slots' splat ids) of the per-slot gradients (here the plain
-    version's, `plain_counted`'s), on a backward launch's inputs."""
-    from brush_tpu_torch.ops import rasterize_cuda
-    gid, n = inputs[6], inputs[7]
-
-    def reduce():
-        torch.zeros_like(slot_grads)      # the per-slot buffer's memset
-        return rasterize_cuda.reduce_slot_grads(slot_grads, gid, n)
-    return device_time(torch, reduce, ITERS)["ms"]
 
 
 def _state_pairs(torch, a, b, path="state"):
@@ -2944,22 +2371,6 @@ def diff_bits(torch, got, want) -> list:
     return bad
 
 
-def graph_reading(torch, what: str, replay, call) -> dict:
-    """Whether a replay's host time follows the graph's size: host us of
-    `replay()` alone and of the whole `call()` (copies in and out
-    included), and a profiled call's device ops (the graph's kernel,
-    memset and copy nodes), busy ms and csrc/ kernels by device name."""
-    us = host_us(torch, {"call": call, "replay": replay}, calls=3,
-                 repeats=3)
-    prof = replay_profile(torch, what, call)
-    res = dict(host_us=us, nodes=prof["device_ops"],
-               device_busy_ms=prof["device_busy_ms"],
-               kernels=prof["kernels"])
-    log(f"[graph] {what}: host us a replay() {us['replay']:.1f}, a call "
-        f"{us['call']:.1f}; {prof['device_ops']:.0f} device ops a replay")
-    return res
-
-
 def run_children(torch, mode: str, args: list, world: int, work: str,
                  timeout: float = CHILD_TIMEOUT_S, torchrun: bool = False):
     """`world` processes of this script in `--child mode`, started at once
@@ -3004,7 +2415,6 @@ def run_children(torch, mode: str, args: list, world: int, work: str,
     check(codes == [0] * len(cmds), f"{mode} processes exited {codes} "
           f"after {secs:.1f} s (a negative code is a kill, at the "
           f"{timeout} s limit)")
-    return secs
 
 
 def phase_space(torch, serve):
@@ -3019,7 +2429,6 @@ def phase_space(torch, serve):
     from brush_tpu_torch.parallel.tile_parallel import strip_camera_inputs
     from brush_tpu_torch.render import RenderConfig, render
 
-    t_phase = time.perf_counter()
     w, h = IMG_SIZE
     s = serve["splats"].fold_min_scale()
     params = (s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)
@@ -3061,22 +2470,16 @@ def phase_space(torch, serve):
     # emission order, which a strip's clipped bounding boxes change
     # (tests/test_torch_parallel.py shows it in both packages). The order
     # moves colours, and coverage only through the T < 1e-4 stop.
-    d_rgb = (frame[..., :3] - full[..., :3]).abs().flatten()
     d_alpha = float((frame[..., 3] - full[..., 3]).abs().max())
-    quant = {q: float(torch.quantile(d_rgb, q)) for q in (0.5, 0.99, 0.999)}
-    mean_rgb = float(d_rgb.mean())
-    over = {t: float((d_rgb > t).float().mean()) for t in (1e-4, 2.0 / 255)}
+    mean_rgb = float((frame[..., :3] - full[..., :3]).abs().mean())
     check(d_alpha <= TIE_ALPHA_TOL and mean_rgb <= TIE_RGB_MEAN_TOL,
           f"strips against the full render: alpha max {d_alpha} (bar "
           f"{TIE_ALPHA_TOL}), rgb mean {mean_rgb} (bar {TIE_RGB_MEAN_TOL})")
 
-    strip_ms = [time_ms(torch, lambda c=c: render(*params, c, bg, scfg),
-                        FRAMES) for c in strips]
-    frame_ms = time_ms(torch, lambda: render(*params, ci, bg, cfg), FRAMES)
     # Each strip's render on a graph of its own (a process renders one):
-    # bit for bit the eager strip, timed; strip 1's capture kept.
+    # bit for bit the eager strip; strip 1's capture kept.
     from brush_tpu_torch import graphs
-    strip_graphs, graph_captured, graph_ms = [], [], []
+    strip_graphs, graph_captured = [], []
     for i, c in enumerate(strips):
         g = graphs.RenderGraph(scfg, s.means.shape[0])
         with (kernels.capture() if i == 1
@@ -3087,45 +2490,32 @@ def phase_space(torch, serve):
             got, _ = g(*params, c, bg)
             check(torch.equal(got.view(torch.int32), imgs[i].view(
                 torch.int32)), f"strip {i} on a graph differs from eager")
-        graph_ms.append(time_ms(torch, lambda g=g, c=c: g(*params, c, bg),
-                                FRAMES))
         strip_graphs.append(g)
     sync_free(torch, "strip graph replay",
               lambda: strip_graphs[0](*params, strips[0], bg))
-    strip_reading = graph_reading(
-        torch, "strip", strip_graphs[1].replay,
-        lambda: strip_graphs[1](*params, strips[1], bg))
+    strip_replay = replay_profile(
+        torch, "strip", lambda: strip_graphs[1](*params, strips[1], bg))
     for name in kernels.SERVE_PATH:
-        check(strip_reading["kernels"].get(name, 0) > 0,
+        check(strip_replay["kernels"].get(name, 0) > 0,
               f"the replayed strip launched no {name}")
     del strip_graphs, g, got
     graphs.free_pools()
     res = dict(h_strip=h_strip, isect_cap=scfg.isect_cap,
                expand_k0=scfg.expand_k0, strip_isects=isects,
-               strip_planned_caps=[c for _, c in plans], strip_ms=strip_ms,
-               full_frame_ms=frame_ms, rgb_quantiles=quant,
-               rgb_mean=mean_rgb, rgb_max=float(d_rgb.max()),
-               rgb_share_over=over, alpha_max=d_alpha,
-               graph_strip_ms=graph_ms, strip_reading=strip_reading,
-               graph_captured=graph_captured,
+               strip_planned_caps=[c for _, c in plans], rgb_mean=mean_rgb,
+               alpha_max=d_alpha, graph_captured=graph_captured,
                graph_counts=counted(graph_captured),
                launches=launches, captured=captured, strips=SPACE_STRIPS,
                # + 0.0: the all_reduce's sum with zeros turns -0 into +0
                frame=(frame + 0.0).cpu(),
-               job=dict(splats=s, cam=cam, bg=bg.cpu(), rcfg=rcfg),
-               seconds=time.perf_counter() - t_phase)
+               job=dict(splats=s, cam=cam, bg=bg.cpu(), rcfg=rcfg))
     log(f"[space] view yaw={angle:+.2f} in {SPACE_STRIPS} strips of "
         f"{w}x{h_strip}: num_isects {isects} against the cap "
         f"{scfg.isect_cap} (planned a strip {res['strip_planned_caps']}, "
-        f"expand_k0 {scfg.expand_k0}); strip ms "
-        f"{[round(x, 4) for x in strip_ms]} (CUDA events, {FRAMES} "
-        f"renders each; on graphs {[round(x, 4) for x in graph_ms]}, each "
-        f"equal to the eager strip bit for bit) against the full frame's "
-        f"{frame_ms:.4f}; assembled "
-        f"against the full render: alpha max {d_alpha:.3g}, rgb mean "
-        f"{mean_rgb:.3g} quantiles {json.dumps(quant)} max "
-        f"{float(d_rgb.max()):.3g}, share of rgb values off by more than "
-        f"1e-4 / 2/255 {json.dumps(over)}; launches {json.dumps(launches)}")
+        f"expand_k0 {scfg.expand_k0}), on graphs each equal to the eager "
+        f"strip bit for bit; assembled against the full render: alpha max "
+        f"{d_alpha:.3g}, rgb mean {mean_rgb:.3g}; launches "
+        f"{json.dumps(launches)}")
     return res
 
 
@@ -3154,7 +2544,6 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         SceneBatch, init_train_state, stack_batches, train_step_impl)
     from brush_tpu_torch.utils.synthetic import bench_splats
 
-    t_phase = time.perf_counter()
     img = IMG_SIZE
     plans = serve["plans"][:DP_VIEWS]
     # Ground truth of every view: the train phase's for view 0, the second
@@ -3208,35 +2597,25 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         # The eager DP step: the body the graph captures, the share's
         # all_reduces over NCCL (its first step sets NCCL up).
         share = view_share(group, DP_VIEWS)
-        state, losses, events, captured = _twin(torch, state0), [], [], []
+        state, losses, captured = _twin(torch, state0), [], []
         kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
         for i in range(1, DP_STEPS + 1):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
             with (kernels.capture() if i == DP_CAPTURED_STEP
                   else contextlib.nullcontext([])) as cap_list:
                 state, stats, _ = train_step_impl(
                     state, batch, tcfg, rcfg, batched=True, share=share)
-            end.record()
             captured.extend(cap_list)
-            events.append((start, end))
             losses.append(float(stats.loss))
             check(not bool(stats.overflowed), f"dp step {i} overflowed")
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         # The DP step as a user makes it: on a StepGraph over NCCL, the
         # all_reduces in the graph. Its first step captures.
         step = make_dp_train_step(group, tcfg, rcfg)
         check(step.graphs is not None, "the NCCL DP step is not graphed")
         graphed, g_losses = fresh_copy(torch, state0), []
-        t0 = time.perf_counter()
         with kernels.capture() as dp_graph_captured:
             graphed, stats, _ = step(graphed, batch)
-        torch.cuda.synchronize()
-        dp_capture_s = time.perf_counter() - t0
         g_losses.append(float(stats.loss))
         for _ in range(DP_STEPS - 1):
             graphed, stats, _ = step(graphed, batch)
@@ -3248,23 +2627,11 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         g_state = fresh_copy(torch, graphed)
         sync_free(torch, "graph DP step replay (NCCL)",
                   lambda: step(graphed, batch))
-        g_ms, g_host = [], []
-        for _ in range(DP_TIMED):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            graphed, _, _ = step(graphed, batch)
-            g_host.append((time.perf_counter() - t0) * 1e3)
-            end.record()
-            g_ms.append((start, end))
-        torch.cuda.synchronize()
-        g_ms = [a.elapsed_time(b) for a, b in g_ms]
         own = step.graphs.graph
-        dp_reading = graph_reading(torch, "DP step (NCCL)", own.replay,
+        dp_replay = replay_profile(torch, "DP step (NCCL)",
                                    lambda: step(own.state, batch))
         for name in kernels.TRAIN_PATH:
-            check(dp_reading["kernels"].get(name, 0) > 0,
+            check(dp_replay["kernels"].get(name, 0) > 0,
                   f"the replayed DP step launched no {name}")
         del own
         step.graphs.clear()
@@ -3279,8 +2646,6 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         with wrapped(graphs, "capturable", lambda real: lambda *a: False):
             eager_run = make_space_parallel_render(group, frame_cfg)
             strip_want = eager_run(*sp_args) + 0.0
-            strip_eager_ms = time_ms(torch, lambda: eager_run(*sp_args),
-                                     FRAMES)
         run = make_space_parallel_render(group, frame_cfg)
         with kernels.capture() as run_captured:
             run(*sp_args)
@@ -3288,7 +2653,6 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
             check(torch.equal((run(*sp_args) + 0.0).view(torch.int32),
                               strip_want.view(torch.int32)),
                   "the strips' run on a graph over NCCL differs from eager")
-        strip_graph_ms = time_ms(torch, lambda: run(*sp_args), FRAMES)
         check(run.graph.captured and run_captured,
               "the strips' run over NCCL was not captured")
         del run, eager_run, strip_want, sp, sp_args
@@ -3297,33 +2661,27 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         dist.destroy_process_group()
     for name in kernels.TRAIN_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched")
-    ms = [a.elapsed_time(b) for a, b in events]
     report = hold_state(torch, state, ref, lrs)
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     bad = {p: r for p, r in report.items() if r["bad"]}
     g_bad = {p: r for p, r in g_report.items() if r["bad"]}
     log(f"[dp] (a) one-process NCCL group, B={DP_VIEWS} views at {img[0]}x"
-        f"{img[1]}, {N_SPLATS} splats sh{SH_DEGREE}: eager step ms "
-        f"{[round(x, 3) for x in ms]} (median {statistics.median(ms):.4f}; "
-        f"the first sets up NCCL), peak {peak_mb:.1f} MiB; losses {losses} "
-        f"against the batched step's {ref_losses} (rel {loss_rel}); tensors "
+        f"{img[1]}, {N_SPLATS} splats sh{SH_DEGREE}: eager DP step losses "
+        f"{losses} against the batched step's {ref_losses} (rel {loss_rel}); "
+        f"tensors "
         f"outside rtol 1e-5 atol 1e-6: {json.dumps(bad)}; the batched step "
         f"against its own repeat: "
         f"{json.dumps({p: r for p, r in self_report.items() if r['bad']})}")
     log(f"[dp] (a) the DP step on a graph over NCCL (make_dp_train_step, "
-        f"its all_reduces captured): capture {dp_capture_s:.3f} s, losses "
+        f"its all_reduces captured): losses "
         f"{g_losses}; against the eager DP step bit for bit: {not g_bits} "
         f"(differing {g_bits}; largest |d| by path "
         + json.dumps({p: float(f"{v:.3g}") for p, v in g_diffs.items() if v})
         + f"); tensors outside rtol 1e-5 atol 1e-6 of the batched step: "
-        f"{json.dumps(g_bad)}; step ms {[round(x, 3) for x in g_ms]} "
-        f"(median {statistics.median(g_ms):.4f}, {DP_TIMED} replays; host "
-        f"ms a replay {statistics.median(g_host):.4f}) against the eager DP "
-        f"step's {statistics.median(ms):.4f}")
-    log(f"[space] the strips' run over the one-process NCCL group (one "
-        f"strip, the frame's all_reduce in the graph): equal to eager bit "
-        f"for bit, {strip_graph_ms:.4f} ms against eager "
-        f"{strip_eager_ms:.4f} ms (CUDA events, {FRAMES} runs)")
+        f"{json.dumps(g_bad)}")
+    log("[space] the strips' run over the one-process NCCL group (one "
+        "strip, the frame's all_reduce in the graph): equal to eager bit "
+        "for bit")
     check(max(loss_rel) <= 1e-5, f"dp losses {losses} against {ref_losses}")
     check(not bad, "the dp step differs from the batched step")
     check(not g_bad, "the graphed dp step differs from the batched step")
@@ -3357,7 +2715,7 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
     torch.save(job, job_path)
     del job, ref
     torch.cuda.empty_cache()
-    child_secs = run_children(torch, "ranks", [
+    run_children(torch, "ranks", [
         job_path, "file://" + os.path.join(work, "gloo_store"), work],
         DP_RANKS, work)
     ranks = []
@@ -3376,10 +2734,7 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
         after = {k: v for k, v in res["after"].items() if k != "digest"}
         log(f"[dp] (b) rank {r} of {DP_RANKS} (gloo, one card; the step "
             f"{res['step_kind']}, the strips' render on a graph and their "
-            f"all_reduce eager): step ms "
-            f"{[round(x, 3) for x in res['ms']]} (the cost of the "
-            f"collective path on a shared card, not a scaling figure), peak "
-            f"{res['peak_mib']:.1f} MiB; losses {res['losses']} (rel "
+            f"all_reduce eager): losses {res['losses']} (rel "
             f"{rel}); tensors outside rtol 1e-5 atol 1e-6 against (a)'s "
             f"reference: {json.dumps(bad)}; after a refine and a step "
             f"{json.dumps(after)}")
@@ -3398,14 +2753,13 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
               f"rendered here")
     log(f"[space] render_space_parallel over {DP_RANKS} gloo processes on "
         f"one card: every process's frame equals the strips rendered here "
-        f"bit for bit; strip render ms by rank "
-        f"{[round(x['space_ms'], 4) for x in ranks]}")
+        f"bit for bit")
 
     # --- (c): the CLI under torchrun ---
     out = os.path.join(work, "dp_cli")
     os.makedirs(out)
     export = os.path.join(out, "dp_{iter}.ply")
-    cli_secs = run_children(torch, "cli", [out, data, "--views-per-batch",
+    run_children(torch, "cli", [out, data, "--views-per-batch",
                                            str(DP_VIEWS),
                                            "--total-train-iters",
                                            str(DP_CLI_STEPS),
@@ -3441,39 +2795,19 @@ def phase_dp(torch, serve, train, space, data: str, work: str):
     log(f"[dp] (c) torchrun --nproc-per-node {DP_RANKS} of the CLI "
         f"({cli[0]['backend']}, {DP_CLI_STEPS} steps of {DP_VIEWS} views at "
         f"{img[0]}x{img[1]}, refine every {DP_CLI_REFINE_EVERY}): "
-        f"{cli_secs:.1f} s, steps {cli[0]['step_kind']}; losses "
-        f"{cli[0]['losses']}; refine "
-        f"{cli[0]['refines']}; overflowed {cli[0]['overflowed']}; peak MiB "
-        f"by rank {[round(c['peak_mib'], 1) for c in cli]}; one export, "
-        f"final states equal")
-    res = dict(step_median_ms=statistics.median(ms), step_ms=ms,
-               peak_mib=peak_mb, losses=losses, ref_losses=ref_losses,
-               graph_step_median_ms=statistics.median(g_ms),
-               graph_step_ms=g_ms, graph_host_ms=statistics.median(g_host),
-               graph_capture_s=dp_capture_s, graph_losses=g_losses,
-               graph_bit_identical_to_eager=not g_bits,
-               graph_bit_identical_to_graphed_batched=not b_bits,
-               graph_max_abs_diff={p: v for p, v in g_diffs.items() if v},
-               dp_reading=dp_reading,
-               graph_captured=list(dp_graph_captured),
-               graph_counts=counted(dp_graph_captured),
-               nccl_strip_graph_ms=strip_graph_ms,
-               nccl_strip_eager_ms=strip_eager_ms,
-               ranks_step_kind=[x["step_kind"] for x in ranks],
-               cli_step_kind=cli[0]["step_kind"],
-               steps=DP_STEPS, launches=launches, captured=captured,
-               ranks_step_ms=[x["ms"] for x in ranks],
-               ranks_step_median_ms=[statistics.median(x["ms"])
-                                     for x in ranks],
-               ranks_peak_mib=[x["peak_mib"] for x in ranks],
-               ranks_seconds=child_secs, cli_seconds=cli_secs,
-               cli_losses=cli[0]["losses"],
-               cli_peak_mib=[c["peak_mib"] for c in cli],
-               cli_backend=cli[0]["backend"],
-               seconds=time.perf_counter() - t_phase)
-    log(f"[dp] phase wall time {res['seconds']:.1f} s (children "
-        f"{child_secs:.1f} s, torchrun {cli_secs:.1f} s)")
-    return res
+        f"steps {cli[0]['step_kind']}; losses {cli[0]['losses']}; refine "
+        f"{cli[0]['refines']}; overflowed {cli[0]['overflowed']}; one "
+        f"export, final states equal")
+    return dict(losses=losses, ref_losses=ref_losses, graph_losses=g_losses,
+                graph_bit_identical_to_eager=not g_bits,
+                graph_bit_identical_to_graphed_batched=not b_bits,
+                graph_max_abs_diff={p: v for p, v in g_diffs.items() if v},
+                graph_captured=list(dp_graph_captured),
+                graph_counts=counted(dp_graph_captured),
+                ranks_step_kind=[x["step_kind"] for x in ranks],
+                cli_step_kind=cli[0]["step_kind"],
+                steps=DP_STEPS, launches=launches, captured=captured,
+                cli_losses=cli[0]["losses"], cli_backend=cli[0]["backend"])
 
 
 def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
@@ -3500,14 +2834,10 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
     try:
         group = dist.group.WORLD
         step = make_dp_train_step(group, job["tcfg"], job["rcfg"])
-        torch.cuda.reset_peak_memory_stats()
-        out = dict(losses=[], digests=[], ms=[], step_kind=(
+        out = dict(losses=[], digests=[], step_kind=(
             "eager (gloo)" if step.graphs is None else "graphs"))
         for _ in range(DP_STEPS):
-            t0 = time.perf_counter()
             state, stats, _ = step(state, job["batch"])
-            torch.cuda.synchronize()
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
             out["losses"].append(float(stats.loss))
             out["digests"].append(state_digest(torch, state))
         out["report"] = hold_state(torch, state, job["ref"], job["lrs"])
@@ -3520,7 +2850,6 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
             finite=all(bool(torch.isfinite(v).all())
                        for v in state.splats.params().values()),
             digest=state_digest(torch, state))
-        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
         del state
         sp = job["space"]
         s = sp["splats"]
@@ -3530,17 +2859,10 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
         args = (s.means, s.log_scales, s.quats, s.sh_coeffs,
                 s.raw_opacities, stack, sp["bg"].to("cuda"))
         frame = run(*args).clone()     # the capture's eager warm-up
-        times = []
         for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            again = run(*args)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            if not torch.equal(again.view(torch.int32),
+            if not torch.equal(run(*args).view(torch.int32),
                                frame.view(torch.int32)):
                 raise RuntimeError("a replay of the strips differs")
-        out["space_ms"] = statistics.median(times)
         out["strip_graphed"] = run.graph.captured
         del run
         dist.barrier()
@@ -3549,16 +2871,15 @@ def child_ranks(torch, rank: int, world: int, job_path: str, store: str,
     torch.save(frame.cpu(), os.path.join(work, f"frame{rank}.pt"))
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    print(f"rank {rank}: losses {out['losses']} step ms {out['ms']}",
-          flush=True)
+    print(f"rank {rank}: losses {out['losses']}", flush=True)
     return 0
 
 
 def child_cli(torch, out: str, argv: list, eager: bool = False) -> int:
     """A process of the dp phase's (c) or of the multi-card case, started
     by torchrun: `cli.main` with the process functions wrapped to record
-    what each process exported, each step's overflow flag and start time,
-    the refines and the final state's digest, one loader thread, every
+    what each process exported, each step's overflow flag and loss, the
+    refines and the final state's digest, one loader thread, every
     program eager when asked; writes out/cli<rank>.json."""
     import functools
 
@@ -3570,12 +2891,11 @@ def child_cli(torch, out: str, argv: list, eager: bool = False) -> int:
 
     rank = int(os.environ["RANK"])
     rec = dict(exports=[], overflowed=[], overflow_iters=[], refines=[],
-               losses=[], turns=[])
+               losses=[])
     last = {}
 
     def step_turn(real):
         def run(loop, *a, **k):
-            rec["turns"].append(time.perf_counter())
             rec["step_kind"] = ("graphs" if loop.graphs is not None
                                 else "eager")
             res = real(loop, *a, **k)
@@ -3601,7 +2921,6 @@ def child_cli(torch, out: str, argv: list, eager: bool = False) -> int:
             return real(path, splats)
         return run
 
-    torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         for name, wrap in (("_step_turn", step_turn),
                            ("_refine_turn", refine_turn),
@@ -3616,35 +2935,9 @@ def child_cli(torch, out: str, argv: list, eager: bool = False) -> int:
                                         lambda real: lambda *a: False))
         rec["rc"] = cli.main(argv)
     rec["digest"] = state_digest(torch, last["state"])
-    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
     with open(os.path.join(out, f"cli{rank}.json"), "w") as f:
         json.dump(rec, f)
     return rec["rc"]
-
-
-# Kernel-phase paths whose launches are held to their plain versions but
-# whose plain versions are not timed (their shapes are timed on other paths).
-UNTIMED_PLAIN_PATHS = ("graph_dp_step", "graph_score", "graph_lod_bake",
-                       "graph_strip")
-
-# The device kernels of csrc/ by the names a profiler trace gives them: a
-# substring of the demangled name, with a second one where one template
-# serves several entries. The backward runs two (gradients, then rounding);
-# a launch of it counts once, by its first.
-KERNEL_SYMBOLS = (
-    ("scan", "scan_rows_kernel", "SumU32"),
-    ("scan_f32", "scan_rows_kernel", "SumF32"),
-    ("scan_max", "scan_rows_kernel", "MaxI32"),
-    ("stack", "stack_rows_kernel", ""),
-    ("emit", "emit_slots_kernel", ""),
-    ("rasterize_fwd", "rasterize_fwd_kernel<false>", ""),
-    ("rasterize_fwd_train", "rasterize_fwd_kernel<true>", ""),
-    ("rasterize_bwd", "rasterize_bwd_kernel", ""),
-    ("expand", "expand_segments_kernel", ""),
-    ("fill", "fill_rows_kernel", ""),
-    ("tile_counts", "tile_hits_kernel", ""),
-    ("project_fwd", "project_fwd_kernel", ""),
-    ("project_bwd", "project_bwd_kernel", ""))
 
 
 def sync_free(torch, what: str, fn):
@@ -3663,45 +2956,38 @@ def sync_free(torch, what: str, fn):
 
 
 def replay_profile(torch, what: str, fn, runs: int = 1) -> dict:
-    """Device ops, busy ms and the launches of each kernel of csrc/ (by
-    its device name) a run of `fn` (a graph's replay: launched as one
-    graph, so the wrappers' counters do not see them), from a
-    torch.profiler trace of `runs` runs; and the host's ms to launch a
-    run."""
+    """Device ops and the launches of each kernel of csrc/ (by its device
+    name, `kernels.KERNELS`) a run of `fn` (a graph's replay: launched as
+    one graph, so the wrappers' counters do not see them), from a
+    torch.profiler trace of `runs` runs."""
     from torch.profiler import ProfilerActivity, profile
+
+    from brush_tpu_torch import kernels
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(runs):
             fn()
-        host_ms = (time.perf_counter() - t0) * 1e3 / runs
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
     host = {e.name for e in prof.events()
             if e.device_type != torch.autograd.DeviceType.CUDA}
-    busy, n_ops = 0.0, 0
-    kernels_seen = {name: 0 for name, _, _ in KERNEL_SYMBOLS}
+    n_ops = 0
+    seen = dict.fromkeys(kernels.KERNELS, 0)
     for e in prof.events():
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)
                 or e.name in host):
             continue
-        busy += e.time_range.elapsed_us() / 1e3
         n_ops += 1
-        for name, sym, variant in KERNEL_SYMBOLS:
-            if sym in e.name and variant in e.name:
-                kernels_seen[name] += 1
-    res = dict(device_busy_ms=busy / runs, device_ops=n_ops / runs,
-               profiled_wall_ms=wall_ms, host_ms=host_ms,
-               kernels={k: v / runs for k, v in kernels_seen.items() if v})
+        for name, row in kernels.KERNELS.items():
+            symbol, variant = row.symbol
+            if symbol in e.name and variant in e.name:
+                seen[name] += 1
+    res = dict(device_ops=n_ops / runs,
+               kernels={k: v / runs for k, v in seen.items() if v})
     log(f"[graph] {what}, profiled replay: {res['device_ops']:.1f} device "
-        f"ops, busy {res['device_busy_ms']:.4f} ms of "
-        f"{res['profiled_wall_ms']:.4f} ms (idle share "
-        f"{1.0 - res['device_busy_ms'] / res['profiled_wall_ms']:.4f}), "
-        f"host {res['host_ms']:.4f} ms to launch; kernels of csrc/ by "
-        f"device name " + json.dumps(res["kernels"]))
+        f"ops; kernels of csrc/ by device name " + json.dumps(res["kernels"]))
     return res
 
 
@@ -3743,12 +3029,12 @@ def hold_steps(torch, got, want, lrs: dict, steps: int,
     return out
 
 
-def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
+def phase_graph(torch, serve, train, loop, proc):
     """The JAX package's compiled, donated programs on the card: the eager
     frame, step and loop turn run under sync debug mode, then the graphed
-    serve, train and loop cells held to the eager ones, with their times
-    and one profiled replay each; `train_process` (the process phase) ran
-    through `StepGraphs`. The launches of the frame's and the step's
+    serve, train and loop cells held to the eager ones, the frame and the
+    step with one profiled replay each; `train_process` (the process phase)
+    ran through `StepGraphs`. The launches of the frame's and the step's
     captures are kept for the kernel phase."""
     from brush_tpu_torch import graphs, kernels
     from brush_tpu_torch.ops.rasterize_cuda import BWD_RTOL
@@ -3759,7 +3045,6 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     from brush_tpu_torch.train.trainer import train_step_impl
     from brush_tpu_torch.utils.synthetic import bench_splats
 
-    t_phase = time.perf_counter()
     img = IMG_SIZE
     plans = serve["plans"]
     serve_cfg = plans[0][2]
@@ -3806,11 +3091,8 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     # --- serve cell: the frame as a RenderGraph ---
     graphs.RENDER_GRAPHS.clear()
     kernels.reset_launches()
-    t0 = time.perf_counter()
     with kernels.capture() as cap_frame:
         graphs.RENDER_GRAPHS.get(render, cfg, N_SPLATS)(*params, cams[0], bg)
-    torch.cuda.synchronize()
-    frame_capture_s = time.perf_counter() - t0
     frame_launches = dict(kernels.LAUNCHES)
     frame = graphs.RENDER_GRAPHS.get(render, cfg, N_SPLATS)
     for v, (ci, (want, w_aux)) in enumerate(zip(cams, wants)):
@@ -3821,26 +3103,8 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
         check(int(aux.num_isects) == int(w_aux.num_isects),
               f"view {v}: num_isects {int(aux.num_isects)} against "
               f"{int(w_aux.num_isects)}")
-    events, host_ms = [], []
-    for f in range(FRAMES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        frame(*params, cams[f % len(cams)], bg)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    frame_ms = [a.elapsed_time(b) for a, b in events]
     sync_free(torch, "graph frame replay", lambda: frame(*params, cams[1],
                                                          bg))
-    frame_host_us = host_us(torch, {
-        "call": lambda: frame(*params, cams[0], bg),
-        "replay": lambda: frame._graph.replay(),
-    }, calls=3, repeats=3)
-    log("[graph] serve frame replay, host us a call: "
-        + json.dumps({k: round(v, 1) for k, v in frame_host_us.items()}))
     # Three replays: a trace now and then drops an op.
     frame_prof = replay_profile(torch, "serve frame",
                                 lambda: frame(*params, cams[0], bg), runs=3)
@@ -3849,21 +3113,12 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
               f"the replayed frame launched no {name}")
         check(any(c.name == name for c in cap_frame),
               f"the frame's capture recorded no {name}")
-    res = dict(frame_median_ms=statistics.median(frame_ms),
-               frame_ms=frame_ms, frame_host_ms=statistics.median(host_ms),
-               frame_capture_s=frame_capture_s, frame_host_us=frame_host_us,
-               eager_frame_median_ms=serve["median_ms"],
-               eager_frame_host_ms=serve["host_ms"],
-               frame_replay=frame_prof, frame_launches=frame_launches,
+    res = dict(frame_replay=frame_prof, frame_launches=frame_launches,
                frame_config=dict(expand_k0=cfg.expand_k0,
                                  isect_cap=cfg.isect_cap))
     log(f"[graph] serve cell: {len(cams)} views, each graph frame equal to "
         f"the eager frame bit for bit (expand_k0={cfg.expand_k0} isect_cap="
-        f"{cfg.isect_cap}); capture {frame_capture_s:.3f} s; "
-        f"frame_median_ms={res['frame_median_ms']:.4f} over {FRAMES} "
-        f"replays (min {min(frame_ms):.4f} max {max(frame_ms):.4f}) "
-        f"host_ms_a_replay={res['frame_host_ms']:.4f}; eager frame "
-        f"{serve['median_ms']:.4f} ms, host {serve['host_ms']:.4f} ms")
+        f"{cfg.isect_cap})")
     del wants, frame
     graphs.RENDER_GRAPHS.clear()
 
@@ -3871,32 +3126,21 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     eager, graphed = _twin(torch, state0), _twin(torch, state0)
     steps = graphs.StepGraphs(tcfg)
     kernels.reset_launches()
-    t0 = time.perf_counter()
     with kernels.capture() as cap_step:
         graphed, g_stats, _ = steps(graphed, batch, rcfg)
-    torch.cuda.synchronize()
-    step_capture_s = time.perf_counter() - t0
     step_launches = dict(kernels.LAUNCHES)
     eager, e_stats, _ = train_step_impl(eager, batch, tcfg, rcfg)
     stats_by = {"graph": [g_stats], "eager": [e_stats]}
-    timing = {"graph": ([], []), "eager": ([], [])}
     # The eager steps, then the replays, each run back to back as a
     # training loop runs them.
     for how in ("eager", "graph"):
         for _ in range(TRAIN_STEPS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
             if how == "graph":
                 graphed, st, _ = steps(graphed, batch, rcfg)
             else:
                 eager, st, _ = train_step_impl(eager, batch, tcfg, rcfg)
-            timing[how][1].append((time.perf_counter() - t0) * 1e3)
-            end.record()
-            timing[how][0].append((start, end))
             stats_by[how].append(st)
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     pairs = list(zip(stats_by["graph"], stats_by["eager"]))
     losses = [(float(g.loss), float(e.loss)) for g, e in pairs]
     for k, (g, e) in enumerate(losses, start=1):
@@ -3910,20 +3154,8 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     check(torch.equal(graphed.rng.get_state(), eager.rng.get_state()),
           "the generator after the graphed steps differs from eager's")
     check(steps.captures == 1, f"{steps.captures} captures for one key")
-    step_ms = {k: [a.elapsed_time(b) for a, b in ev]
-               for k, (ev, _) in timing.items()}
     sync_free(torch, "graph step replay",
               lambda: steps(graphed, batch, rcfg))
-    # Where the host's time of a graphed step goes: the cache key, the
-    # replay's launch and the copies out (3 calls back to back).
-    step_host_us = host_us(torch, {
-        "call": lambda: steps(graphed, batch, rcfg),
-        "key": lambda: graphs.step_key(graphed, rcfg, False, False),
-        "replay": lambda: steps.graph._graph.replay(),
-        "copy_out": lambda: graphs.copy_out(steps.graph._outs),
-    }, calls=3, repeats=3)
-    log("[graph] training step replay, host us a call: "
-        + json.dumps({k: round(v, 1) for k, v in step_host_us.items()}))
     step_prof = replay_profile(torch, "training step",
                                lambda: steps(graphed, batch, rcfg))
     for name in kernels.TRAIN_PATH:
@@ -3932,24 +3164,14 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
         check(any(c.name == name for c in cap_step),
               f"the step's capture recorded no {name}")
     res.update(
-        step_median_ms=statistics.median(step_ms["graph"]),
-        step_ms=step_ms["graph"],
-        step_host_ms=statistics.median(timing["graph"][1]),
-        eager_step_median_ms=statistics.median(step_ms["eager"]),
-        eager_step_host_ms=statistics.median(timing["eager"][1]),
-        step_capture_s=step_capture_s, step_losses=losses,
-        step_host_us=step_host_us,
+        step_losses=losses,
         step_max_abs_diff={k: v for k, v in diffs.items() if v},
         step_replay=step_prof, step_launches=step_launches)
     log(f"[graph] train cell: {1 + TRAIN_STEPS} steps graphed and eager "
         f"from one state, losses {[(round(g, 7), round(e, 7)) for g, e in losses]}"
         f", every state tensor within the rule (largest |d| by path "
         + json.dumps({k: float(f"{v:.3g}") for k, v in diffs.items() if v})
-        + f"), the generator equal; capture {step_capture_s:.3f} s; "
-        f"step_median_ms={res['step_median_ms']:.4f} host_ms_a_replay="
-        f"{res['step_host_ms']:.4f}; eager in the same run "
-        f"{res['eager_step_median_ms']:.4f} ms, host "
-        f"{res['eager_step_host_ms']:.4f} ms")
+        + "), the generator equal")
     steps.clear()
     del eager, graphed, pairs
 
@@ -3961,15 +3183,10 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     gl = LoopState(state=init_train_state(student, SEED), rcfg=rcfg,
                    graphs=graphs.StepGraphs(tcfg_loop))
     del student
-    events, flags, messages = [], [], []
+    flags, messages = [], []
     for i in range(LOOP_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         gl, stats, msgs = loop_step(gl, batches[i % N_VIEWS], tcfg_loop,
                                     centers, focals)
-        end.record()
-        events.append((start, end))
         flags.append(stats.overflowed)
         messages += msgs
         if any(m.kind == "refine" for m in msgs):
@@ -3977,8 +3194,6 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
             for name, x in gl.state.splats.params().items():
                 check(bool(torch.isfinite(x[:n_alive]).all()),
                       f"{name} not finite after the refine at {i + 1}")
-    torch.cuda.synchronize()
-    ms = [a.elapsed_time(b) for a, b in events]
     refines = [m.iter for m in messages if m.kind == "refine"]
     overflows = [m for m in messages if m.kind == "overflow"]
     check(refines == list(range(REFINE_EVERY, LOOP_STEPS + 1, REFINE_EVERY)),
@@ -3995,18 +3210,13 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     gap = ev["psnr"] - loop["psnr"]["after"]
     check(abs(gap) <= 0.05, f"eval psnr {ev['psnr']} after the graphed loop "
           f"against {loop['psnr']['after']} after the eager loop")
-    plain = [t for i, t in enumerate(ms) if (i + 1) % REFINE_EVERY]
-    res.update(loop_step_median_ms=statistics.median(plain), loop_ms=ms,
-               loop_captures=captures, loop_psnr=ev["psnr"],
+    res.update(loop_captures=captures, loop_psnr=ev["psnr"],
                eager_loop_psnr=loop["psnr"]["after"],
-               eager_loop_step_median_ms=loop["step_median_ms"],
                loop_overflows=[m.data for m in overflows])
     log(f"[graph] loop cell: {LOOP_STEPS} turns of loop_step on StepGraphs "
         f"({captures} captures: the first step, the layout the first refine "
         f"makes, and each capacity or isect_cap growth), refines at "
-        f"{refines}, state finite after each, no overflow after growth; "
-        f"loop_step_median_ms={res['loop_step_median_ms']:.4f} (turns "
-        f"without a refine; eager loop {loop['step_median_ms']:.4f}); eval "
+        f"{refines}, state finite after each, no overflow after growth; eval "
         f"psnr {ev['psnr']:.4f} dB against the eager loop's "
         f"{loop['psnr']['after']:.4f} (gap {gap:+.4f})")
     gl.graphs.clear()
@@ -4020,41 +3230,21 @@ def phase_graph(torch, serve, train, loop, proc, init_lod, space, dp):
     check(proc["graphed_turns"] == PROCESS_STEPS,
           f"{proc['graphed_turns']} of {PROCESS_STEPS} train_process turns "
           f"ran on StepGraphs")
-    res.update(process_turn_median_ms=proc["step_median_ms"],
-               process_captures=proc["graph_captures"])
-    res["seconds"] = time.perf_counter() - t_phase
+    res.update(process_captures=proc["graph_captures"])
     log(f"[graph] train_process: every turn on StepGraphs "
-        f"({proc['graph_captures']} captures), turn_median_ms="
-        f"{proc['step_median_ms']:.4f}; the graph phase took "
-        f"{res['seconds']:.3f} s")
+        f"({proc['graph_captures']} captures)")
 
     res.update(frame_captured=list(cap_frame), step_captured=list(cap_step),
                frame_counts=counted(cap_frame), step_counts=counted(cap_step))
-
-    # Host time a replay against the graph's size, for every graph.
-    readings = {
-        "frame": dict(host_us=frame_host_us, nodes=frame_prof["device_ops"]),
-        "step": dict(host_us=step_host_us, nodes=step_prof["device_ops"]),
-        "refine": res["refine_reading"],
-        "dp_step": dp["dp_reading"], "score_view": init_lod["score_reading"],
-        "lod_step": proc["lod_reading"], "strip": space["strip_reading"]}
-    res["replay_host_us_by_nodes"] = {
-        k: dict(nodes=r["nodes"], replay_us=r["host_us"]["replay"],
-                call_us=r["host_us"]["call"]) for k, r in readings.items()}
-    log("[graph] host us of replay() and device ops a replay, by graph: "
-        + json.dumps({k: [round(v["replay_us"], 1), round(v["nodes"])]
-                      for k, v in res["replay_host_us_by_nodes"].items()}))
     return res
 
 
 def _refine_cell(torch, loop) -> dict:
     """The loop cell's refine (of the state one step before its last
     refine, so it selects and splits) on a RefineGraph: the first call
-    captures, then replays from copies of the same state, each equal bit
-    for bit to the eager `refine_step` (statistics and generator too);
-    a replay under sync debug mode; CUDA event times of eager refines,
-    graphed calls (the state copied in) and the copy in alone; the replay
-    reading."""
+    captures, then 3 replays from copies of the same state, each equal bit
+    for bit to the eager `refine_step` (statistics and generator too); a
+    replay under sync debug mode."""
     from brush_tpu_torch import graphs
     from brush_tpu_torch.train.refine import refine_step
 
@@ -4062,11 +3252,6 @@ def _refine_cell(torch, loop) -> dict:
     views = (loop["centers"], loop["focals"])
     want, w_stats = refine_step(fresh_copy(torch, state), tcfg, *views)
     refines = graphs.RefineGraphs(tcfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got, g_stats = refines(fresh_copy(torch, state), *views)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
 
     def held(got, g_stats, what):
         bad = diff_bits(torch, got, want)
@@ -4076,99 +3261,20 @@ def _refine_cell(torch, loop) -> dict:
             check(int(getattr(g_stats, name)) == int(getattr(w_stats, name)),
                   f"{what}: {name} {int(getattr(g_stats, name))} against "
                   f"{int(getattr(w_stats, name))}")
-    held(got, g_stats, "the capture's call")
-    timed = {"eager": [], "graph": [], "copy_in": []}
+    held(*refines(fresh_copy(torch, state), *views), "the capture's call")
     for k in range(3):
-        for how in ("eager", "graph", "copy_in"):
-            s = fresh_copy(torch, state)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            if how == "eager":
-                refine_step(s, tcfg, *views)
-            elif how == "graph":
-                got, g_stats = refines(s, *views)
-            else:
-                graphs.load_into(dataclasses.replace(refines.graph.state,
-                                                     rng=None),
-                                 dataclasses.replace(s, rng=None))
-            end.record()
-            timed[how].append((start, end))
-            if how == "graph":
-                torch.cuda.synchronize()
-                held(got, g_stats, f"replay {k + 1}")
-    torch.cuda.synchronize()
-    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in timed.items()}
+        held(*refines(fresh_copy(torch, state), *views), f"replay {k + 1}")
     s = fresh_copy(torch, state)
     sync_free(torch, "graph refine replay", lambda: refines(s, *views))
     check(refines.captures == 1, f"{refines.captures} refine captures")
-    own = refines.graph
-    reading = graph_reading(torch, "refine", own.replay,
-                            lambda: refines(own.state, *views))
     refines.clear()
-    del own, got, want, s
-    med = {k: statistics.median(v) for k, v in ms.items()}
-    log(f"[graph] loop cell's refine on a RefineGraph: capture "
-        f"{capture_s:.3f} s; 3 replays from copies of the state one step "
-        f"before the last refine, each equal to eager bit for bit (added "
-        f"{int(w_stats.num_added)}, pruned {int(w_stats.num_pruned)}, "
-        f"resampled {int(w_stats.num_resampled)}); ms (CUDA events, median "
-        f"of 3): graphed {med['graph']:.4f} (the state copied in: "
-        f"{med['copy_in']:.4f}), eager {med['eager']:.4f}; profiled replay "
-        f"busy {reading['device_busy_ms']:.4f} ms")
-    return dict(refine_graph_ms=med["graph"], refine_eager_ms=med["eager"],
-                refine_copy_in_ms=med["copy_in"],
-                refine_capture_s=capture_s, refine_reading=reading,
-                refine_stats={k: int(getattr(w_stats, k))
+    del want, s
+    log(f"[graph] loop cell's refine on a RefineGraph: 3 replays from "
+        f"copies of the state one step before the last refine, each equal "
+        f"to eager bit for bit (added {int(w_stats.num_added)}, pruned "
+        f"{int(w_stats.num_pruned)}, resampled {int(w_stats.num_resampled)})")
+    return dict(refine_stats={k: int(getattr(w_stats, k))
                               for k in w_stats._fields})
-
-
-def train_order_ms(torch, launch) -> dict:
-    """Device ms a call of the training forward kernel on a launch's
-    inputs with its parts handed out in tile order (as the wrapper runs
-    it: no order, no sort) and longest tile first (`tile_order`), this with
-    and without the sort that forms the order, each in turn ORDER_ROUNDS
-    times over, the two orders' tiles equal bit for bit; and the sort's
-    own device ms and ops a call."""
-    from brush_tpu_torch.kernels import build
-    from brush_tpu_torch.ops import rasterize_cuda as rc
-
-    soa, ranges, bg, img_size = launch.inputs
-    n_tiles = ranges.shape[0]
-    out = torch.empty((n_tiles, rc.TRAIN_OUT_ROWS, rc.TILE_PIX),
-                      dtype=torch.float32, device=soa.device)
-    words = torch.empty(n_tiles * (rc.TILE_PARTS + 1) + 1, dtype=torch.int32,
-                        device=soa.device)
-    lib = build.library()
-    tbw = rc._tile_grid(img_size)[0]
-
-    def run(order):
-        err = lib.brush_rasterize_fwd_train(
-            soa.data_ptr(), soa.shape[1], ranges.data_ptr(),
-            None if order is None else order.data_ptr(), bg.data_ptr(),
-            out.data_ptr(), words.data_ptr(),
-            words[n_tiles * rc.TILE_PARTS:].data_ptr(), n_tiles, tbw,
-            build.stream_ptr(soa.device))
-        build.check(err, "rasterize_forward_train")
-        return out
-
-    order = tile_order(torch, ranges)
-    first = run(order).clone()
-    check(torch.equal(run(None).view(torch.int32), first.view(torch.int32)),
-          "the training forward in tile order differs from longest first")
-    del first
-    ms = {
-        "tile_order": lambda: run(None),
-        "longest_first": lambda: run(order),
-        "longest_first_with_sort": lambda: run(tile_order(torch, ranges)),
-    }
-    res = {k: [] for k in ms}
-    for _ in range(ORDER_ROUNDS):
-        for k, fn in ms.items():
-            res[k].append(device_time(torch, fn, ITERS)["ms"])
-    sort = device_time(torch, lambda: tile_order(torch, ranges), ITERS)
-    res["sort"] = {k: sort[k] for k in ("ms", "kernels", "memsets", "copies")}
-    return res
 
 
 def phase_project(torch) -> dict:
@@ -4218,26 +3324,23 @@ def phase_project(torch) -> dict:
 
 def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                   init_lod, proc, viewer, lpips, dp, space, graph, project):
-    """Replay every launch of the first served frame, of the first training
-    step, of the direct calls, of the stress run, of two growth steps (the
-    overflowing first, and the first at the grown capacities), of two loop
-    steps (the first, and the first after a refine), of one view of the
-    evaluation after the loop, of one view of the LOD scoring, of one
-    step of `train_process` (the first after its first evaluation), of one
-    /render of the web viewer, of the first training step with the
-    LPIPS term, of the second step of the dp phase's one-process group and
-    of the second strip of the space phase: kernel
-    against plain version on the same inputs (each kernel module's own
-    `compare` holds them), then the kernel's, the plain version's and the
-    library call's times. A kernel is listed under the first of those paths
-    that launched it; where a later one did too (scan, stack and emit in
-    the training step; the scans and the stack in the stress run; every
-    render and training kernel in the growth steps, and in the loop, the
-    evaluation, the LOD scoring and the process over a capacity whose
-    second half is dead) it is held and timed at those shapes as well, as `<path>_ms`,
-    the sum over that path's replayed launches. `launches_by_path` holds
-    the counters of every path driven, each read after that path's own
-    run."""
+    """Replay every launch captured by the projection phase, of the first
+    served frame, of the first training step, of the direct calls, of the
+    stress run, of two growth steps (the overflowing first, and the first
+    at the grown capacities), of two loop steps (the first, and the first
+    after a refine), of one view of the evaluation after the loop, of one
+    view of the LOD scoring, of one step of `train_process` (the first
+    capture after its first refine), of one /render of the web viewer, of
+    the first training step with the LPIPS term, of the second step of the
+    dp phase's one-process group, of the second strip of the space phase
+    and of the graphs' captures: kernel against plain version on the same
+    inputs (each kernel module's own `compare` holds them; the plain version
+    runs once a launch), then the kernel's and the library call's times and
+    the kernel's bound. A kernel is listed under the first of those paths
+    that launched it; where a later one did too it is held and timed at
+    those shapes as well, as `<path>_ms`, the sum over that path's replayed
+    launches. `launches_by_path` holds the counters of every path driven,
+    each read after that path's own run."""
     from brush_tpu_torch import kernels
 
     def repeat_columns(inputs):
@@ -4260,43 +3363,35 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         "scan_max": lambda inp: lambda: torch.cummax(inp[0], dim=0),
         "expand": repeat_columns,
     }
-    # The plain rasterizers, emission and tile counts are slow at full
-    # width, the plain expansion and fill at 30M slots: time them over
-    # fewer calls.
-    plain_iters = {"emit": 2, "tile_counts": 2, "project_fwd": 2,
-                   "project_bwd": 2, "rasterize_fwd": 1,
-                   "rasterize_fwd_train": 1, "rasterize_bwd": 1, "expand": 2,
-                   "fill": 2}
 
-    def measure(name, launches, time_plain=True):
-        r = dict(ms=0.0, device_ms=0.0, plain_ms=0.0 if time_plain else None,
+    def measure(name, launches):
+        row = kernels.KERNELS[name]
+        r = dict(ms=0.0, device_ms=0.0,
                  library_ms=0.0 if name in library else None,
                  library_device_ms=0.0 if name in library else None,
                  err=0.0, bytes=0, ops=0, shape=[], parts=[])
         for launch in launches:
             kernel, plain = launch.replay(launch.inputs)
             got = kernel()
-            want, pairs, slot_grads = plain_counted(launch, plain)
+            want, pairs = plain_counted(launch, plain)
             torch.cuda.synchronize()
             err = launch.compare(got, want)
             del want
             nbytes, ops, shape = kernel_work(launch, got, pairs)
             del got
-            check(name in OWN_LAUNCHES, f"{name} has no OWN_LAUNCHES row")
-            own, memsets = OWN_LAUNCHES[name]
-            dev = device_time(torch, kernel, ITERS, own=own)
+            dev = device_time(torch, kernel, ITERS, own=row.launches)
             # No reading of zero: a call runs at least its own kernels and
             # takes device time (a trace that dropped them was retaken).
-            check(dev["ms"] > 0.0 and dev["kernels"] >= own,
+            check(dev["ms"] > 0.0 and dev["kernels"] >= row.launches,
                   f"{name} {shape}: device_ms {dev['ms']} with (kernels, "
                   f"memsets, copies) a call by trace {dev['ops_by_trace']}")
             # The kernel's own launches a call and at most its memsets,
             # nothing else, in some trace (a trace may drop ops, never add).
-            check(any(k == own and m <= memsets and c == 0
+            check(any(k == row.launches and m <= row.memsets and c == 0
                       for k, m, c in dev["ops_by_trace"]),
                   f"{name} {shape}: (kernels, memsets, copies) a call by "
-                  f"trace {dev['ops_by_trace']}, expected {own} kernels, at "
-                  f"most {memsets} memsets, no copies")
+                  f"trace {dev['ops_by_trace']}, expected {row.launches} "
+                  f"kernels, at most {row.memsets} memsets, no copies")
             lib = (library[name](launch.inputs) if name in library
                    else None)
             part = dict(
@@ -4304,27 +3399,17 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                 device_ms=dev["ms"],
                 device_ops={k: dev[k] for k in ("kernels", "memsets",
                                                 "copies", "retraced")},
-                plain_ms=(time_ms(torch, plain, plain_iters.get(name, ITERS),
-                                  warm=False) if time_plain else None),
                 library_ms=(time_ms(torch, lib, ITERS) if lib else None),
                 library_device_ms=(device_time(torch, lib, ITERS)["ms"]
                                    if lib else None),
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3)
-            if name == "rasterize_bwd":
-                part["slot_reduce_device_ms"] = slot_reduce_ms(
-                    torch, launch.inputs, slot_grads)
-                r["slot_reduce_device_ms"] = (
-                    r.get("slot_reduce_device_ms", 0.0)
-                    + part["slot_reduce_device_ms"])
-            del slot_grads
             r["err"] = max(r["err"], err)
             r["bytes"] += nbytes
             r["ops"] += ops
             r["shape"].append(shape)
             r["parts"].append(part)
-            for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                        "library_device_ms"):
+            for key in ("ms", "device_ms", "library_ms", "library_device_ms"):
                 if part[key] is not None:
                     r[key] += part[key]
         return r
@@ -4379,58 +3464,46 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
                         by_name(space["graph_captured"]), 1)}
     counters = {p: c for p, (c, _, _) in paths.items()}
     line = []
-    for name in kernels.KERNEL_NAMES:
+    for name, row in kernels.KERNELS.items():
         path = next(p for p, (_, caps, _) in paths.items() if name in caps)
         counts, caps, n_runs = paths[path]
         r = measure(name, caps[name])
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / F32_OPS_PER_S * 1e3
-        src, replaces, tpu = KERNEL_META[name]
         entry = dict(
-            name=name, route="cuda", source=src, replaces=replaces, tpu=tpu,
+            name=name, source=f"brush_tpu_torch/csrc/{row.source}",
             path=path, launches=counts[name],
             launches_per_run=counts[name] / n_runs,
             launches_by_path={p: c[name] for p, c in counters.items()},
             max_abs_err=r["err"], ms=r["ms"], device_ms=r["device_ms"],
-            plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
+            bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=r["library_ms"],
             library_device_ms=r["library_device_ms"], shape=r["shape"],
             device_ops=[part["device_ops"] for part in r["parts"]])
         if len(r["parts"]) > 1:
             entry["per_launch"] = r["parts"]
-        if "slot_reduce_device_ms" in r:
-            entry["slot_reduce_device_ms"] = r["slot_reduce_device_ms"]
         also = ""
         for other, (o_counts, o_caps, o_runs) in paths.items():
             if other == path or name not in o_caps:
                 continue
             # Also on this path: hold those launches to their plain versions
             # too, and time them at their shapes.
-            # The graphs' captures of this slice repeat shapes the paths
-            # before them time: each launch is held to its plain version,
-            # and the plain version is not timed again (up to 18 s a path).
-            ro = measure(name, o_caps[name],
-                         time_plain=other not in UNTIMED_PLAIN_PATHS)
+            ro = measure(name, o_caps[name])
             entry["max_abs_err"] = max(entry["max_abs_err"], ro["err"])
             entry.update({
                 f"{other}_launches": o_counts[name],
                 f"{other}_launches_per_run": o_counts[name] / o_runs,
                 f"{other}_replayed": len(o_caps[name]),
                 f"{other}_ms": ro["ms"], f"{other}_device_ms": ro["device_ms"],
-                f"{other}_plain_ms": ro["plain_ms"],
                 f"{other}_library_ms": ro["library_ms"],
                 f"{other}_library_device_ms": ro["library_device_ms"],
                 f"{other}_bound_ms": max(ro["bytes"] / HBM_BYTES_PER_S,
                                          ro["ops"] / F32_OPS_PER_S) * 1e3,
                 f"{other}_shape": ro["shape"]})
-            if "slot_reduce_device_ms" in ro:
-                entry[f"{other}_slot_reduce_device_ms"] = ro[
-                    "slot_reduce_device_ms"]
             also += (f"; on the {other} path: ms={ro['ms']:.5f} device_ms="
-                     f"{ro['device_ms']:.5f} plain_ms={ro['plain_ms']} "
-                     f"library_ms={ro['library_ms']} library_device_ms="
-                     f"{ro['library_device_ms']} "
+                     f"{ro['device_ms']:.5f} library_ms={ro['library_ms']} "
+                     f"library_device_ms={ro['library_device_ms']} "
                      f"bound_ms={entry[f'{other}_bound_ms']:.5f} launches="
                      f"{o_counts[name]} replayed={len(o_caps[name])} "
                      f"shape={ro['shape']}")
@@ -4444,106 +3517,19 @@ def phase_kernels(torch, serve, train, direct, stress, grow, loop,
         log(f"[kernels] {name} ({path}): agrees with plain (max_abs="
             f"{entry['max_abs_err']:.6g}); ms={r['ms']:.5f} device_ms="
             f"{r['device_ms']:.5f} (device ops a call "
-            f"{json.dumps(entry['device_ops'][0])}) plain_ms="
-            f"{r['plain_ms']:.5f} library_ms={r['library_ms']} "
-            f"library_device_ms={r['library_device_ms']} bound_ms="
-            f"{entry['bound_ms']:.5f} ({entry['bound_by']}) launches="
-            f"{entry['launches']} by path "
+            f"{json.dumps(entry['device_ops'][0])}) library_ms="
+            f"{r['library_ms']} library_device_ms={r['library_device_ms']} "
+            f"bound_ms={entry['bound_ms']:.5f} ({entry['bound_by']}) "
+            f"launches={entry['launches']} by path "
             f"{json.dumps(entry['launches_by_path'])} shape={r['shape']}"
             + also)
         for part in r["parts"] if len(r["parts"]) > 1 else []:
             log(f"[kernels]   {name} {part['shape']}: ms={part['ms']:.5f} "
-                f"device_ms={part['device_ms']:.5f} plain_ms="
-                f"{part['plain_ms']:.5f} library_ms={part['library_ms']} "
-                f"library_device_ms={part['library_device_ms']} bound_ms="
+                f"device_ms={part['device_ms']:.5f} library_ms="
+                f"{part['library_ms']} library_device_ms="
+                f"{part['library_device_ms']} bound_ms="
                 f"{part['bound_ms']:.5f}")
-    # The backward against what the per-slot design ran besides its kernel,
-    # path by path (ms a path's replayed launches together).
-    bwd = next(e for e in line if e["name"] == "rasterize_bwd")
-    yard = {bwd["path"]: (bwd["device_ms"], bwd["slot_reduce_device_ms"])}
-    for other in paths:
-        if f"{other}_device_ms" in bwd:
-            yard[other] = (bwd[f"{other}_device_ms"],
-                           bwd[f"{other}_slot_reduce_device_ms"])
-    log("[kernels] rasterize_bwd yardstick, device ms by path: the fused "
-        "kernel with its memset and rounding launch, and the per-slot "
-        "design's [11, S] memset "
-        "+ `index_add_` reduce at the same shapes (its kernel aside): "
-        + json.dumps({p: {"fused": round(a, 5), "slot_reduce": round(b, 5)}
-                      for p, (a, b) in yard.items()}))
-    # Which of the scan wrapper's pieces sets its host time a call, at the
-    # served frame's binning shape.
-    scan_entry = next(e for e in line if e["name"] == "scan")
-    scan_entry["wrapper_us"] = scan_wrapper_us(
-        torch, paths["serve"][1]["scan"][0].inputs[0])
-    log("[kernels] scan wrapper at the served frame's shape, host us a "
-        "call: " + json.dumps({k: round(v, 3)
-                               for k, v in scan_entry["wrapper_us"].items()}))
-    # The diet forward: its wrapper's host pieces at the served frame, and
-    # what a longest-first tile order would change at the served frame and
-    # at an evaluation view after the loop.
-    diet = next(e for e in line if e["name"] == "rasterize_fwd")
-    diet["wrapper_us"] = diet_wrapper_us(
-        torch, paths["serve"][1]["rasterize_fwd"][0].inputs)
-    diet["order_device_ms"] = {
-        p: diet_order_ms(torch, paths[p][1]["rasterize_fwd"][0])
-        for p in ("serve", "eval") if "rasterize_fwd" in paths[p][1]}
-    log("[kernels] rasterize_fwd wrapper at the served frame, host us a "
-        "call: " + json.dumps({k: round(v, 3)
-                               for k, v in diet["wrapper_us"].items()})
-        + "; device ms a call by tile order: "
-        + json.dumps({p: {k: round(v, 5) for k, v in o.items()}
-                      for p, o in diet["order_device_ms"].items()}))
-    # The training forward in tile order against longest tile first, at the
-    # train cell and at loop steps 9 and 23.
-    fwd_train = next(e for e in line if e["name"] == "rasterize_fwd_train")
-    late = by_name(loop["late_captured"])
-    fwd_train["order_device_ms"] = {
-        p: train_order_ms(torch, c["rasterize_fwd_train"][i])
-        for p, c, i in (("train", paths["train"][1], 0),
-                        (f"loop_step_{REFINE_EVERY + 1}", paths["loop"][1], 1),
-                        (f"loop_step_{LOOP_STEPS - 1}", late, 0))}
-    log("[kernels] rasterize_fwd_train device ms a call by tile order, "
-        f"{ORDER_ROUNDS} rounds: "
-        + json.dumps(fwd_train["order_device_ms"]))
     return line
-
-
-def phase_profile(torch, what: str, run, stage_names, n_frames: int) -> dict:
-    """Device busy time and idle share of `run(i)` (a serving frame or a
-    training step), from a torch.profiler trace of `n_frames` runs (the
-    profiler's own overhead lengthens the wall time the busy time is
-    divided by)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in range(n_frames):
-            run(f)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
-    # Device ops only: kernels, copies and fills, without the stage ranges
-    # (record_function names), which the trace also shows on the device.
-    stage_names = set(stage_names)
-    per_op: dict = {}
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.name in stage_names):
-            continue
-        t, c = per_op.get(e.name, (0.0, 0))
-        per_op[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    busy_ms = sum(t for t, _ in per_op.values()) / n_frames
-    n_ops = sum(c for _, c in per_op.values()) / n_frames
-    log(f"[profile] {what}, {n_frames} runs: wall {wall_ms:.4f} ms each, "
-        f"device busy {busy_ms:.4f} ms, idle share "
-        f"{1.0 - busy_ms / wall_ms:.4f}, {n_ops:.1f} device ops each")
-    for name, (t, c) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"[profile]   {t / n_frames:9.4f} ms x{c / n_frames:6.1f}  "
-            f"{name[:100]}")
-    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms, device_ops=n_ops)
 
 
 def gpu_line(every_card: bool = False) -> str:
@@ -4646,42 +3632,19 @@ def _run_phases(torch, work: str) -> int:
         log("[multicard] one card: the multi-card case (torchrun of the CLI "
             "over NCCL, a card a process; `python3 chip_smoke.py "
             "--multi-card` on a machine of several) was not run")
-    graph = phase_graph(torch, serve, train, loop, proc, init_lod, space,
-                        dp)
+    graph = phase_graph(torch, serve, train, loop, proc)
     project = phase_project(torch)
     kernel_line = phase_kernels(torch, serve, train, direct, stress, grow,
                                 loop, init_lod, proc, viewer, lpips, dp,
                                 space, graph, project)
-    profiled = phase_profile(torch, "serving frame", serve["frame"],
-                             serve["stages"], N_VIEWS)
-    profiled_train = phase_profile(torch, "training step", train["step"],
-                                   train["stages"], 2)
-    profiled_loop = phase_profile(torch, "loop step (no refine)",
-                                  loop["step"], train["stages"], 2)
-    profiled_refine = phase_profile(torch, "refine_step", loop["refine"],
-                                    ["refine"], 2)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.3f} s")
-    print(json.dumps({"frame_median_ms": serve["median_ms"],
-                      "host_enqueue_median_ms": serve["host_ms"],
-                      "stages_ms": serve["stages"], **profiled}))
-    print(json.dumps({"train_step_median_ms": train["median_ms"],
-                      "train_host_enqueue_median_ms": train["host_ms"],
-                      "train_stages_ms": train["stages"],
-                      "train_peak_memory_MiB": train["peak_mb"],
-                      "loss_peak_memory_MiB": train["loss_peak_mb"],
+    print(json.dumps({"serve_isects": serve["isects"],
                       "train_losses": train["losses"],
-                      **{f"train_{k}": v
-                         for k, v in profiled_train.items()}}))
-    print(json.dumps({"loop_step_median_ms": loop["step_median_ms"],
-                      "refine_ms": loop["refine_ms"],
-                      "refine_step_ms": loop["refine_step_ms"],
-                      "loop_peak_memory_MiB": loop["peak_mb"],
-                      "loop_peak_held_for_kernels_MiB": loop["held_mb"],
-                      "profiled_refine": loop["profiled_refine"],
-                      "loop_losses": loop["losses"],
+                      "train_stages_ms": train["stages"]}))
+    print(json.dumps({"loop_losses": loop["losses"],
                       "refines": loop["refines"],
                       "overflows": loop["overflows"],
-                      "grow_step_ms": grow["step_ms"],
+                      "graph_refine": loop["graph_refine"],
                       "grow_overflow": grow["overflow"],
                       "grow_isect_cap": grow["isect_cap"],
                       "grow_capacity": grow["capacity"],
@@ -4689,24 +3652,18 @@ def _run_phases(torch, work: str) -> int:
                       "eval_psnr_after": loop["psnr"]["after"],
                       "eval_ssim_before": loop["ssim"]["before"],
                       "eval_ssim_after": loop["ssim"]["after"],
-                      "pup_scores_seconds": init_lod["pup_seconds"],
-                      "pup_scores_eager_seconds": init_lod[
-                          "pup_eager_seconds"],
                       "pup_sums_max_abs_diff": init_lod[
-                          "pup_sums_max_abs_diff"],
-                      "pup_peak_memory_MiB": init_lod["pup_peak_mb"],
-                      **{f"loop_{k}": v for k, v in profiled_loop.items()},
-                      **{f"refine_{k}": v
-                         for k, v in profiled_refine.items()}}))
+                          "pup_sums_max_abs_diff"]}))
     print(json.dumps({"process_" + k: v for k, v in proc.items()
                       if k not in ("launches", "captured", "bake_captured")}))
     for name, res in (("viewer", viewer), ("live", live), ("ffi", ffi),
                       ("lpips", lpips), ("dp", dp), ("space", space),
                       ("graph", graph), ("multicard", multicard)):
-        print(json.dumps({f"{name}_{k}": v for k, v in res.items()
-                          if k not in ("captured", "frame", "job",
-                                       "frame_captured", "step_captured",
-                                       "graph_captured")}))
+        if res:
+            print(json.dumps({f"{name}_{k}": v for k, v in res.items()
+                              if k not in ("captured", "frame", "job",
+                                           "frame_captured", "step_captured",
+                                           "graph_captured")}))
     print(json.dumps({"kernels": kernel_line}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 package's kernels (Pallas in interpret mode, or the package's own jnp
 path), on the same numpy inputs. The CUDA kernels themselves are held to
 these plain versions on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+chip_smoke.py. Each row of `kernels.KERNELS` is held to the sources.
 
   * scan    `cumsum_rows`   vs `cumsum_rows(..., interpret=True)`: exact
             for int32; the f32 sum within 1e-6 of the running sum of |x|
@@ -28,6 +28,9 @@ chip_smoke.py.
   * f16     the diet pair packing, exhaustively over all 65536 patterns.
 """
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,11 +54,12 @@ from brush_tpu.ops.scan_pallas import stack_rows as j_stack_rows
 from brush_tpu.render import camera_inputs as j_camera_inputs
 from tests.test_emit_pallas import _emission_inputs, _real_slot_rows
 
+from brush_tpu_torch import kernels
 from brush_tpu_torch.ops import (
     emit_cuda, expand_cuda, rasterize_cuda, scan_cuda)
 from brush_tpu_torch.ops import tiling_key as ttk
 
-DATA = __import__("pathlib").Path(__file__).parent / "data"
+DATA = pathlib.Path(__file__).parent / "data"
 
 
 # --------------------------------------------------------------------------
@@ -528,7 +532,6 @@ def test_kernel_compares_catch_one_wrong_slot():
     of the values, each by less than 2/255 (so the port-vs-JAX quantile
     rule above would pass it), and must still fail; a stack or emission
     off by one bit must fail."""
-    from brush_tpu_torch import kernels
     params, cam, img, deg = _basic_case()
     isect = _jax_diet_soa(params, cam, img, deg)
     soa = torch.from_numpy(np.asarray(isect.soa).view(np.int32).copy())
@@ -690,3 +693,38 @@ def test_f16_pack_unpack_exhaustive():
     np.testing.assert_array_equal(
         packed.view(np.uint32) & 0xFFFF,
         x.astype(np.float16).view(np.uint16).astype(np.uint32))
+
+
+CSRC = pathlib.Path(rasterize_cuda.__file__).resolve().parents[1] / "csrc"
+
+
+def _with_headers(path, seen=()):
+    """The text of a csrc/ file and of the local headers it includes."""
+    text = path.read_text()
+    for header in re.findall(r'#include "([^"]+)"', text):
+        if header not in seen:
+            seen = (*seen, header)
+            text += _with_headers(CSRC / header, seen)
+    return text
+
+
+@pytest.mark.parametrize("name", list(kernels.KERNELS))
+def test_kernel_table_matches_the_sources(name):
+    """A row of `kernels.KERNELS` against the tree: its source exists, it
+    defines the kernel a trace names (and the variant, where one template
+    serves several), one wrapper under ops/ counts its launches, and a
+    call runs at least one launch of its own."""
+    row = kernels.KERNELS[name]
+    source = CSRC / row.source
+    assert source.is_file()
+    text = _with_headers(source)
+    symbol, variant = row.symbol
+    assert re.search(r"__global__[^;{]*\b" + re.escape(symbol.split("<")[0])
+                     + r"\(", text)
+    assert variant in text
+    counting = [
+        path.name for path in sorted((CSRC.parent / "ops").glob("*.py"))
+        for _ in re.finditer(r'note_launch\(\s*"' + re.escape(name) + '"',
+                             path.read_text())]
+    assert len(counting) == 1, counting
+    assert row.launches >= 1 and row.memsets >= 0

@@ -7,13 +7,11 @@
     return;
   * the per-splat compare rule fails a backward that drops one blended slot
     or zeroes one gradient row, and passes rounding noise;
-  * `chip_smoke.tile_order` (the longest-first order the kernels were
-    timed against; they take tiles in tile order) is a permutation of the
-    tiles, descending by span, ties in tile order; each tile part's useful
-    length (the schedule the training forward hands the backward) bounds
-    the slots that 8x4 part of the tile blends, and the tile's
-    `useful_len` (row 5) is the largest of its parts'; the backward's count of replayed (pixel, slot) pairs, which
-    its bound reads, stops at each part's useful length.
+  * each tile part's useful length (the schedule the training forward
+    hands the backward) bounds the slots that 8x4 part of the tile blends,
+    and the tile's `useful_len` (row 5) is the largest of its parts'; the
+    backward's count of replayed (pixel, slot) pairs, which its bound
+    reads, stops at each part's useful length.
 
 The scenes are binned by the port itself; the JAX comparisons of the same
 functions are in test_torch_kernels.py and test_torch_train.py.
@@ -23,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import tile_order
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.models.splats import from_raw
 from brush_tpu_torch.ops import rasterize_cuda as rc
@@ -130,25 +127,6 @@ def test_splat_compare_catches_a_dropped_slot_and_a_zeroed_row():
         zeroed[row] = 0.0
         with pytest.raises(AssertionError, match=f"rows \\[{row}\\]"):
             rc.compare_bwd(zeroed, want)
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_tile_order_is_a_stable_descending_permutation(seed):
-    rng = np.random.default_rng(seed)
-    n_tiles = 2040
-    spans = rng.integers(0, 6, n_tiles) * rng.integers(0, 400, n_tiles)
-    spans[rng.choice(n_tiles, 5, replace=False)] = 5000   # a few long tiles
-    starts = np.cumsum(spans) - spans
-    ranges = torch.from_numpy(np.stack([starts, starts + spans],
-                                       1).astype(np.int32))
-    order = tile_order(torch, ranges).numpy()
-    assert order.dtype == np.int32
-    assert np.array_equal(np.sort(order), np.arange(n_tiles))
-    ordered = spans[order]
-    assert (np.diff(ordered) <= 0).all() and ordered[0] == 5000
-    # Ties keep tile order.
-    tied = np.diff(ordered) == 0
-    assert (np.diff(order)[tied] > 0).all() and tied.sum() > n_tiles // 2
 
 
 @pytest.mark.parametrize("kind", ["opaque_wall", "thin"])
