@@ -1,12 +1,15 @@
-// Splat projection, forward: every `ProjectedSplats` field of a pinhole
-// view, one thread a splat.
+// Splat projection, forward: every `ProjectedSplats` field of a view
+// through a pinhole or a KB4 fisheye lens, one thread a splat.
 //
 // Replaces no TPU kernel. The reference package projects in jnp
 // (brush_tpu/ops/projection.py `project_splats`), which XLA fuses into a
 // few passes; the port's PyTorch version of it (ops/projection.py) runs
 // about 650 elementwise passes over the splat rows. Reached through
 // `project_forward` (ops/project_cuda.py), which `project` calls for CUDA
-// tensors and a Pinhole lens.
+// tensors and a Pinhole or KannalaBrandt4 lens. The lens is a template
+// parameter (`proj::Pinhole`, `proj::Kb4`, project.cuh) and its
+// coefficients kernel arguments; the two instantiations share everything
+// but the lens's near gate, position and Jacobian.
 //
 // Inputs, row g of each (contiguous float32): means [N, 3], log_scales
 // [N, 3], quats [N, 4] (w, x, y, z), sh [N, K, 3] (the first
@@ -34,13 +37,16 @@
 // nearest intrinsics so that nvcc contracts nothing into an FMA; a Python
 // constant is the float32 of its double, a division of a tensor by a
 // Python number is the product with its float32 reciprocal (as PyTorch's
-// CUDA kernels divide), `1.0 / x` is the reciprocal, and the pinhole
-// Jacobian's entries are the float32 products `jacfwd` forms. A sum over a
+// CUDA kernels divide), `1.0 / x` is the reciprocal, the pinhole
+// Jacobian's entries are the float32 products `jacfwd` forms, and KB4's
+// are its float32 closed form (`kb4_jacobian`). A sum over a
 // row's four or three entries (the quaternion's and the view direction's
 // squared norms, `torch.sum` in the plain version) adds them in the order
 // PyTorch's CUDA reduction does, (a + c) + (b + d) and (a + c) + b (read on
 // the card with PyTorch 2.11; its CPU reduction adds otherwise); only the
-// SH sum over k (colour) may add in another order than PyTorch's.
+// SH sum over k (colour) may add in another order than PyTorch's. So
+// through either lens every field but the colour is the plain version's
+// bit for bit (`compare_forward`).
 #include "project.cuh"
 
 namespace {
@@ -55,11 +61,11 @@ struct Out {
 };
 
 // ops/projection.py `_project_math` on one row, without the colour.
-template <bool MIP>
+template <bool MIP, class Lens>
 __device__ __forceinline__ Out project_math(const float* m, const float* ls,
                                             const float* q, float ro,
-                                            const Cam& c, int img_w,
-                                            int img_h) {
+                                            const Cam& c, const LensArgs& l,
+                                            int img_w, int img_h) {
   Out o;
   float mc[3];
 #pragma unroll
@@ -72,7 +78,10 @@ __device__ __forceinline__ Out project_math(const float* m, const float* ls,
   }
   const float z = mc[2];
   bool ok = finite(mc[0]) && finite(mc[1]) && finite(z) &&
-            z <= F(1.0e10) && z >= F(0.01);
+            z <= F(1.0e10) &&
+            (Lens::kFisheye
+                 ? in_render_field(mc[0], mc[1], z, render_field(l))
+                 : z >= F(0.01));
   float s[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -116,15 +125,9 @@ __device__ __forceinline__ Out project_math(const float* m, const float* ls,
   // The Jacobian at the clamp-adjusted point (ops/camera_proj.py).
   const float xn = clamp(__fdiv_rn(mc[0], z), c.lim[0], c.lim[1]);
   const float yn = clamp(__fdiv_rn(mc[1], z), c.lim[2], c.lim[3]);
-  const float iz = __frcp_rn(z);
-  const float niz2 = -__fmul_rn(iz, iz);
-  const float j[2][3] = {
-      {__fmul_rn(c.fx, iz), 0.0f,
-       __fmul_rn(__fmul_rn(c.fx, __fmul_rn(xn, z)), niz2)},
-      {0.0f, __fmul_rn(c.fy, iz),
-       __fmul_rn(__fmul_rn(c.fy, __fmul_rn(yn, z)), niz2)}};
-  o.u = __fadd_rn(__fmul_rn(__fmul_rn(c.fx, mc[0]), iz), c.cx);
-  o.v = __fadd_rn(__fmul_rn(__fmul_rn(c.fy, mc[1]), iz), c.cy);
+  float j[2][3];
+  Lens::jacobian(c, l, __fmul_rn(xn, z), __fmul_rn(yn, z), z, j);
+  Lens::project(c, l, mc[0], mc[1], z, o.u, o.v);
   float vv[2][3];
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
@@ -210,7 +213,7 @@ __device__ __forceinline__ Out project_math(const float* m, const float* ls,
   return o;
 }
 
-template <int DEG, bool MIP>
+template <int DEG, bool MIP, class Lens>
 __global__ void __launch_bounds__(kThreads)
 project_fwd_kernel(const float* __restrict__ means,
                    const float* __restrict__ log_scales,
@@ -220,8 +223,9 @@ project_fwd_kernel(const float* __restrict__ means,
                    const float* __restrict__ viewmat,
                    const float* __restrict__ pinhole,
                    const float* __restrict__ clamp_lim,
-                   const float* __restrict__ cam_pos, int n, int img_w,
-                   int img_h, float unit_opacity, bool* __restrict__ visible,
+                   const float* __restrict__ cam_pos, LensArgs lens, int n,
+                   int img_w, int img_h, float unit_opacity,
+                   bool* __restrict__ visible,
                    float* __restrict__ depth, float* __restrict__ mean2d,
                    float* __restrict__ conic, float* __restrict__ color,
                    float* __restrict__ opac, float* __restrict__ threshold,
@@ -272,14 +276,15 @@ project_fwd_kernel(const float* __restrict__ means,
                          log_scales[3 * g + 2]};
     const float q[4] = {quats[4 * g], quats[4 * g + 1], quats[4 * g + 2],
                         quats[4 * g + 3]};
-    o = project_math<MIP>(m, ls, q, ro, c, img_w, img_h);
+    o = project_math<MIP, Lens>(m, ls, q, ro, c, lens, img_w, img_h);
   }
   if (!o.ok) {
     // The unit splat in front of the camera, colour 0.5 where finite.
     const float um[3] = {c.pos[0], c.pos[1], __fadd_rn(c.pos[2], 1.0f)};
     const float uls[3] = {0.0f, 0.0f, 0.0f};
     const float uq[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-    o = project_math<MIP>(um, uls, uq, unit_opacity, c, img_w, img_h);
+    o = project_math<MIP, Lens>(um, uls, uq, unit_opacity, c, lens, img_w,
+                                img_h);
     o.ok = false;
     o.tiles = 0;
     o.max_radius = 0.0f;
@@ -309,20 +314,20 @@ project_fwd_kernel(const float* __restrict__ means,
   radius[g] = o.max_radius;
 }
 
-template <int DEG, bool MIP>
+template <int DEG, bool MIP, class Lens>
 int launch(const void* means, const void* log_scales, const void* quats,
            const void* sh, int64_t k3, const void* raw_opac,
            const void* viewmat, const void* pinhole, const void* clamp_lim,
-           const void* cam_pos, int n, int img_w, int img_h, void* const* out,
-           cudaStream_t stream) {
+           const void* cam_pos, const LensArgs& lens, int n, int img_w,
+           int img_h, void* const* out, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  project_fwd_kernel<DEG, MIP><<<blocks, kThreads, 0, stream>>>(
+  project_fwd_kernel<DEG, MIP, Lens><<<blocks, kThreads, 0, stream>>>(
       static_cast<const float*>(means), static_cast<const float*>(log_scales),
       static_cast<const float*>(quats), static_cast<const float*>(sh), k3,
       static_cast<const float*>(raw_opac), static_cast<const float*>(viewmat),
       static_cast<const float*>(pinhole),
       static_cast<const float*>(clamp_lim),
-      static_cast<const float*>(cam_pos), n, img_w, img_h,
+      static_cast<const float*>(cam_pos), lens, n, img_w, img_h,
       // The unit splat's raw opacity, -10, as an argument: nvcc would fold
       // expf(10.0f) of a literal, and not as the device's expf rounds it.
       -10.0f, static_cast<bool*>(out[0]), static_cast<float*>(out[1]),
@@ -334,41 +339,63 @@ int launch(const void* means, const void* log_scales, const void* quats,
   return brush_last_error();
 }
 
-template <bool MIP>
+template <bool MIP, class Lens>
 int by_degree(int deg, const void* means, const void* log_scales,
               const void* quats, const void* sh, int64_t k3,
               const void* raw_opac, const void* viewmat, const void* pinhole,
-              const void* clamp_lim, const void* cam_pos, int n, int img_w,
-              int img_h, void* const* out, cudaStream_t stream) {
+              const void* clamp_lim, const void* cam_pos,
+              const LensArgs& lens, int n, int img_w, int img_h,
+              void* const* out, cudaStream_t stream) {
 #define PROJ_ARGS                                                          \
   means, log_scales, quats, sh, k3, raw_opac, viewmat, pinhole, clamp_lim, \
-      cam_pos, n, img_w, img_h, out, stream
+      cam_pos, lens, n, img_w, img_h, out, stream
   switch (deg) {
-    case 0: return launch<0, MIP>(PROJ_ARGS);
-    case 1: return launch<1, MIP>(PROJ_ARGS);
-    case 2: return launch<2, MIP>(PROJ_ARGS);
-    case 3: return launch<3, MIP>(PROJ_ARGS);
-    case 4: return launch<4, MIP>(PROJ_ARGS);
+    case 0: return launch<0, MIP, Lens>(PROJ_ARGS);
+    case 1: return launch<1, MIP, Lens>(PROJ_ARGS);
+    case 2: return launch<2, MIP, Lens>(PROJ_ARGS);
+    case 3: return launch<3, MIP, Lens>(PROJ_ARGS);
+    case 4: return launch<4, MIP, Lens>(PROJ_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PROJ_ARGS
 }
 
+template <class Lens>
+int by_mip(int mip, int deg, const void* means, const void* log_scales,
+           const void* quats, const void* sh, int64_t k3,
+           const void* raw_opac, const void* viewmat, const void* pinhole,
+           const void* clamp_lim, const void* cam_pos, const LensArgs& lens,
+           int n, int img_w, int img_h, void* const* out,
+           cudaStream_t stream) {
+  return mip ? by_degree<true, Lens>(deg, means, log_scales, quats, sh, k3,
+                                     raw_opac, viewmat, pinhole, clamp_lim,
+                                     cam_pos, lens, n, img_w, img_h, out,
+                                     stream)
+             : by_degree<false, Lens>(deg, means, log_scales, quats, sh, k3,
+                                      raw_opac, viewmat, pinhole, clamp_lim,
+                                      cam_pos, lens, n, img_w, img_h, out,
+                                      stream);
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays (layouts above);
-// k = K, the coefficients a row holds (k >= (sh_degree + 1)^2).
+// k = K, the coefficients a row holds (k >= (sh_degree + 1)^2). lens: 0
+// the pinhole, 1 KB4 with k1-k4 and the cull's half field half_fov, or
+// the device float at half_fov_at where that is not null.
 BRUSH_EXPORT int brush_project_fwd(
     const void* means, const void* log_scales, const void* quats,
     const void* sh, int64_t k, const void* raw_opac, const void* viewmat,
     const void* pinhole, const void* clamp_lim, const void* cam_pos,
-    int64_t n, int img_w, int img_h, int sh_degree, int mip, void* visible,
+    int64_t n, int img_w, int img_h, int sh_degree, int mip, int lens,
+    double k1, double k2, double k3, double k4, float half_fov,
+    const void* half_fov_at, void* visible,
     void* depth, void* mean2d, void* conic, void* color, void* opac,
     void* threshold, void* tile_min, void* tile_max, void* num_tiles,
     void* radius, void* flags, void* stream) {
   if (n < 0 || n > INT_MAX - proj::kThreads || img_w <= 0 || img_h <= 0 ||
       sh_degree < 0 || sh_degree > 4 ||
-      k < (sh_degree + 1) * (sh_degree + 1)) {
+      k < (sh_degree + 1) * (sh_degree + 1) || lens < 0 || lens > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -376,11 +403,16 @@ BRUSH_EXPORT int brush_project_fwd(
                          threshold, tile_min, tile_max, num_tiles, radius,
                          flags};
   const auto s = static_cast<cudaStream_t>(stream);
-  return mip ? by_degree<true>(sh_degree, means, log_scales, quats, sh, 3 * k,
-                               raw_opac, viewmat, pinhole, clamp_lim, cam_pos,
-                               static_cast<int>(n), img_w, img_h, out, s)
-             : by_degree<false>(sh_degree, means, log_scales, quats, sh,
-                                3 * k, raw_opac, viewmat, pinhole, clamp_lim,
-                                cam_pos, static_cast<int>(n), img_w, img_h,
-                                out, s);
+  const proj::LensArgs l = proj::lens_args(
+      k1, k2, k3, k4, half_fov, static_cast<const float*>(half_fov_at));
+  return lens == 1
+             ? by_mip<proj::Kb4>(mip, sh_degree, means, log_scales, quats, sh,
+                                 3 * k, raw_opac, viewmat, pinhole, clamp_lim,
+                                 cam_pos, l, static_cast<int>(n), img_w,
+                                 img_h, out, s)
+             : by_mip<proj::Pinhole>(mip, sh_degree, means, log_scales,
+                                     quats, sh, 3 * k, raw_opac, viewmat,
+                                     pinhole, clamp_lim, cam_pos, l,
+                                     static_cast<int>(n), img_w, img_h, out,
+                                     s);
 }

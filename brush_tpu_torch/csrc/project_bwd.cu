@@ -1,6 +1,6 @@
 // Splat projection, backward: the gradients of the five splat arrays of a
-// pinhole view from those of mean2d, conic, color and opac, one thread a
-// splat.
+// view through a pinhole or a KB4 fisheye lens from those of mean2d,
+// conic, color and opac, one thread a splat.
 //
 // Replaces no TPU kernel (the JAX package differentiates its jnp
 // projection through XLA; the port's PyTorch projection runs about 550
@@ -8,7 +8,10 @@
 // (ops/project_cuda.py), the backward of its `_Project` Function. The
 // closed forms are `project_backward_plain`'s, line for line: that
 // PyTorch version is this kernel's specification, held to autograd of
-// `project_splats` in the CPU tests.
+// `project_splats` in the CPU tests. The lens is the forward's template
+// parameter (project.cuh): KB4's Jacobian takes its full 2x3 form, and
+// its cotangent goes back to the point through `Kb4::jacobian_vjp`, the
+// Jacobian's second derivatives.
 //
 // Inputs: the forward's five row arrays and view (project.cu), flags [N]
 // uint8 (bit 0 visible, bit 1 + c colour channel c finite), and the
@@ -129,10 +132,11 @@ struct Grads {
 
 // The gradients of one visible splat; `rows` is its staged SH row, on
 // return its SH gradients.
-template <int DEG, bool MIP>
+template <int DEG, bool MIP, class Lens>
 __device__ __forceinline__ Grads splat_grads(const float* m, const float* ls,
                                              const float* q, float ro,
                                              int flags, const Cam& c,
+                                             const LensArgs& l,
                                              const float* gk, const float* gu,
                                              const float* gcol, float gop,
                                              float* rows) {
@@ -153,8 +157,17 @@ __device__ __forceinline__ Grads splat_grads(const float* m, const float* ls,
   const float yn = clamp(ry, c.lim[2], c.lim[3]);
   const float xc = xn * z, yc = yn * z;
   const float niz2 = -(iz * iz);
-  const float j00 = c.fx * iz, j02 = c.fx * xc * niz2;
-  const float j11 = c.fy * iz, j12 = c.fy * yc * niz2;
+  float j[2][3];
+  if constexpr (Lens::kFisheye) {
+    Lens::jacobian(c, l, xc, yc, z, j);
+  } else {
+    j[0][0] = c.fx * iz;
+    j[0][1] = 0.0f;
+    j[0][2] = c.fx * xc * niz2;
+    j[1][0] = 0.0f;
+    j[1][1] = c.fy * iz;
+    j[1][2] = c.fy * yc * niz2;
+  }
 
   float s[3];
 #pragma unroll
@@ -183,8 +196,13 @@ __device__ __forceinline__ Grads splat_grads(const float* m, const float* ls,
   float v0[3], v1[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    v0[k] = j00 * ns[0][k] + j02 * ns[2][k];
-    v1[k] = j11 * ns[1][k] + j12 * ns[2][k];
+    if constexpr (Lens::kFisheye) {
+      v0[k] = j[0][0] * ns[0][k] + j[0][1] * ns[1][k] + j[0][2] * ns[2][k];
+      v1[k] = j[1][0] * ns[0][k] + j[1][1] * ns[1][k] + j[1][2] * ns[2][k];
+    } else {
+      v0[k] = j[0][0] * ns[0][k] + j[0][2] * ns[2][k];
+      v1[k] = j[1][1] * ns[1][k] + j[1][2] * ns[2][k];
+    }
   }
   const float c00 = v0[0] * v0[0] + v0[1] * v0[1] + v0[2] * v0[2];
   const float c01 = v0[0] * v1[0] + v0[1] * v1[1] + v0[2] * v1[2];
@@ -247,21 +265,34 @@ __device__ __forceinline__ Grads splat_grads(const float* m, const float* ls,
 
   // --- v = J ns, ns = (R Rq) diag(s) ---
   float g_v0[3], g_v1[3];
-  float g_j00 = 0.0f, g_j02 = 0.0f, g_j11 = 0.0f, g_j12 = 0.0f;
+  float gj[2][3] = {};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     g_v0[k] = 2.0f * g_c00 * v0[k] + g_c01 * v1[k];
     g_v1[k] = 2.0f * g_c11 * v1[k] + g_c01 * v0[k];
-    g_j00 += g_v0[k] * ns[0][k];
-    g_j02 += g_v0[k] * ns[2][k];
-    g_j11 += g_v1[k] * ns[1][k];
-    g_j12 += g_v1[k] * ns[2][k];
+    gj[0][0] += g_v0[k] * ns[0][k];
+    gj[0][2] += g_v0[k] * ns[2][k];
+    gj[1][1] += g_v1[k] * ns[1][k];
+    gj[1][2] += g_v1[k] * ns[2][k];
+    if constexpr (Lens::kFisheye) {
+      gj[0][1] += g_v0[k] * ns[1][k];
+      gj[1][0] += g_v1[k] * ns[0][k];
+    }
   }
   float g_rq[3][3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float g_ns[3] = {g_v0[k] * j00, g_v1[k] * j11,
-                           g_v0[k] * j02 + g_v1[k] * j12};
+    float g_ns[3];
+    if constexpr (Lens::kFisheye) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        g_ns[i] = g_v0[k] * j[0][i] + g_v1[k] * j[1][i];
+      }
+    } else {
+      g_ns[0] = g_v0[k] * j[0][0];
+      g_ns[1] = g_v1[k] * j[1][1];
+      g_ns[2] = g_v0[k] * j[0][2] + g_v1[k] * j[1][2];
+    }
     out.ls[k] = (g_ns[0] * mm[0][k] + g_ns[1] * mm[1][k] +
                  g_ns[2] * mm[2][k]) * s[k];
 #pragma unroll
@@ -288,16 +319,33 @@ __device__ __forceinline__ Grads splat_grads(const float* m, const float* ls,
   for (int i = 0; i < 4; ++i) out.q[i] = (gq[i] - qn[i] * qdot) / qnorm;
 
   // --- the Jacobian at the clamped point, mean2d at the point ---
-  const float g_iz = g_j00 * c.fx + g_j11 * c.fy -
-                     2.0f * iz * (g_j02 * c.fx * xc + g_j12 * c.fy * yc) +
-                     gu[0] * c.fx * mc[0] + gu[1] * c.fy * mc[1];
-  const float g_xc = g_j02 * c.fx * niz2, g_yc = g_j12 * c.fy * niz2;
-  const float g_rx = in_x ? g_xc * z : 0.0f;
-  const float g_ry = in_y ? g_yc * z : 0.0f;
-  const float g_mc[3] = {
-      gu[0] * c.fx * iz + g_rx / z, gu[1] * c.fy * iz + g_ry / z,
-      g_xc * xn + g_yc * yn - g_iz * iz * iz -
-          (g_rx * mc[0] + g_ry * mc[1]) / (z * z)};
+  float g_mc[3];
+  if constexpr (Lens::kFisheye) {
+    // J's cotangent to the clamped point, mean2d's through the Jacobian
+    // at the point itself, and the clamp (x / z, its limits, times z).
+    float g_pc[3], jm[2][3];
+    Lens::jacobian_vjp(c, l, xc, yc, z, gj, g_pc);
+    Lens::jacobian(c, l, mc[0], mc[1], z, jm);
+    const float g_rx = in_x ? g_pc[0] * z : 0.0f;
+    const float g_ry = in_y ? g_pc[1] * z : 0.0f;
+    g_mc[0] = gu[0] * jm[0][0] + gu[1] * jm[1][0] + g_rx / z;
+    g_mc[1] = gu[0] * jm[0][1] + gu[1] * jm[1][1] + g_ry / z;
+    g_mc[2] = gu[0] * jm[0][2] + gu[1] * jm[1][2] + g_pc[2] +
+              g_pc[0] * xn + g_pc[1] * yn -
+              (g_rx * mc[0] + g_ry * mc[1]) / (z * z);
+  } else {
+    const float g_iz = gj[0][0] * c.fx + gj[1][1] * c.fy -
+                       2.0f * iz * (gj[0][2] * c.fx * xc +
+                                    gj[1][2] * c.fy * yc) +
+                       gu[0] * c.fx * mc[0] + gu[1] * c.fy * mc[1];
+    const float g_xc = gj[0][2] * c.fx * niz2, g_yc = gj[1][2] * c.fy * niz2;
+    const float g_rx = in_x ? g_xc * z : 0.0f;
+    const float g_ry = in_y ? g_yc * z : 0.0f;
+    g_mc[0] = gu[0] * c.fx * iz + g_rx / z;
+    g_mc[1] = gu[1] * c.fy * iz + g_ry / z;
+    g_mc[2] = g_xc * xn + g_yc * yn - g_iz * iz * iz -
+              (g_rx * mc[0] + g_ry * mc[1]) / (z * z);
+  }
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     out.m[j] = c.r[0][j] * g_mc[0] + c.r[1][j] * g_mc[1] +
@@ -346,7 +394,7 @@ __device__ __forceinline__ Grads splat_grads(const float* m, const float* ls,
   return out;
 }
 
-template <int DEG, bool MIP>
+template <int DEG, bool MIP, class Lens>
 __global__ void __launch_bounds__(kThreads)
 project_bwd_kernel(const float* __restrict__ means,
                    const float* __restrict__ log_scales,
@@ -356,7 +404,7 @@ project_bwd_kernel(const float* __restrict__ means,
                    const float* __restrict__ viewmat,
                    const float* __restrict__ pinhole,
                    const float* __restrict__ clamp_lim,
-                   const float* __restrict__ cam_pos,
+                   const float* __restrict__ cam_pos, LensArgs lens,
                    const uint8_t* __restrict__ flags,
                    const float* __restrict__ v_mean2d, int64_t ld_mean2d,
                    const float* __restrict__ v_conic, int64_t ld_conic,
@@ -394,8 +442,8 @@ project_bwd_kernel(const float* __restrict__ means,
                          v_mean2d[g * ld_mean2d + 1]};
     const float gcol[3] = {v_color[g * ld_color], v_color[g * ld_color + 1],
                            v_color[g * ld_color + 2]};
-    gr = splat_grads<DEG, MIP>(m, ls, q, raw_opac[g], fl, c, gk, gu, gcol,
-                               v_opac[g * ld_opac], my);
+    gr = splat_grads<DEG, MIP, Lens>(m, ls, q, raw_opac[g], fl, c, lens, gk,
+                                     gu, gcol, v_opac[g * ld_opac], my);
   } else {
 #pragma unroll
     for (int i = 0; i < R::kUsed; ++i) my[i] = 0.0f;
@@ -415,7 +463,9 @@ project_bwd_kernel(const float* __restrict__ means,
 struct Args {
   const void *means, *log_scales, *quats, *sh;
   int64_t k3;
-  const void *raw_opac, *viewmat, *pinhole, *clamp_lim, *cam_pos, *flags;
+  const void *raw_opac, *viewmat, *pinhole, *clamp_lim, *cam_pos;
+  LensArgs lens;
+  const void* flags;
   const void* cot[4];
   int64_t ld[4];
   int n;
@@ -423,11 +473,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DEG, bool MIP>
+template <int DEG, bool MIP, class Lens>
 int launch(const Args& a) {
   const unsigned blocks =
       static_cast<unsigned>((a.n + kThreads - 1) / kThreads);
-  project_bwd_kernel<DEG, MIP><<<blocks, kThreads, 0, a.stream>>>(
+  project_bwd_kernel<DEG, MIP, Lens><<<blocks, kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.means),
       static_cast<const float*>(a.log_scales),
       static_cast<const float*>(a.quats), static_cast<const float*>(a.sh),
@@ -435,7 +485,7 @@ int launch(const Args& a) {
       static_cast<const float*>(a.viewmat),
       static_cast<const float*>(a.pinhole),
       static_cast<const float*>(a.clamp_lim),
-      static_cast<const float*>(a.cam_pos),
+      static_cast<const float*>(a.cam_pos), a.lens,
       static_cast<const uint8_t*>(a.flags),
       static_cast<const float*>(a.cot[0]), a.ld[0],
       static_cast<const float*>(a.cot[1]), a.ld[1],
@@ -447,22 +497,28 @@ int launch(const Args& a) {
   return brush_last_error();
 }
 
-template <bool MIP>
+template <bool MIP, class Lens>
 int by_degree(int deg, const Args& a) {
   switch (deg) {
-    case 0: return launch<0, MIP>(a);
-    case 1: return launch<1, MIP>(a);
-    case 2: return launch<2, MIP>(a);
-    case 3: return launch<3, MIP>(a);
-    case 4: return launch<4, MIP>(a);
+    case 0: return launch<0, MIP, Lens>(a);
+    case 1: return launch<1, MIP, Lens>(a);
+    case 2: return launch<2, MIP, Lens>(a);
+    case 3: return launch<3, MIP, Lens>(a);
+    case 4: return launch<4, MIP, Lens>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <class Lens>
+int by_mip(int mip, int deg, const Args& a) {
+  return mip ? by_degree<true, Lens>(deg, a) : by_degree<false, Lens>(deg, a);
 }
 
 }  // namespace
 
 // All pointers are device pointers (layouts above); k = K, the
-// coefficients a row holds; ld_* are the cotangents' row strides in floats.
+// coefficients a row holds; ld_* are the cotangents' row strides in floats;
+// lens and k1-k4 as for brush_project_fwd.
 BRUSH_EXPORT int brush_project_bwd(
     const void* means, const void* log_scales, const void* quats,
     const void* sh, int64_t k, const void* raw_opac, const void* viewmat,
@@ -470,18 +526,23 @@ BRUSH_EXPORT int brush_project_bwd(
     const void* flags, const void* v_mean2d, int64_t ld_mean2d,
     const void* v_conic, int64_t ld_conic, const void* v_color,
     int64_t ld_color, const void* v_opac, int64_t ld_opac, int64_t n,
-    int sh_degree, int mip, void* g_means, void* g_log_scales,
+    int sh_degree, int mip, int lens, double k1, double k2, double k3,
+    double k4,
+    void* g_means, void* g_log_scales,
     void* g_quats, void* g_sh, void* g_opac, void* stream) {
   if (n < 0 || n > INT_MAX - proj::kThreads || sh_degree < 0 ||
-      sh_degree > 4 || k < (sh_degree + 1) * (sh_degree + 1)) {
+      sh_degree > 4 || k < (sh_degree + 1) * (sh_degree + 1) || lens < 0 ||
+      lens > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   const Args a{means, log_scales, quats, sh, 3 * k, raw_opac, viewmat,
-               pinhole, clamp_lim, cam_pos, flags,
+               pinhole, clamp_lim, cam_pos,
+               proj::lens_args(k1, k2, k3, k4, 0.0f, nullptr), flags,
                {v_mean2d, v_conic, v_color, v_opac},
                {ld_mean2d, ld_conic, ld_color, ld_opac}, static_cast<int>(n),
                {g_means, g_log_scales, g_quats, g_sh, g_opac},
                static_cast<cudaStream_t>(stream)};
-  return mip ? by_degree<true>(sh_degree, a) : by_degree<false>(sh_degree, a);
+  return lens == 1 ? by_mip<proj::Kb4>(mip, sh_degree, a)
+                   : by_mip<proj::Pinhole>(mip, sh_degree, a);
 }

@@ -46,7 +46,8 @@ class Kernel(NamedTuple):
 # 30M-slot stress run of the binning primitives drives them.
 # `tile_counts` replaces no TPU kernel: it computes the binning's exact tile
 # counts, which the JAX package leaves to XLA. Nor do `project_fwd` and
-# `project_bwd`, the pinhole projection and its backward (XLA's there too).
+# `project_bwd`, the projection through a pinhole or KB4 lens and its
+# backward (XLA's there too; one template each, the lens a parameter).
 # The backward's two launches are its gradient kernel and the launch that
 # rounds its f64 sums to f32; a trace counts a call of it by its first.
 KERNELS = {
@@ -69,7 +70,7 @@ KERNELS = {
 }
 KERNEL_NAMES = tuple(KERNELS)
 # The kernels a forward-only render launches, and those one training step
-# launches (through a pinhole lens).
+# launches (through a pinhole or KB4 lens).
 SERVE_PATH = ("project_fwd", "tile_counts", "scan", "stack", "emit",
               "rasterize_fwd")
 TRAIN_PATH = ("project_fwd", "tile_counts", "scan", "stack", "emit",

@@ -39,6 +39,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
+_D = ctypes.c_double
+# A projection's lens: its kind (0 pinhole, 1 KB4) and k1-k4 (doubles: the
+# kernels round them, and their products, to float32 as PyTorch does).
+_LENS = [_I, _D, _D, _D, _D]
 # C entry points: name -> argument types. Every function returns the
 # cudaError_t of its launches as an int (0 = success).
 SIGNATURES = {
@@ -58,10 +63,10 @@ SIGNATURES = {
     "brush_fill_rows": [_P, _P, _I, _L, _P, _P, _L, _P],
     "brush_tile_counts": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P],
     "brush_project_fwd": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _L, _I,
-                          _I, _I, _I] + [_P] * 13,
+                          _I, _I, _I] + _LENS + [_F] + [_P] * 14,
     "brush_project_bwd": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
                           _P, _L, _P, _L, _P, _L, _P, _L, _L, _I, _I]
-    + [_P] * 6,
+    + _LENS + [_P] * 6,
 }
 
 _lock = threading.Lock()

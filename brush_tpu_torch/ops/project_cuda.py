@@ -10,11 +10,13 @@ autograd backward, each reading and writing whole [N] columns. The
 kernels take one thread a splat and keep every intermediate in registers.
 
 * `project` — the entry the render calls. CUDA tensors through a
-  `Pinhole` lens run the kernels (`_Project`, a `torch.autograd.Function`;
-  with grad disabled only the forward runs and nothing is saved). CPU
-  tensors, and every fisheye lens (their Jacobians come from forward-mode
-  AD, ops/camera_proj.py), take `project_splats`. Each call counts
-  `project.route.<cuda|torch>` in the stage recorder (utils/tracing.py).
+  `Pinhole` or `KannalaBrandt4` lens run the kernels (`_Project`, a
+  `torch.autograd.Function`; with grad disabled only the forward runs and
+  nothing is saved). CPU tensors, and the RT8 and thin-prism fisheye
+  lenses (their Jacobians come from forward-mode AD, ops/camera_proj.py),
+  take `project_splats`. Each call counts `project.route.<cuda|torch>` in
+  the stage recorder (utils/tracing.py), and a kernel call
+  `project.lens.<kind>` as the PyTorch route does.
 * `project_forward` — the forward kernel. One pass does the plain
   version's two: the culling gates on the raw row, and the math on the
   sanitised row (a culled splat becomes the unit splat in front of the
@@ -26,7 +28,9 @@ kernels take one thread a splat and keep every intermediate in registers.
   splat arrays from those of mean2d, conic, color and opac. It recomputes
   the forward's intermediates from the saved inputs and stores none. Its
   plain version `project_backward_plain` is the closed-form vector-Jacobian
-  product, held to autograd of `project_splats` in the CPU tests.
+  product, held to autograd of `project_splats` in the CPU tests; KB4's
+  Jacobian and its second derivatives are ops/camera_proj.py
+  `kb4_jacobian` and `kb4_jacobian_vjp` (derived in csrc/project.cuh).
 
 Bound on the H100: bytes. The forward reads a live row's 236 bytes (means,
 log-scales, quaternion, 48 SH floats at degree 3, raw opacity) and writes
@@ -37,14 +41,15 @@ stores coalesce.
 
 The forward repeats the plain version's float32 operations in their order
 with round-to-nearest intrinsics (no FMA contraction), the row sums of
-four and three entries in the order of PyTorch's CUDA reduction, and the
+four and three entries in the order of PyTorch's CUDA reduction, the
 pinhole Jacobian's entries, which `jacfwd` forms in float64 from float32
-products and rounds, as those float32 products. So `visible`, `depth`,
-the tile bbox and every field but `color` equal the plain version bit for
-bit on the card; the SH sum adds its terms in order k = 0, 1, ..., which
-PyTorch's reduction over k need not do, so `color` agrees within the
-rounding of that sum (`compare_forward`). The backward's sums are its own
-closed forms, held within `BWD_RTOL` of each array's largest entry.
+products and rounds, as those float32 products, and KB4's as its float32
+closed form. So through either lens `visible`, `depth`, the tile bbox and
+every field but `color` equal the plain version bit for bit on the card;
+the SH sum adds its terms in order k = 0, 1, ..., which PyTorch's
+reduction over k need not do, so `color` agrees within the rounding of
+that sum (`compare_forward`). The backward's sums are its own closed
+forms, held within `BWD_RTOL` of each array's largest entry.
 """
 
 from __future__ import annotations
@@ -52,7 +57,12 @@ from __future__ import annotations
 import torch
 
 from brush_tpu_torch import kernels
-from brush_tpu_torch.camera import CameraModel, Pinhole
+from brush_tpu_torch.camera import (
+    CameraModel,
+    KannalaBrandt4,
+    Pinhole,
+    lens_kind,
+)
 from brush_tpu_torch.constants import (
     COLOR_CLAMP,
     COV2D_ENTRY_CLAMP,
@@ -61,6 +71,7 @@ from brush_tpu_torch.constants import (
     SH_COLOR_OFFSET,
 )
 from brush_tpu_torch.kernels import build
+from brush_tpu_torch.ops.camera_proj import kb4_jacobian, kb4_jacobian_vjp
 from brush_tpu_torch.ops.projection import (
     CameraInputs,
     ProjectedSplats,
@@ -209,15 +220,18 @@ def _quat_rot_vjp(qn, g):
 def project_backward_plain(means, log_scales, quats, sh_coeffs,
                            raw_opacities, cam: CameraInputs, img_size,
                            flags, v_mean2d, v_conic, v_color, v_opac, *,
-                           sh_degree: int, mip_splatting: bool):
+                           sh_degree: int, mip_splatting: bool,
+                           model: CameraModel = Pinhole()):
     """Gradients (means, log_scales, quats, sh_coeffs, raw_opacities) of a
-    pinhole projection from the cotangents of mean2d [N, 2], conic [N, 3],
-    color [N, 3] and opac [N], in closed form: the vector-Jacobian product
-    of `project_splats` that autograd forms, written out. `flags` is
-    `gate_flags` of the forward. A culled splat, a colour channel whose
-    raw SH sum was not finite or that sits past +-COLOR_CLAMP, and a
-    non-finite SH coefficient get zero gradient, as under autograd; a splat
-    past the Jacobian's clamp limits gets the clamped Jacobian's."""
+    projection through a pinhole or a KannalaBrandt4 lens from the
+    cotangents of mean2d [N, 2], conic [N, 3], color [N, 3] and opac [N],
+    in closed form: the vector-Jacobian product of `project_splats` that
+    autograd forms, written out (KB4's Jacobian and its second derivatives
+    by `kb4_jacobian` and `kb4_jacobian_vjp`). `flags` is `gate_flags` of
+    the forward. A culled splat, a colour channel whose raw SH sum was not
+    finite or that sits past +-COLOR_CLAMP, and a non-finite SH coefficient
+    get zero gradient, as under autograd; a splat past the Jacobian's clamp
+    limits gets the clamped Jacobian's."""
     del img_size  # the gradients do not depend on the image's size
     dev, dt = means.device, means.dtype
     n = means.shape[0]
@@ -251,8 +265,12 @@ def project_backward_plain(means, log_scales, quats, sh_coeffs,
     in_y = (ry >= lim[2]) & (ry <= lim[3])
     xc, yc = xn * z, yn * z
     niz2 = -(iz * iz)
-    j00, j02 = fx * iz, fx * xc * niz2
-    j11, j12 = fy * iz, fy * yc * niz2
+    kb4 = isinstance(model, KannalaBrandt4)
+    if kb4:
+        j = kb4_jacobian(xc, yc, z, fx, fy, model)
+    else:
+        j00, j02 = fx * iz, fx * xc * niz2
+        j11, j12 = fy * iz, fy * yc * niz2
 
     qn2 = (q * q).sum(-1)
     qnorm = torch.sqrt(torch.clamp_min(qn2, 1e-32))
@@ -261,8 +279,12 @@ def project_backward_plain(means, log_scales, quats, sh_coeffs,
     mm = [[rot[i, 0] * rq[0][kk] + rot[i, 1] * rq[1][kk]
            + rot[i, 2] * rq[2][kk] for kk in range(3)] for i in range(3)]
     ns = [[mm[i][kk] * s[:, kk] for kk in range(3)] for i in range(3)]
-    v0 = [j00 * ns[0][kk] + j02 * ns[2][kk] for kk in range(3)]
-    v1 = [j11 * ns[1][kk] + j12 * ns[2][kk] for kk in range(3)]
+    if kb4:
+        v0, v1 = ([ja[0] * ns[0][kk] + ja[1] * ns[1][kk] + ja[2] * ns[2][kk]
+                   for kk in range(3)] for ja in j)
+    else:
+        v0 = [j00 * ns[0][kk] + j02 * ns[2][kk] for kk in range(3)]
+        v1 = [j11 * ns[1][kk] + j12 * ns[2][kk] for kk in range(3)]
     c00 = v0[0] * v0[0] + v0[1] * v0[1] + v0[2] * v0[2]
     c01 = v0[0] * v1[0] + v0[1] * v1[1] + v0[2] * v1[2]
     c11 = v1[0] * v1[0] + v1[1] * v1[1] + v1[2] * v1[2]
@@ -326,13 +348,19 @@ def project_backward_plain(means, log_scales, quats, sh_coeffs,
 
     g_v0 = [2.0 * g_c00 * v0[kk] + g_c01 * v1[kk] for kk in range(3)]
     g_v1 = [2.0 * g_c11 * v1[kk] + g_c01 * v0[kk] for kk in range(3)]
-    g_j00 = sum(g_v0[kk] * ns[0][kk] for kk in range(3))
-    g_j02 = sum(g_v0[kk] * ns[2][kk] for kk in range(3))
-    g_j11 = sum(g_v1[kk] * ns[1][kk] for kk in range(3))
-    g_j12 = sum(g_v1[kk] * ns[2][kk] for kk in range(3))
-    g_ns = [[g_v0[kk] * j00 for kk in range(3)],
-            [g_v1[kk] * j11 for kk in range(3)],
-            [g_v0[kk] * j02 + g_v1[kk] * j12 for kk in range(3)]]
+    if kb4:
+        g_j = [[sum(g_va[kk] * ns[i][kk] for kk in range(3))
+                for i in range(3)] for g_va in (g_v0, g_v1)]
+        g_ns = [[g_v0[kk] * j[0][i] + g_v1[kk] * j[1][i] for kk in range(3)]
+                for i in range(3)]
+    else:
+        g_j00 = sum(g_v0[kk] * ns[0][kk] for kk in range(3))
+        g_j02 = sum(g_v0[kk] * ns[2][kk] for kk in range(3))
+        g_j11 = sum(g_v1[kk] * ns[1][kk] for kk in range(3))
+        g_j12 = sum(g_v1[kk] * ns[2][kk] for kk in range(3))
+        g_ns = [[g_v0[kk] * j00 for kk in range(3)],
+                [g_v1[kk] * j11 for kk in range(3)],
+                [g_v0[kk] * j02 + g_v1[kk] * j12 for kk in range(3)]]
     g_s = torch.stack([sum(g_ns[i][kk] * mm[i][kk] for i in range(3))
                        for kk in range(3)], dim=-1)
     g_ls = g_s * s
@@ -343,16 +371,27 @@ def project_backward_plain(means, log_scales, quats, sh_coeffs,
 
     # The Jacobian at the clamped point, and mean2d at the point itself.
     g_u, g_v = v_mean2d[:, 0], v_mean2d[:, 1]
-    g_iz = (g_j00 * fx + g_j11 * fy + 2.0 * iz * (g_j02 * fx * xc
-                                                  + g_j12 * fy * yc) * -1.0
-            + g_u * fx * mc[0] + g_v * fy * mc[1])
-    g_xn = g_j02 * fx * niz2 * z
-    g_yn = g_j12 * fy * niz2 * z
-    g_z = g_j02 * fx * niz2 * xn + g_j12 * fy * niz2 * yn - g_iz * iz * iz
+    if kb4:
+        g_pc = kb4_jacobian_vjp(xc, yc, z, fx, fy, model, g_j)
+        jm = kb4_jacobian(mc[0], mc[1], z, fx, fy, model)
+        g_xn, g_yn = g_pc[0] * z, g_pc[1] * z
+        g_z = g_pc[2] + g_pc[0] * xn + g_pc[1] * yn
+        g_mc0 = g_u * jm[0][0] + g_v * jm[1][0]
+        g_mc1 = g_u * jm[0][1] + g_v * jm[1][1]
+        g_z = g_z + g_u * jm[0][2] + g_v * jm[1][2]
+    else:
+        g_iz = (g_j00 * fx + g_j11 * fy + 2.0 * iz * (g_j02 * fx * xc
+                                                      + g_j12 * fy * yc)
+                * -1.0 + g_u * fx * mc[0] + g_v * fy * mc[1])
+        g_xn = g_j02 * fx * niz2 * z
+        g_yn = g_j12 * fy * niz2 * z
+        g_z = (g_j02 * fx * niz2 * xn + g_j12 * fy * niz2 * yn
+               - g_iz * iz * iz)
+        g_mc0, g_mc1 = g_u * fx * iz, g_v * fy * iz
     g_rx = torch.where(in_x, g_xn, torch.zeros_like(g_xn))
     g_ry = torch.where(in_y, g_yn, torch.zeros_like(g_yn))
-    g_mc0 = g_u * fx * iz + g_rx / z
-    g_mc1 = g_v * fy * iz + g_ry / z
+    g_mc0 = g_mc0 + g_rx / z
+    g_mc1 = g_mc1 + g_ry / z
     g_z = g_z - (g_rx * mc[0] + g_ry * mc[1]) / (z * z)
     g_mc = (g_mc0, g_mc1, g_z)
     g_m = torch.stack([sum(rot[i, j] * g_mc[i] for i in range(3))
@@ -427,13 +466,37 @@ def _camera_ptrs(cam: CameraInputs):
             cam.clamp_limits.data_ptr(), cam.cam_pos.data_ptr())
 
 
+def _lens_args(what, model: CameraModel):
+    """(lens, k1, k2, k3, k4) as the C entry points take them."""
+    if type(model) is KannalaBrandt4:
+        return (1, model.k1, model.k2, model.k3, model.k4)
+    if type(model) is Pinhole:
+        return (0, 0.0, 0.0, 0.0, 0.0)
+    raise ValueError(f"{what}: no kernel for the lens {model!r}")
+
+
+def _render_field(cam: CameraInputs, device):
+    """The fisheye cull's half field as the forward kernel takes it:
+    (value, None) for a float, (0.0, its tensor) for a float32 on the
+    device (a step graph's camera holds it there, one a view)."""
+    fov = cam.half_max_render_fov
+    if not torch.is_tensor(fov):
+        return float(fov), None
+    if fov.numel() != 1:
+        raise ValueError(f"project_forward: a render field of shape "
+                         f"{tuple(fov.shape)}")
+    return 0.0, fov.to(device, torch.float32).contiguous()
+
+
 def project_forward(means, log_scales, quats, sh_coeffs, raw_opacities,
                     cam: CameraInputs, img_size, *, sh_degree: int,
-                    mip_splatting: bool):
-    """The forward kernel: (ProjectedSplats, flags [N] uint8) of a pinhole
-    projection, equal to `project_splats_flags` (colour within
-    `compare_forward`'s rule). Contiguous float32 CUDA tensors only."""
+                    mip_splatting: bool, model: CameraModel = Pinhole()):
+    """The forward kernel: (ProjectedSplats, flags [N] uint8) of a
+    projection through a pinhole or a KannalaBrandt4 lens, equal to
+    `project_splats_flags` within `compare_forward`'s rule. Contiguous
+    float32 CUDA tensors only."""
     inputs = (means, log_scales, quats, sh_coeffs, raw_opacities)
+    lens = _lens_args("project_forward", model)
     n = _check_inputs("project_forward", *inputs, cam, sh_degree)
     dev = means.device
 
@@ -451,59 +514,69 @@ def project_forward(means, log_scales, quats, sh_coeffs, raw_opacities,
     if n == 0:
         return proj, flags
     img_w, img_h = (int(v) for v in img_size)
+    fov, fov_at = (_render_field(cam, dev) if type(model) is KannalaBrandt4
+                   else (0.0, None))
     err = build.library().brush_project_fwd(
         *_row_ptrs(*inputs), *_camera_ptrs(cam), n, img_w, img_h,
-        sh_degree, int(mip_splatting),
+        sh_degree, int(mip_splatting), *lens, fov,
+        None if fov_at is None else fov_at.data_ptr(),
         *(getattr(proj, f).data_ptr() for f in _FIELDS), flags.data_ptr(),
         build.stream_ptr(dev))
     build.check(err, "project_forward")
     kernels.note_launch("project_fwd", _replay_forward, compare_forward,
                         *inputs, cam, (img_w, img_h), sh_degree,
-                        bool(mip_splatting))
+                        bool(mip_splatting), model)
     return proj, flags
 
 
 def _replay_forward(inputs):
-    *rows, cam, img_size, degree, mip = inputs
+    *rows, cam, img_size, degree, mip, model = inputs
 
     @torch.no_grad()
     def kernel():
         return project_forward(*rows, cam, img_size, sh_degree=degree,
-                               mip_splatting=mip)
+                               mip_splatting=mip, model=model)
 
     @torch.no_grad()
     def plain():
         return project_splats_flags(*rows, cam, img_size, sh_degree=degree,
-                                    mip_splatting=mip)
+                                    mip_splatting=mip, model=model)
     return kernel, plain
 
 
-def compare_forward(got, want) -> float:
-    """Hold the forward kernel's (ProjectedSplats, flags) to the plain
-    version's. Bit for bit: flags, visible, depth, tile_min, tile_max,
-    num_tiles_bbox (the same float32 operations in the same order), and
-    mean2d, conic, opac, power_threshold, max_radius, compared as float32
-    words. Colour: within COLOR_RTOL x (1 + |want|) x 16 and 1e-6, the
-    rounding of a sum of up to 25 SH terms taken in another order.
-    Returns the largest colour difference; raises AssertionError
-    otherwise."""
-    (gp, gf), (wp, wf) = got, want
-    kernels.same_bits(gf, wf)
-    for f in _FIELDS:
-        if f == "color":
-            continue
-        g, w = getattr(gp, f), getattr(wp, f)
-        try:
-            kernels.same_bits(g, w)
-        except AssertionError:
-            bad = int((g != w).sum()) if g.shape == w.shape else -1
-            raise AssertionError(f"project_fwd: {f} differs from the plain "
-                                 f"version in {bad} entries") from None
+def _check_color(gp, wp) -> float:
     d = (gp.color - wp.color).abs()
     limit = COLOR_RTOL * 16.0 * (1.0 + wp.color.abs()) + 1e-6
     if not bool((d <= limit).all()):
         raise AssertionError(f"project_fwd: color off by {float(d.max()):.3g}")
     return float(d.max()) if d.numel() else 0.0
+
+
+def _same_field(f, g, w):
+    try:
+        kernels.same_bits(g, w)
+    except AssertionError:
+        bad = int((g != w).sum()) if g.shape == w.shape else -1
+        raise AssertionError(f"project_fwd: {f} differs from the plain "
+                             f"version in {bad} entries") from None
+
+
+def compare_forward(got, want) -> float:
+    """Hold the forward kernel's (ProjectedSplats, flags) to the plain
+    version's, through either lens; returns the largest colour
+    difference, raises AssertionError otherwise.
+
+    Bit for bit: flags, visible, depth, tile_min, tile_max, num_tiles_bbox
+    (the same float32 operations in the same order), and mean2d, conic,
+    opac, power_threshold, max_radius, compared as float32 words. Colour:
+    within COLOR_RTOL x (1 + |want|) x 16 and 1e-6, the rounding of a sum
+    of up to 25 SH terms taken in another order."""
+    (gp, gf), (wp, wf) = got, want
+    kernels.same_bits(gf, wf)
+    for f in _FIELDS:
+        if f != "color":
+            _same_field(f, getattr(gp, f), getattr(wp, f))
+    return _check_color(gp, wp)
 
 
 def _grad_rows(t, n, width, device):
@@ -523,12 +596,14 @@ def _grad_rows(t, n, width, device):
 
 def project_backward(means, log_scales, quats, sh_coeffs, raw_opacities,
                      cam: CameraInputs, img_size, flags, v_mean2d, v_conic,
-                     v_color, v_opac, *, sh_degree: int, mip_splatting: bool):
+                     v_color, v_opac, *, sh_degree: int, mip_splatting: bool,
+                     model: CameraModel = Pinhole()):
     """The backward kernel: gradients (means, log_scales, quats, sh_coeffs,
     raw_opacities) from the cotangents of mean2d [N, 2], conic [N, 3],
     color [N, 3] and opac [N] (each may be a strided view; None reads as
     zeros), equal to `project_backward_plain` within `compare_backward`."""
     rows = (means, log_scales, quats, sh_coeffs, raw_opacities)
+    lens = _lens_args("project_backward", model)
     n = _check_inputs("project_backward", *rows, cam, sh_degree)
     dev = means.device
     if flags.dtype != torch.uint8 or tuple(flags.shape) != (n,):
@@ -544,27 +619,28 @@ def project_backward(means, log_scales, quats, sh_coeffs, raw_opacities,
     err = build.library().brush_project_bwd(
         *_row_ptrs(*rows), *_camera_ptrs(cam), flags.data_ptr(),
         *(v for t, ld in cots for v in (t.data_ptr(), ld)), n, sh_degree,
-        int(mip_splatting), *(g.data_ptr() for g in grads),
+        int(mip_splatting), *lens, *(g.data_ptr() for g in grads),
         build.stream_ptr(dev))
     build.check(err, "project_backward")
     kernels.note_launch("project_bwd", _replay_backward, compare_backward,
                         *rows, cam, tuple(img_size), flags,
                         *(t for t, _ in cots), sh_degree,
-                        bool(mip_splatting))
+                        bool(mip_splatting), model)
     return grads
 
 
 def _replay_backward(inputs):
-    *args, degree, mip = inputs
+    *args, degree, mip, model = inputs
 
     @torch.no_grad()
     def kernel():
-        return project_backward(*args, sh_degree=degree, mip_splatting=mip)
+        return project_backward(*args, sh_degree=degree, mip_splatting=mip,
+                                model=model)
 
     @torch.no_grad()
     def plain():
         return project_backward_plain(*args, sh_degree=degree,
-                                      mip_splatting=mip)
+                                      mip_splatting=mip, model=model)
     return kernel, plain
 
 
@@ -599,20 +675,21 @@ def compare_backward(got, want) -> float:
 
 
 class _Project(torch.autograd.Function):
-    """The pinhole projection on the card: the forward kernel, and the
-    backward kernel from the five inputs, the camera and the gates'
+    """The projection on the card: the forward kernel, and the backward
+    kernel from the five inputs, the camera, the lens and the gates'
     flags."""
 
     @staticmethod
     def forward(ctx, means, log_scales, quats, sh_coeffs, raw_opacities,
-                cam, img_size, sh_degree, mip_splatting):
+                cam, img_size, sh_degree, mip_splatting, model):
         proj, flags = project_forward(
             means, log_scales, quats, sh_coeffs, raw_opacities, cam,
-            img_size, sh_degree=sh_degree, mip_splatting=mip_splatting)
+            img_size, sh_degree=sh_degree, mip_splatting=mip_splatting,
+            model=model)
         ctx.save_for_backward(means, log_scales, quats, sh_coeffs,
                               raw_opacities, *cam[:4], flags)
         ctx.static = (cam.half_max_render_fov, img_size, sh_degree,
-                      mip_splatting)
+                      mip_splatting, model)
         ctx.mark_non_differentiable(*(getattr(proj, f) for f in _NON_DIFF))
         ctx.set_materialize_grads(False)
         return tuple(getattr(proj, f) for f in _FIELDS)
@@ -621,15 +698,16 @@ class _Project(torch.autograd.Function):
     def backward(ctx, *grads):
         *rows, viewmat, pinhole, clamp_limits, cam_pos, flags = (
             ctx.saved_tensors)
-        fov, img_size, sh_degree, mip = ctx.static
+        fov, img_size, sh_degree, mip, model = ctx.static
         cam = CameraInputs(viewmat, pinhole, clamp_limits, cam_pos, fov)
         g = dict(zip(_FIELDS, grads))
         out = project_backward(
             *rows, cam, img_size, flags, g["mean2d"], g["conic"],
-            g["color"], g["opac"], sh_degree=sh_degree, mip_splatting=mip)
+            g["color"], g["opac"], sh_degree=sh_degree, mip_splatting=mip,
+            model=model)
         return (*(o if need else None
                   for o, need in zip(out, ctx.needs_input_grad)),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def project(means, log_scales, quats, sh_coeffs, raw_opacities,
@@ -637,16 +715,18 @@ def project(means, log_scales, quats, sh_coeffs, raw_opacities,
             model: CameraModel = Pinhole(), mip_splatting: bool = False
             ) -> ProjectedSplats:
     """Project every splat (the arguments and result of `project_splats`).
-    CUDA tensors through a `Pinhole` lens run the kernels, differentiable
-    where autograd records; anything else runs `project_splats`."""
-    if means.device.type != "cuda" or not isinstance(model, Pinhole):
+    CUDA tensors through a `Pinhole` or `KannalaBrandt4` lens run the
+    kernels, differentiable where autograd records; anything else runs
+    `project_splats`."""
+    if (means.device.type != "cuda"
+            or type(model) not in (Pinhole, KannalaBrandt4)):
         count("project.route.torch")
         return project_splats(means, log_scales, quats, sh_coeffs,
                               raw_opacities, cam, img_size,
                               sh_degree=sh_degree, model=model,
                               mip_splatting=mip_splatting)
     count("project.route.cuda")
-    count("project.lens.pinhole")
+    count(f"project.lens.{lens_kind(model)}")
     rows = tuple(t.contiguous() for t in (means, log_scales, quats,
                                           sh_coeffs, raw_opacities))
     cam = cam._replace(**{f: getattr(cam, f).contiguous() for f in (
@@ -654,6 +734,6 @@ def project(means, log_scales, quats, sh_coeffs, raw_opacities,
     img_size = tuple(int(v) for v in img_size)
     if torch.is_grad_enabled() and any(t.requires_grad for t in rows):
         return ProjectedSplats(*_Project.apply(
-            *rows, cam, img_size, sh_degree, bool(mip_splatting)))
+            *rows, cam, img_size, sh_degree, bool(mip_splatting), model))
     return project_forward(*rows, cam, img_size, sh_degree=sh_degree,
-                           mip_splatting=mip_splatting)[0]
+                           mip_splatting=mip_splatting, model=model)[0]

@@ -13,12 +13,14 @@ the structure and every field are ported as they are.
 
 `project_splats` is the plain version of the CUDA projection
 (ops/project_cuda.py `project`, which the render calls): the CPU's path,
-every fisheye lens's, and the yardstick the kernels are held to.
+the RT8 and thin-prism fisheye lenses' on the card, and the yardstick the
+kernels are held to.
 
 Tracing (utils/tracing.py): the lens's projection and its Jacobian are the
-stage `project.lens` (with device marks, so eager paths only), and each
-projection counts `project.lens.<kind>` (camera.lens_kind: an eager call
-or a graph's capture; a replay runs no Python).
+stage `project.lens` (with device marks, so eager paths only; this route
+alone has it), and each projection counts `project.lens.<kind>`
+(camera.lens_kind: an eager call or a graph's capture; a replay runs no
+Python), as the kernels' route does.
 """
 
 from __future__ import annotations
@@ -267,8 +269,8 @@ def project_splats(
 ) -> ProjectedSplats:
     """Project every splat with PyTorch operations, on any device and
     through any lens, differentiable under autograd: the plain version
-    of the CUDA projection (ops/project_cuda.py), and the CPU's and the
-    fisheye lenses' path."""
+    of the CUDA projection (ops/project_cuda.py), and the CPU's path and
+    that of the lenses the kernels do not take."""
     return _project_plain(means, log_scales, quats, sh_coeffs, raw_opacities,
                           cam, img_size, sh_degree, model, mip_splatting)[0]
 

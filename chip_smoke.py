@@ -2218,7 +2218,7 @@ def kernel_work(launch, got, pairs):
         # opacity (the colour channels' finiteness is an output even of a
         # culled row), and the 70 bytes it writes; a row that passes the
         # opacity gate also reads its log-scales and quaternion.
-        means, _, _, sh, raw, _, _, degree, _ = inputs
+        means, _, _, sh, raw, _, _, degree, _, _ = inputs
         n = raw.numel()
         sig = torch.sigmoid(raw)
         opaque = int((sig >= 1.0 / 255.0).sum())
@@ -3277,24 +3277,48 @@ def _refine_cell(torch, loop) -> dict:
                               for k in w_stats._fields})
 
 
+def fisheye_camera():
+    """The fisheye cell's view: the KB4 lens of its configuration's
+    `camera` (portbench/configs/scannetpp-fisheye-1m-sh3.json), 8 units
+    from the scene's centre as the cell's views stand. Returns (Camera,
+    img_size)."""
+    from brush_tpu_torch.camera import Camera, KannalaBrandt4, focal_to_fov
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "portbench", "configs",
+                           "scannetpp-fisheye-1m-sh3.json")) as f:
+        lens = json.load(f)["camera"]
+    model = KannalaBrandt4(*lens["k"])
+    img = (lens["width"], lens["height"])
+    return Camera(position=np.array([0.0, 0.0, -8.0]),
+                  rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                  fov_x=focal_to_fov(lens["fx"], img[0], model),
+                  fov_y=focal_to_fov(lens["fy"], img[1], model),
+                  model=model), img
+
+
 def phase_project(torch) -> dict:
     """The projection's kernels at the shapes of the benchmark's cells, for
     the kernel phase: a training render's projection and backward over the
     train cells' rows (1M live splats of the bench scene in a capacity of
-    2^21, SH degree 3, 1920x1080, random cotangents), and the viewer's
-    forward at 1M splats (1920x1080) and at 2M (3200x1800). Returns, by
-    path, the launch counters and the captured launches."""
+    2^21, SH degree 3, 1920x1080, random cotangents), the same through the
+    fisheye cell's KB4 view at 1752x1168, and the viewer's forward at 1M
+    splats (1920x1080) and at 2M (3200x1800). Returns, by path, the launch
+    counters and the captured launches."""
     from brush_tpu_torch import kernels
     from brush_tpu_torch.ops.project_cuda import project
     from brush_tpu_torch.render import camera_inputs
     from brush_tpu_torch.utils.synthetic import bench_splats
 
-    _, cam = next(iter(views(1, YAW)))
+    _, bench = next(iter(views(1, YAW)))
+    fisheye, fisheye_img = fisheye_camera()
     out = {}
-    for path, count, capacity, img, train in (
-            ("project_train", N_SPLATS, 1 << 21, IMG_SIZE, True),
-            ("project_view_1m", N_SPLATS, None, IMG_SIZE, False),
-            ("project_view_2m", 2 * N_SPLATS, None, (3200, 1800), False)):
+    for path, count, capacity, cam, img, train in (
+            ("project_train", N_SPLATS, 1 << 21, bench, IMG_SIZE, True),
+            ("project_train_kb4", N_SPLATS, 1 << 21, fisheye, fisheye_img,
+             True),
+            ("project_view_1m", N_SPLATS, None, bench, IMG_SIZE, False),
+            ("project_view_2m", 2 * N_SPLATS, None, bench, (3200, 1800),
+             False)):
         s = bench_splats(count, sh_degree=SH_DEGREE, seed=SEED,
                          capacity=capacity)
         rows = [t.detach().requires_grad_(train) for t in (
@@ -3306,7 +3330,8 @@ def phase_project(torch) -> dict:
                 for shape in ((2,), (3,), (3,), ())]
         kernels.reset_launches()
         with torch.set_grad_enabled(train), kernels.capture() as caps:
-            proj = project(*rows, ci, img, sh_degree=SH_DEGREE)
+            proj = project(*rows, ci, img, sh_degree=SH_DEGREE,
+                           model=cam.model)
             if train:
                 total = sum((getattr(proj, o) * c).sum() for o, c in zip(
                     ("mean2d", "conic", "color", "opac"), cots))

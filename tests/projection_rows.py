@@ -15,21 +15,42 @@ opacities):
   * edges:           splats behind and inside the near plane, splats past
                      the Jacobian's clamp limits that still reach the
                      image, and colour channels past and exactly at
-                     +-COLOR_CLAMP.
+                     +-COLOR_CLAMP;
+  * fisheye:         the bench case through the fisheye cell's KB4 lens
+                     (`fisheye_camera`) at an eighth of its 1752x1168,
+                     with rows on the axis (r < 1e-6), rows towards the
+                     image's corners 82.7 degrees off the axis, and rows
+                     past the render field (culled).
 
-`poisoned(field, value)` is the bench case with rows of one input array
-set to NaN or +-inf (a whole row, and single entries).
+`poisoned(field, value, name)` is the bench case (or the fisheye case)
+with rows of one input array set to NaN or +-inf (a whole row, and
+single entries).
 """
 
+import json
+import math
 import pathlib
 
 import numpy as np
 
-from brush_tpu_torch.camera import Camera
+from brush_tpu_torch.camera import (
+    Camera,
+    KannalaBrandt4,
+    _kb4_invert_d,
+    focal_to_fov,
+)
 from brush_tpu_torch.constants import COLOR_CLAMP, SH_C0
 from brush_tpu_torch.models.splats import DEAD_RAW_OPACITY
 
-CASES = ("gsplat", "bench_half_dead", "edges")
+CASES = ("gsplat", "bench_half_dead", "edges", "fisheye")
+# The fisheye cell's lens, as its configuration gives it: OPENCV_FISHEYE
+# coefficients, one focal for both axes, centred.
+FISHEYE_LENS = json.loads((
+    pathlib.Path(__file__).resolve().parent.parent / "portbench" / "configs"
+    / "scannetpp-fisheye-1m-sh3.json").read_text())["camera"]
+KB4 = tuple(FISHEYE_LENS["k"])
+FISHEYE_FOCAL = FISHEYE_LENS["fx"]
+FISHEYE_IMG = (FISHEYE_LENS["width"], FISHEYE_LENS["height"])
 FIELDS = ("means", "log_scales", "quats", "sh", "raw_opacities")
 POISONS = [(f, v) for f in FIELDS for v in ("nan", "inf", "-inf")]
 DATA = pathlib.Path(__file__).parent / "data"
@@ -70,6 +91,55 @@ def bench_camera():
     return Camera(position=np.array([0.0, 0.0, -18.0]),
                   rotation=np.array([1.0, 0.0, 0.0, 0.0]),
                   fov_x=1.0, fov_y=0.6)
+
+
+def fisheye_camera(scale=1.0, position=(0.0, 0.0, -8.0), k=KB4):
+    """The fisheye cell's KB4 camera, its image and focal scaled by
+    `scale`, looking along +z from `position`: (Camera, img_size)."""
+    w, h = (round(v * scale) for v in FISHEYE_IMG)
+    f = FISHEYE_FOCAL * scale
+    model = KannalaBrandt4(*k)
+    return Camera(position=np.asarray(position, dtype=np.float64),
+                  rotation=np.array([1.0, 0.0, 0.0, 0.0]),
+                  fov_x=focal_to_fov(f, w, model),
+                  fov_y=focal_to_fov(f, h, model), model=model), (w, h)
+
+
+def _fisheye(seed):
+    """The bench rows (400 live in 800) seen through `fisheye_camera` at
+    an eighth of the cell's size from 8 units; live rows 372-399 replaced:
+    372-377 on the axis (camera-space r of 0 to 5e-7), 378-393 towards the
+    four image corners (theta 0.97 and 0.995 of the corners' 82.7 degrees;
+    1.005 of it, past the image's corner but inside the render field of
+    83.4 degrees; 1.012, just past the field: culled), 394-399 past the
+    render field (theta 1.6, 2.2 and pi: culled)."""
+    params = bench_rows(400, 800, seed)
+    cam, img = fisheye_camera(1.0 / 8.0)
+    f = FISHEYE_FOCAL / 8.0
+    model = cam.model
+    pts = [(0.0, 0.0, 3.0), (0.0, 0.0, 6.5), (2e-7, -3e-7, 2.5),
+           (-5e-7, 1e-7, 4.0), (3e-7, 3e-7, 1.5), (0.0, -4e-7, 9.0)]
+    corner = _kb4_invert_d(math.hypot(img[0] / 2, img[1] / 2) / f,
+                           *KB4)
+    rng = np.random.default_rng(seed + 3)
+    for sx, sy in ((1, 1), (-1, 1), (1, -1), (-1, -1)):
+        phi = math.atan2(sy * img[1], sx * img[0])
+        for share in (0.97, 0.995, 1.005, 1.012):
+            th, rho = share * corner, rng.uniform(2.0, 5.0)
+            pts.append((rho * math.sin(th) * math.cos(phi),
+                        rho * math.sin(th) * math.sin(phi),
+                        rho * math.cos(th)))
+    for th in (1.6, 2.2, math.pi):
+        for phi in (0.3, 2.0):
+            pts.append((3.0 * math.sin(th) * math.cos(phi),
+                        3.0 * math.sin(th) * math.sin(phi),
+                        3.0 * math.cos(th)))
+    rows = slice(400 - len(pts), 400)
+    params[0][rows] = np.asarray(pts, np.float32) + cam.position.astype(
+        np.float32)
+    params[1][rows] = np.log(rng.uniform(0.02, 0.1, (len(pts), 3)))
+    params[4][rows] = rng.uniform(1.0, 3.0, len(pts))
+    return params, cam, img
 
 
 def _edges(rng):
@@ -122,13 +192,16 @@ def case(name, degree=3, seed=0):
         return bench_rows(400, 800, seed), bench_camera(), (192, 108)
     if name == "edges":
         return _edges(np.random.default_rng(seed + 5))
+    if name == "fisheye":
+        return _fisheye(seed)
     raise KeyError(name)
 
 
-def poisoned(field, value, seed=0):
-    """The bench case with rows of `field` poisoned by `value` ('nan',
-    'inf' or '-inf'): rows 0-5 whole, rows 6-23 one entry each."""
-    params, cam, img = case("bench_half_dead", seed=seed)
+def poisoned(field, value, seed=0, name="bench_half_dead"):
+    """Case `name` (the bench case, or the fisheye case) with rows of
+    `field` poisoned by `value` ('nan', 'inf' or '-inf'): rows 0-5 whole,
+    rows 6-23 one entry each."""
+    params, cam, img = case(name, seed=seed)
     arr = params[FIELDS.index(field)]
     v = np.float32(float(value))
     flat = arr.reshape(arr.shape[0], -1)

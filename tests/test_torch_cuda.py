@@ -1448,17 +1448,19 @@ def test_space_parallel_render_over_two_processes_on_one_card(tmp_path,
 # --------------------------------------------------------------------------
 
 
-def _graph_case(dev, fisheye=False):
+def _graph_case(dev, fisheye=False, model=None):
     """1,500 splats at 96x64 over two views with a rendered ground truth:
     (splat state seeded 3, [(CameraInputs, SceneBatch)], training and
     forward-only RenderConfigs, the view centres and focals). `fisheye`:
-    the views a KannalaBrandt4 lens of a 2.2 rad field, nearer."""
+    the views a KannalaBrandt4 lens (or `model`) of a 2.2 rad field,
+    nearer."""
+    import projection_rows
     from brush_tpu_torch.camera import KannalaBrandt4, Pinhole
     from brush_tpu_torch.ops.loss import pack_gt
     from brush_tpu_torch.train.trainer import SceneBatch, init_train_state
     img = (96, 64)
-    model = (KannalaBrandt4(-0.03, -0.004, 0.0006, -0.0001) if fisheye
-             else Pinhole())
+    model = model or (KannalaBrandt4(*projection_rows.KB4) if fisheye
+                      else Pinhole())
     rcfg = RenderConfig(img_size=img, sh_degree=1, model=model,
                         isect_cap=1 << 14, use_pallas=True)
     fwd = dataclasses.replace(rcfg, forward_only=True)
@@ -1568,6 +1570,7 @@ def test_step_graph_steps_match_eager_steps(kind, cuda):
     from brush_tpu_torch.models.lpips import random_lpips
     from brush_tpu_torch.train.config import TrainConfig
     from brush_tpu_torch.train.trainer import stack_batches, train_step_impl
+    from brush_tpu_torch.utils import tracing
     state, views, rcfg, _, _, _ = _graph_case(cuda, fisheye=kind == "kb4")
     tcfg, kw = TrainConfig(), {}
     batches = [views[k % 2][1] for k in range(3)]
@@ -1582,15 +1585,19 @@ def test_step_graph_steps_match_eager_steps(kind, cuda):
     steps = graphs.StepGraphs(tcfg, **kw)
     eager, again, graphed = (_twin_state(state) for _ in range(3))
     auxes = []
-    for batch in batches:
-        eager, e_stats, e_aux = train_step_impl(eager, batch, tcfg, rcfg,
-                                                **kw)
-        again, _, _ = train_step_impl(again, batch, tcfg, rcfg, **kw)
-        graphed, g_stats, g_aux = steps(graphed, batch, rcfg)
-        assert graphed is steps.graph.state
-        auxes.append((g_aux, e_aux))
-        assert abs(float(g_stats.loss) - float(e_stats.loss)) <= (
-            rtol * abs(float(e_stats.loss)))
+    with tracing.record_stages() as rec:
+        for batch in batches:
+            eager, e_stats, e_aux = train_step_impl(eager, batch, tcfg, rcfg,
+                                                    **kw)
+            again, _, _ = train_step_impl(again, batch, tcfg, rcfg, **kw)
+            graphed, g_stats, g_aux = steps(graphed, batch, rcfg)
+            assert graphed is steps.graph.state
+            auxes.append((g_aux, e_aux))
+            assert abs(float(g_stats.loss) - float(e_stats.loss)) <= (
+                rtol * abs(float(e_stats.loss)))
+        c = rec.snapshot()["counters"]
+    # Every lens here projects on the kernels, KB4 too.
+    assert c["project.route.cuda"] >= 3 and "project.route.torch" not in c
     for g_aux, e_aux in auxes:
         assert int(g_aux.num_isects) == int(e_aux.num_isects)
         assert torch.equal(g_aux.max_radius, e_aux.max_radius) or float(
@@ -2147,10 +2154,11 @@ def test_recorder_counts_graphs_and_times_turns_on_the_card(tmp_path,
 def test_fisheye_dataset_trains_on_one_step_graph(tmp_path, monkeypatch,
                                                   cuda):
     """`train_process` over an OPENCV_FISHEYE COLMAP scene on the card:
-    every turn trains through the lens (`run.lens.kb4`), on one captured
-    step graph replayed after the first step, and the run's losses are
-    those of the same run with every program eager, within 1e-3 relative
-    (the rule of `test_train_process_with_growth_and_lod_on_graphs_matches_
+    every turn trains through the lens (`run.lens.kb4`), projected by the
+    kernels (`project.route.cuda`, never `project.route.torch`), on one
+    captured step graph replayed after the first step, and the run's
+    losses are those of the same run with every program eager, within 1e-3
+    relative (the rule of `test_train_process_with_growth_and_lod_on_graphs_matches_
     eager`)."""
     import functools
     import struct
@@ -2187,9 +2195,12 @@ def test_fisheye_dataset_trains_on_one_step_graph(tmp_path, monkeypatch,
     assert c["graphs.capture.step"] == 1
     assert c["graphs.replay.step"] == steps - 1
     assert c["run.lens.kb4"] == steps and "run.lens.pinhole" not in c
+    # The lens projects on the kernels (the capture and its warm-up).
+    assert c["project.route.cuda"] >= 2 and "project.route.torch" not in c
     _eager(monkeypatch)
     eager, c = losses()
     assert "graphs.capture.step" not in c and c["run.lens.kb4"] == steps
+    assert c["project.route.cuda"] >= steps and "project.route.torch" not in c
     assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(graphed, eager))
 
 
@@ -2208,16 +2219,18 @@ def _proj_rows(params, cam, img, dev, degree=3):
              for p in params], camera_inputs(cam, img, device=dev))
 
 
-def _hold_projection(rows, ci, img, degree, mip, seed):
+def _hold_projection(rows, ci, img, degree, mip, seed, model=None):
     """The forward kernel against `project_splats_flags` (compare_forward:
-    bit for bit but the colour), the backward kernel against
-    `project_backward_plain` (compare_backward) and against autograd of
-    `project_splats` on the card (within 1e-5 of each array's largest
-    entry), for random cotangents. Returns the visible mask."""
+    bit for bit but the colour, through either lens), the backward kernel against `project_backward_plain`
+    (compare_backward) and against autograd of `project_splats` on the
+    card (within 1e-5 of each array's largest entry), for random
+    cotangents. Returns the visible mask."""
+    from brush_tpu_torch.camera import Pinhole
     from brush_tpu_torch.ops import project_cuda, projection
+    model = model or Pinhole()
     with kernels.capture() as launches:
         got = project_cuda.project_forward(*rows, ci, img, sh_degree=degree,
-                                           mip_splatting=mip)
+                                           mip_splatting=mip, model=model)
     assert [x.name for x in launches] == ["project_fwd"]
     launches[0].check()
     proj, flags = got
@@ -2228,12 +2241,12 @@ def _hold_projection(rows, ci, img, degree, mip, seed):
     with kernels.capture() as launches:
         grads = project_cuda.project_backward(
             *rows, ci, img, flags, *cots, sh_degree=degree,
-            mip_splatting=mip)
+            mip_splatting=mip, model=model)
     assert [x.name for x in launches] == ["project_bwd"]
     launches[0].check()
     tp = [r.clone().requires_grad_(True) for r in rows]
     plain = projection.project_splats(*tp, ci, img, sh_degree=degree,
-                                      mip_splatting=mip)
+                                      mip_splatting=mip, model=model)
     total = sum((getattr(plain, o) * c).sum()
                 for o, c in zip(("mean2d", "conic", "color", "opac"), cots))
     want = torch.autograd.grad(total, tp)
@@ -2246,32 +2259,101 @@ def _hold_projection(rows, ci, img, degree, mip, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mip", [False, True], ids=["nomip", "mip"])
 @pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
-@pytest.mark.parametrize("case", ["gsplat", "bench_half_dead", "edges"])
+@pytest.mark.parametrize("case", ["gsplat", "bench_half_dead", "edges",
+                                  "fisheye"])
 def test_project_kernels_match_plain_and_autograd(case, degree, mip, cuda):
     """Both projection kernels on the cases of tests/projection_rows.py
     (the gsplat fixtures; the bench scene with half its rows dead; splats
     behind the near plane, past the Jacobian's clamp and at the colour
-    clamp), SH degrees 0-4, mip compensation on and off."""
+    clamp; the bench scene through the fisheye cell's KB4 lens, with rows
+    on its axis, at its corners and past its field), SH degrees 0-4, mip
+    compensation on and off."""
     import projection_rows
     params, cam, img = projection_rows.case(case)
     rows, ci = _proj_rows(params, cam, img, cuda, degree)
-    vis = _hold_projection(rows, ci, img, degree, mip, seed=degree)
+    vis = _hold_projection(rows, ci, img, degree, mip, seed=degree,
+                           model=cam.model)
     assert bool(vis.any())
+    if case == "fisheye":
+        assert bool(vis[372:378].all()) and not bool(vis[394:].any())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("field,value", [
-    (f, v) for f in ("means", "log_scales", "quats", "sh", "raw_opacities")
+@pytest.mark.parametrize("field,value,case", [
+    pytest.param(f, v, c, id=f"{f}-{v}" + ("-kb4" if c == "fisheye" else ""))
+    for c in ("bench_half_dead", "fisheye")
+    for f in ("means", "log_scales", "quats", "sh", "raw_opacities")
     for v in ("nan", "inf", "-inf")])
-def test_project_kernels_match_plain_on_poisoned_rows(field, value, cuda):
-    """Rows of one input set to NaN or +-inf, whole and entry by entry:
-    the kernels' gates, unit splats, colour scrub and zero gradients
-    against the plain version and autograd."""
+def test_project_kernels_match_plain_on_poisoned_rows(field, value, case,
+                                                      cuda):
+    """Rows of one input set to NaN or +-inf, whole and entry by entry,
+    through a pinhole and through KB4: the kernels' gates, unit splats,
+    colour scrub and zero gradients against the plain version and
+    autograd."""
     import projection_rows
-    params, cam, img = projection_rows.poisoned(field, value)
+    params, cam, img = projection_rows.poisoned(field, value, name=case)
     rows, ci = _proj_rows(params, cam, img, cuda)
-    vis = _hold_projection(rows, ci, img, 3, field == "quats", seed=7)
+    vis = _hold_projection(rows, ci, img, 3, field == "quats", seed=7,
+                           model=cam.model)
     assert int(vis.sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mip", [False, True], ids=["nomip", "mip"])
+@pytest.mark.parametrize("shape", ["cell", "odd"])
+def test_project_kernels_match_plain_through_kb4_at_the_fisheye_cells_rows(
+        shape, mip, cuda):
+    """The fisheye cell's projection: 2^21 rows of the bench scene at SH
+    degree 3, the second half dead, through its KB4 camera at 1752x1168
+    from 8 units (`cell`); and 1,001 rows, 601 live, at an eighth of that
+    (`odd`: the last warp part full). The forward bit for bit but the
+    colour (compare_forward), the backward within compare_backward and
+    1e-5 of autograd's largest entries."""
+    import projection_rows
+    live, cap, scale = ((1 << 20, 1 << 21, 1.0) if shape == "cell"
+                        else (601, 1001, 0.125))
+    params = projection_rows.bench_rows(live, cap, seed=3)
+    cam, img = projection_rows.fisheye_camera(scale)
+    rows, ci = _proj_rows(params, cam, img, cuda)
+    vis = _hold_projection(rows, ci, img, 3, mip, seed=5, model=cam.model)
+    assert 0 < int(vis.sum()) <= live
+    assert not bool(vis[live:].any())
+    if shape == "cell":
+        assert int(vis.sum()) > 100_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["lens_dropped", "k1_flipped"])
+def test_kb4_kernel_compare_rules_fail_planted_faults(fault, cuda):
+    """The kernels run with a faulty lens (KB4 projected as a pinhole, or
+    k1 with its sign flipped) against the plain version through the right
+    one: compare_forward and compare_backward both fail."""
+    import dataclasses as dc
+
+    import projection_rows
+    from brush_tpu_torch.camera import Pinhole
+    from brush_tpu_torch.ops import project_cuda, projection
+    params = projection_rows.bench_rows(1 << 16, 1 << 17, seed=3)
+    cam, img = projection_rows.fisheye_camera(0.5)
+    rows, ci = _proj_rows(params, cam, img, cuda)
+    model = cam.model
+    bad = Pinhole() if fault == "lens_dropped" else dc.replace(
+        model, k1=-model.k1)
+    kw = dict(sh_degree=3, mip_splatting=False)
+    got = project_cuda.project_forward(*rows, ci, img, model=bad, **kw)
+    want = projection.project_splats_flags(*rows, ci, img, model=model,
+                                           **kw)
+    with pytest.raises(AssertionError):
+        project_cuda.compare_forward(got, want)
+    n = rows[0].shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cots = [torch.randn((n,) + s, generator=gen, device=cuda)
+            for s in ((2,), (3,), (3,), ())]
+    args = (*rows, ci, img, want[1], *cots)
+    wrong = project_cuda.project_backward(*args, model=bad, **kw)
+    right = project_cuda.project_backward_plain(*args, model=model, **kw)
+    with pytest.raises(AssertionError):
+        project_cuda.compare_backward(wrong, right)
 
 
 @pytest.mark.cuda
@@ -2377,11 +2459,16 @@ def test_train_step_and_viewer_frame_project_through_the_kernels(tmp_path,
 
 @pytest.mark.cuda
 def test_fisheye_view_projects_through_pytorch(cuda):
-    """A KannalaBrandt4 view on the card takes `project_splats` (its
-    Jacobian is forward-mode AD): `project.route.torch`, no launch of the
-    projection's kernels, forward or backward."""
+    """A ThinPrismFisheye view on the card (a lens the kernels do not
+    take; KB4 does since it has its closed-form Jacobian) runs
+    `project_splats` (its Jacobian is forward-mode AD):
+    `project.route.torch`, no launch of the projection's kernels, forward
+    or backward."""
+    from brush_tpu_torch.camera import ThinPrismFisheye
     from brush_tpu_torch.utils import tracing
-    state, views, rcfg, _, _, _ = _graph_case(cuda, fisheye=True)
+    state, views, rcfg, _, _, _ = _graph_case(cuda, fisheye=True, model=(
+        ThinPrismFisheye(-0.03, -0.004, 0.0006, -0.0001, 1e-3, -1e-3, 5e-4,
+                         -5e-4)))
     s = state.splats
     params = [p.detach().requires_grad_(True) for p in (
         s.means, s.log_scales, s.quats, s.sh_coeffs, s.raw_opacities)]
@@ -2392,7 +2479,7 @@ def test_fisheye_view_projects_through_pytorch(cuda):
         img.sum().backward()
         c = rec.snapshot()["counters"]
     assert c["project.route.torch"] == 1 and "project.route.cuda" not in c
-    assert c["project.lens.kb4"] == 1
+    assert c["project.lens.tpf"] == 1
     assert kernels.LAUNCHES["project_fwd"] == 0
     assert kernels.LAUNCHES["project_bwd"] == 0
     assert all(p.grad is not None and bool(p.grad.isfinite().all())

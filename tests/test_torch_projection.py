@@ -224,13 +224,14 @@ def _hold_backward_plain(params, cam, img, degree, mip, seed):
     """Every input gradient of `project_backward_plain` within 1e-5 of its
     array's largest entry under autograd's (floor 1e-8): the two sum the
     same terms in other orders. Culled splats get exact zeros in both.
-    Returns the forward's visible mask."""
+    The camera's lens is a pinhole or KB4. Returns the forward's visible
+    mask."""
     from brush_tpu_torch.ops import project_cuda
     from brush_tpu_torch.render import camera_inputs
     ci = camera_inputs(cam, img, device="cpu")
     tp = [torch.from_numpy(p.copy()).requires_grad_(True) for p in params]
     proj, flags = tprojection.project_splats_flags(
-        *tp, ci, img, sh_degree=degree, mip_splatting=mip)
+        *tp, ci, img, sh_degree=degree, mip_splatting=mip, model=cam.model)
     n = params[0].shape[0]
     rng = np.random.default_rng(seed)
     cots = [torch.from_numpy(rng.normal(0, 1, (n,) + s).astype(np.float32))
@@ -240,7 +241,7 @@ def _hold_backward_plain(params, cam, img, degree, mip, seed):
     want = torch.autograd.grad(total, tp)
     got = project_cuda.project_backward_plain(
         *(p.detach() for p in tp), ci, img, flags, *cots, sh_degree=degree,
-        mip_splatting=mip)
+        mip_splatting=mip, model=cam.model)
     vis = proj.visible.numpy()
     assert np.array_equal(flags.numpy() & 1, vis)
     for g, w, what in zip(got, want, project_cuda._GRAD_FIELDS):
@@ -271,12 +272,26 @@ def test_project_backward_plain_matches_autograd(case, degree, mip):
         past = (ratio < lim[0]) | (ratio > lim[1])
         assert (vis[8:40] & past).sum() >= 8        # past the clamp, seen
         assert vis[48:52].all()                     # colour at the clamp
+    if case == "fisheye":
+        assert vis[372:378].all()                   # on the axis
+        corners = vis[378:394].reshape(4, 4)        # 0.97, 0.995, 1.005,
+        assert corners[:, :3].all()                 # 1.012 of the corner
+        assert not corners[:, 3].any()              # past the field
+        assert not vis[394:].any()
 
 
-@pytest.mark.parametrize("field,value", projection_rows.POISONS)
+# The poisoned rows through the pinhole (ids as before) and through KB4.
+POISON_CASES = [pytest.param(f, v, "bench_half_dead", id=f"{f}-{v}")
+                for f, v in projection_rows.POISONS] + [
+    pytest.param(f, v, "fisheye", id=f"{f}-{v}-kb4")
+    for f, v in projection_rows.POISONS]
+
+
+@pytest.mark.parametrize("field,value,case", POISON_CASES)
 def test_project_backward_plain_matches_autograd_on_poisoned_rows(field,
-                                                                  value):
-    params, cam, img = projection_rows.poisoned(field, value)
+                                                                  value,
+                                                                  case):
+    params, cam, img = projection_rows.poisoned(field, value, name=case)
     mip = field in ("log_scales", "quats")
     vis = _hold_backward_plain(params, cam, img, 3, mip, seed=11)
     # A -inf log-scale is a zero scale: finite, and the blur keeps the
@@ -284,3 +299,191 @@ def test_project_backward_plain_matches_autograd_on_poisoned_rows(field,
     if field != "sh" and (field, value) != ("log_scales", "-inf"):
         assert not vis[:24].any()
     assert vis.sum() > 100
+
+
+# --------------------------------------------------------------------------
+# KB4 on the kernels: the closed-form Jacobian and its second derivatives
+# (`kb4_jacobian`, `kb4_jacobian_vjp`: the plain version's and the CUDA
+# kernels' specification), and the compare rules that hold the kernels to
+# the plain version.
+# --------------------------------------------------------------------------
+
+
+def _kb4_points(kind, n=512, seed=0):
+    """[n, 3] float32 camera-space points: `wide`, random over the fisheye
+    cell's render field (theta up to 83 degrees); `axis`, within 1e-6 of
+    the axis; `corners`, towards the cell's image corners (82.7 degrees)."""
+    rng = np.random.default_rng(seed)
+    rho = rng.uniform(0.5, 20.0, n)
+    phi = rng.uniform(-np.pi, np.pi, n)
+    if kind == "wide":
+        th = rng.uniform(1e-3, 1.45, n)
+    elif kind == "corners":
+        w, h = projection_rows.FISHEYE_IMG
+        th = np.full(n, tcam._kb4_invert_d(
+            np.hypot(w / 2, h / 2) / projection_rows.FISHEYE_FOCAL,
+            *projection_rows.KB4)) * rng.uniform(0.98, 1.0, n)
+        phi = np.arctan2(rng.choice([-h, h], n), rng.choice([-w, w], n))
+    else:
+        r = rng.uniform(0.0, 9e-7, n)
+        return np.stack([r * np.cos(phi), r * np.sin(phi), rho],
+                        -1).astype(np.float32)
+    return np.stack([rho * np.sin(th) * np.cos(phi),
+                     rho * np.sin(th) * np.sin(phi), rho * np.cos(th)],
+                    -1).astype(np.float32)
+
+
+def _kb4_lens(dtype):
+    model = tcam.KannalaBrandt4(*projection_rows.KB4)
+    f = projection_rows.FISHEYE_FOCAL
+    pinhole = torch.tensor([f, f, 876.0, 584.0], dtype=dtype)
+    lim = torch.tensor([-1e30, 1e30, -1e30, 1e30], dtype=dtype)
+    return model, pinhole, lim
+
+
+def _kb4_closed_and_autograd(pts, gj, dtype):
+    """(J, its VJP against `gj`) of KB4 at the fisheye cell's focal, in
+    `dtype`: by the closed forms (`kb4_jacobian`, `kb4_jacobian_vjp`), and
+    by forward-mode AD of the lens's projection (`jacfwd`, as every other
+    lens's Jacobian is formed) with `torch.autograd.grad` of it (its second
+    derivatives)."""
+    model, pinhole, _ = _kb4_lens(dtype)
+    p = pts.to(dtype).requires_grad_(True)
+    g = gj.to(dtype)
+    jac = torch.func.vmap(torch.func.jacfwd(
+        lambda q: tproj.project(q, pinhole, model)))(p).to(dtype)
+    jac_g, = torch.autograd.grad((jac * g).sum(), p)
+    x, y, z = p.detach().unbind(-1)
+    closed = torch.stack([torch.stack(r, -1) for r in tproj.kb4_jacobian(
+        x, y, z, pinhole[0], pinhole[1], model)], -2)
+    closed_g = torch.stack(tproj.kb4_jacobian_vjp(
+        x, y, z, pinhole[0], pinhole[1], model,
+        [[g[:, a, i] for i in range(3)] for a in range(2)]), -1)
+    return (closed, closed_g), (jac.detach(), jac_g)
+
+
+def _closed_form_jacobian(model):
+    """`projection_jacobian` written out as the forward kernel forms KB4's,
+    through `model`'s coefficients whatever the lens it is called with."""
+    def jacobian(mean_c, pinhole, lim, _):
+        z = mean_c[..., 2]
+        xn = torch.clamp(mean_c[..., 0] / z, lim[0], lim[1])
+        yn = torch.clamp(mean_c[..., 1] / z, lim[2], lim[3])
+        j = tproj.kb4_jacobian(xn * z, yn * z, z, pinhole[0], pinhole[1],
+                               model)
+        return torch.stack([torch.stack(r, -1) for r in j], -2)
+    return jacobian
+
+
+@pytest.mark.parametrize("kind", ["wide", "axis", "corners"])
+def test_kb4_jacobian_and_its_vjp_match_autograd(kind):
+    """`kb4_jacobian` and `kb4_jacobian_vjp` against forward-mode AD of
+    KB4's projection and `torch.autograd.grad` of it against a random
+    cotangent (its second derivatives), at the fisheye cell's focal; and
+    `projection_jacobian`, which `project_splats` takes, is `kb4_jacobian`
+    at the clamp-adjusted point bit for bit, with `kb4_jacobian_vjp` the
+    VJP that autograd forms of it.
+    In float64 the closed forms are autograd's within 1e-9 of each point's
+    largest entry. In float32 they sit no further from those float64
+    values than autograd in float32 does (the largest distance over the
+    points, each in units of the point's largest entry, within twice
+    autograd's and 2e-6): off the axis p - s cancels in both, by up to
+    3e-5 of a point's VJP at theta = 0.004."""
+    pts = torch.from_numpy(_kb4_points(kind))
+    gj = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (pts.shape[0], 2, 3)).astype(np.float32))
+    (c64, cg64), (a64, ag64) = _kb4_closed_and_autograd(pts, gj,
+                                                        torch.float64)
+    (c32, cg32), (a32, ag32) = _kb4_closed_and_autograd(pts, gj,
+                                                        torch.float32)
+    assert c32.dtype == a32.dtype == torch.float32
+    for dtype, closed, closed_g in ((torch.float64, c64, cg64),
+                                    (torch.float32, c32, cg32)):
+        model, pinhole, lim = _kb4_lens(dtype)
+        p = pts.to(dtype).requires_grad_(True)
+        jac = tproj.projection_jacobian(p, pinhole, lim, model)
+        assert torch.equal(jac.detach(), _closed_form_jacobian(model)(
+            p.detach(), pinhole, lim, model))
+        jac_g, = torch.autograd.grad((jac * gj.to(dtype)).sum(), p)
+        if dtype == torch.float64:
+            scale = jac_g.abs().amax(1)
+            d = (closed_g - jac_g).abs().amax(1)
+            assert bool((d <= 1e-9 * scale).all()), float((d / scale).max())
+    for got, want in ((c64, a64), (cg64, ag64)):
+        scale = want.abs().flatten(1).amax(1)
+        d = (got - want).abs().flatten(1).amax(1)
+        assert bool((d <= 1e-9 * scale).all()), float((d / scale).max())
+    for got, ref, truth in ((c32, a32, a64), (cg32, ag32, ag64)):
+        assert bool(torch.isfinite(got).all())
+        scale = truth.abs().flatten(1).amax(1)
+        d = (got.double() - truth).abs().flatten(1).amax(1)
+        d_ref = (ref.double() - truth).abs().flatten(1).amax(1)
+        worst, worst_ref = float((d / scale).max()), float(
+            (d_ref / scale).max())
+        assert worst <= 2.0 * worst_ref + 2e-6, (worst, worst_ref)
+
+
+@pytest.mark.parametrize("fault", [None, "lens_dropped", "k1_flipped",
+                                   "jacobian_k1_flipped", "row_culled"])
+@pytest.mark.parametrize("mip", [False, True], ids=["nomip", "mip"])
+def test_kb4_compare_rules_fail_faults(monkeypatch, mip, fault):
+    """Through KB4 `compare_forward` holds the kernels to the plain version
+    bit for bit but the colour, as through a pinhole. On the fisheye rows
+    and on strongly anisotropic splats it passes the plain projection with
+    KB4's Jacobian written out as the kernel forms it (`None`), and fails a
+    lens dropped (projected as a pinhole), k1 with its sign flipped, k1
+    flipped in the Jacobian alone (mean2d unchanged on the rows visible to
+    both: the conic, opacity and tile bbox carry the fault) and a visible row reported as culled;
+    `compare_backward` fails the two lens faults."""
+    from brush_tpu_torch.ops import project_cuda
+    from brush_tpu_torch.render import camera_inputs
+    params, cam, img = projection_rows.case("fisheye")
+    aniso = projection_rows.bench_rows(3000, 3000, seed=4)
+    rng = np.random.default_rng(4)
+    aniso[1] += rng.normal(0, 1.5, aniso[1].shape).astype(np.float32)
+    aniso[2][:] = rng.normal(0, 1, aniso[2].shape)
+    rows = [torch.from_numpy(np.concatenate([p, q]))
+            for p, q in zip(params, aniso)]
+    model = cam.model
+    flipped = dataclasses.replace(model, k1=-model.k1)
+    bad = {"lens_dropped": tcam.Pinhole(), "k1_flipped": flipped}.get(
+        fault, model)
+    ci = camera_inputs(cam, img, device="cpu")
+    kw = dict(sh_degree=3, mip_splatting=mip)
+    want = tprojection.project_splats_flags(*rows, ci, img, model=model,
+                                            **kw)
+    with monkeypatch.context() as m:
+        if fault in (None, "jacobian_k1_flipped"):
+            m.setattr(tproj, "projection_jacobian", _closed_form_jacobian(
+                flipped if fault else model))
+        got = tprojection.project_splats_flags(*rows, ci, img, model=bad,
+                                               **kw)
+    assert int(want[0].visible.sum()) > 2000
+    if fault is None:
+        project_cuda.compare_forward(got, want)
+        return
+    if fault == "jacobian_k1_flipped":
+        both = got[0].visible & want[0].visible
+        assert int(both.sum()) > 2000
+        assert torch.equal(got[0].mean2d[both], want[0].mean2d[both])
+    if fault == "row_culled":
+        # A row visible in both reported as culled: a culled row's unit
+        # splat in its fields, its visible flag cleared.
+        (gp, gf), vis = got, want[0].visible
+        r = int(torch.nonzero(vis)[len(torch.nonzero(vis)) // 2])
+        c = int(torch.nonzero(~vis)[0])
+        for f in project_cuda._FIELDS:
+            getattr(gp, f)[r] = getattr(gp, f)[c]
+        gf[r] &= 0xFE
+    with pytest.raises(AssertionError):
+        project_cuda.compare_forward(got, want)
+    if fault in ("row_culled", "jacobian_k1_flipped"):
+        return
+    n = rows[0].shape[0]
+    cots = [torch.from_numpy(rng.normal(0, 1, (n,) + s).astype(np.float32))
+            for s in ((2,), (3,), (3,), ())]
+    args = (*rows, ci, img, want[1], *cots)
+    right = project_cuda.project_backward_plain(*args, model=model, **kw)
+    wrong = project_cuda.project_backward_plain(*args, model=bad, **kw)
+    with pytest.raises(AssertionError):
+        project_cuda.compare_backward(wrong, right)
